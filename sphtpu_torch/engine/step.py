@@ -1,0 +1,252 @@
+"""The simulation step: force eval + adaptive dt + diagnostics + KDK.
+
+Two full force evaluations per step, exactly like the reference loop
+(polytrope_sim.jl:158-313 / isothermal_sim.jl:152-288). A chunk is a host
+loop over steps; dt is data-dependent and stays on the device. Snapshot
+cadence is step-count based, so run_simulation slices chunks at snapshot
+boundaries.
+
+Neighbor engines: when cfg.tile_classes is set, the class-compacted tile
+engine (sphtpu_torch.physics.ctiles) runs first and its per-evaluation
+exactness certificate gates the fallback to the gather engine — a stale
+grid costs speed, never correctness. Reading that certificate is the one
+host synchronisation of a force evaluation. The smoothing lengths ride the
+loop as the grid-sizing hint for the next evaluation.
+
+Stats row layout matches polytrope_sim.jl:202:
+  [t, T, V, U, Etot, com_x, com_y, com_z, |p|, |L|]  (code units here;
+  run_simulation converts to CGS when writing the mmap).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..device import require_on, resolve_device
+from ..physics import (
+    evolve_K,
+    gravity_allpairs,
+    gravity_newton_allpairs,
+    sph_forces,
+)
+from ..physics.tiles import ReducedForces
+from ..profiling import stage
+from .config import EngineConfig, Params, State
+
+
+def _gather_reduced(cfg: EngineConfig, p: Params, pos, vel, K) -> ReducedForces:
+    sf = sph_forces(
+        pos,
+        vel,
+        p.m,
+        K,
+        eos=cfg.eos,
+        gamma=p.gamma,
+        cs0=p.cs0,
+        alpha=p.alpha,
+        beta=p.beta,
+        kh=cfg.kh,
+    )
+    return ReducedForces(
+        sf.acc, sf.rho, sf.h, sf.cs, sf.mu_max, sf.div_sum, sf.visc_dk
+    )
+
+
+def _not_ported(cfg: EngineConfig):
+    if cfg.blocks is not None:
+        return "blocks (the block-compact engine arrives with slice 3 of the port)"
+    if cfg.mlevel is not None:
+        return "mlevel (the multi-level engine arrives with slice 4 of the port)"
+    if cfg.tile is not None and cfg.tile_classes is None:
+        return (
+            "tile without tile_classes (the mono-tile engine arrives with "
+            "slice 2 of the port)"
+        )
+    if cfg.gravity == "p3m":
+        return "gravity='p3m' (the FFT mesh arrives with slice 2 of the port)"
+    return None
+
+
+def force_eval(cfg: EngineConfig, p: Params, pos, vel, K, h_hint, *, device=None):
+    """Hydro + gravity acceleration (getAcc, polytrope_sim.jl:17-51).
+
+    Returns (acc, reduced, phi, fell_back); fell_back is a python bool
+    (the certificate is read back here). device=None means the card."""
+    dev = resolve_device(device)
+    require_on(dev, pos, vel, K)
+    missing = _not_ported(cfg)
+    if missing is not None:
+        raise NotImplementedError(f"EngineConfig with {missing}")
+
+    if cfg.tile is not None and cfg.tile_classes is not None:
+        # occupancy-class-compacted tile path (physics/ctiles.py): padded
+        # query rows are not swept; candidates stay the full 27-cell
+        # prestack so certification equals a mono engine's
+        from ..physics.ctiles import ctile_sph_forces
+
+        grid, cap = cfg.tile
+        with stage("hydro_ctiles"):
+            tf, gcorr, ok = ctile_sph_forces(
+                pos,
+                vel,
+                p.m,
+                K,
+                h_hint,
+                eos=cfg.eos,
+                gamma=p.gamma,
+                cs0=p.cs0,
+                alpha=p.alpha,
+                beta=p.beta,
+                kh=cfg.kh,
+                grid=grid,
+                cap=cap,
+                classes=cfg.tile_classes,
+                mesh_factor=0,
+                sigma_cells=cfg.sigma_cells,
+                device=dev,
+            )
+        ok = bool(ok)  # the one host synchronisation of this evaluation
+        if ok or cfg.fallback == "none":
+            # failed certs under fallback="none" are discarded by
+            # make_step; the gather branch never runs
+            with stage("gravity"):
+                gn, phin = gravity_newton_allpairs(pos, p.m, device=dev)
+            g = gn + torch.stack(gcorr[:3], dim=1)
+            return tf.acc - g, tf, phin + gcorr[3], not ok
+        with stage("hydro_gather"):
+            red = _gather_reduced(cfg, p, pos, vel, K)
+        with stage("gravity"):
+            g, phi = gravity_allpairs(pos, red.h, p.m)
+        return red.acc - g, red, phi, True
+
+    with stage("hydro_gather"):
+        red = _gather_reduced(cfg, p, pos, vel, K)
+    with stage("gravity"):
+        g, phi = gravity_allpairs(pos, red.h, p.m)
+    acc = red.acc - g  # G = 1 in code units (the caller applies -G*g)
+    return acc, red, phi, False
+
+
+def _adaptive_dt(p: Params, sf: ReducedForces, acc, vel):
+    """4-criterion timestep (polytrope_sim.jl:165-174)."""
+    vel_r = torch.sqrt(torch.sum(vel * vel, dim=1))
+    a_r = torch.sqrt(torch.sum(acc * acc, dim=1))
+    abs_div_v = torch.abs(-sf.div_sum / sf.rho)
+    c1 = torch.min(1.0 / abs_div_v)
+    c2 = torch.min(sf.h / vel_r)
+    c3 = torch.min(torch.sqrt(sf.h / a_r))
+    c4 = torch.min(sf.h / (sf.cs + 1.2 * (p.alpha * sf.cs + p.beta * sf.mu_max)))
+    return 0.3 * torch.minimum(torch.minimum(c1, c2), torch.minimum(c3, c4))
+
+
+def _diagnostics(cfg: EngineConfig, p: Params, state: State, sf, phi, vel_r2):
+    """The 10-field stats vector (polytrope_sim.jl:177-202)."""
+    pos, vel = state.pos, state.vel
+    n = pos.shape[0]
+    T = 0.5 * p.m * torch.sum(vel_r2)
+    V = 0.5 * p.m * torch.sum(phi)  # G = 1
+    if cfg.eos == "polytropic":
+        U = p.m * torch.sum(state.K / (p.gamma - 1.0) * sf.rho ** (p.gamma - 1.0))
+        Etot = T + V + U
+    else:
+        U = p.U0
+        Etot = T + V + 2.0 * U  # isothermal_sim.jl:177
+    r_com = torch.sum(pos, dim=0) / n
+    p_lin = p.m * torch.sum(vel, dim=0)
+    lin_mom = torch.sqrt(torch.sum(p_lin**2))
+    rel = pos - r_com
+    ang = p.m * torch.sum(torch.linalg.cross(rel, vel), dim=0)
+    ang_mom = torch.sqrt(torch.sum(ang**2))
+    return torch.stack(
+        [state.t, T, V, U, Etot, r_com[0], r_com[1], r_com[2], lin_mom, ang_mom]
+    )
+
+
+def make_step(cfg: EngineConfig, *, device=None):
+    """Returns step(state, params, h_hint) ->
+    (state', stats_row, h_new, rho_new, n_fallbacks). n_fallbacks is a
+    python int. device=None means the card."""
+    dev = resolve_device(device)
+
+    def step(state: State, p: Params, h_hint) -> Tuple:
+        pos, vel, K = state.pos, state.vel, state.K
+        acc, sf, phi, fb1 = force_eval(cfg, p, pos, vel, K, h_hint, device=dev)
+        dt = _adaptive_dt(p, sf, acc, vel)
+        vel_r2 = torch.sum(vel * vel, dim=1)
+        stats = _diagnostics(cfg, p, state, sf, phi, vel_r2)
+
+        # Leapfrog KDK with predictor-corrector (polytrope_sim.jl:208-227)
+        pos_half = pos + vel * (dt / 2.0)
+        vel_half = vel + acc * (dt / 2.0)
+        if cfg.eos == "polytropic":
+            K = evolve_K(K, sf.visc_dk, p.gamma, sf.rho, dt)
+        acc2, sf2, _, fb2 = force_eval(
+            cfg, p, pos_half, vel_half, K, sf.h, device=dev
+        )
+        if cfg.eos == "polytropic":
+            K = evolve_K(K, sf2.visc_dk, p.gamma, sf2.rho, dt)
+        vel_new = vel + acc2 * dt
+        pos_new = pos + vel_new * dt - 0.5 * acc2 * dt**2
+        n_fb = int(fb1) + int(fb2)
+        if cfg.fallback == "none" and n_fb:
+            # a failed certificate means the (uncertified) forces above
+            # are not trusted: DISCARD the step — state unchanged, stats
+            # zeroed, n_fb tells the caller to replan and re-dispatch.
+            return (
+                state,
+                torch.zeros_like(stats),
+                h_hint,
+                torch.zeros_like(sf2.rho),
+                n_fb,
+            )
+        return (
+            State(pos_new, vel_new, K, state.t + dt),
+            stats,
+            sf2.h,
+            sf2.rho,
+            n_fb,
+        )
+
+    return step
+
+
+def make_chunk_runner(cfg: EngineConfig, *, device=None):
+    """Returns chunk(state, params, h0, n_steps, *, scan_length=None): runs
+    up to n_steps steps, freezing once t >= t_end. Outputs (state,
+    stats (S,10), valid (S,), h_last, rho_last, fallbacks (S,)); rho_last
+    is the last half-step density, which run_simulation threads into the
+    snapshot figures (the reference colors its star scatter by rho,
+    polytrope_sim.jl:265).
+
+    scan_length is the output length S (default n_steps); steps beyond
+    n_steps, like steps at t >= t_end, leave the state untouched and report
+    valid=False with a zero stats row. One host read of `t < t_end` per
+    step and one of the certificate per force evaluation are the only
+    synchronisations. device=None means the card."""
+    dev = resolve_device(device)
+    step = make_step(cfg, device=dev)
+
+    def chunk(state: State, p: Params, h0, n_steps, *, scan_length=None):
+        require_on(dev, *state, h0)
+        n_steps = int(n_steps)
+        if scan_length is None:
+            scan_length = n_steps
+        if n_steps > scan_length:
+            raise ValueError(f"n_steps {n_steps} > scan_length {scan_length}")
+        dtype = state.pos.dtype
+        stats = torch.zeros((scan_length, 10), dtype=dtype, device=dev)
+        valid = torch.zeros((scan_length,), dtype=torch.bool, device=dev)
+        nfb = torch.zeros((scan_length,), dtype=torch.int32, device=dev)
+        h, rho = h0, torch.zeros_like(h0)
+        for i in range(n_steps):
+            if not bool(state.t < p.t_end):
+                break
+            state, stats_i, h, rho, n_fb = step(state, p, h)
+            stats[i] = stats_i
+            valid[i] = True
+            nfb[i] = n_fb
+        return state, stats, valid, h, rho, nfb
+
+    return chunk

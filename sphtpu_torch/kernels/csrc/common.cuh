@@ -1,0 +1,122 @@
+// Shared helpers for the hand-written Hopper kernels of sphtpu_torch.
+//
+// Every kernel source exports a plain C interface (loaded with ctypes):
+// device pointers and the CUDA stream arrive as void*, the entry point
+// launches on that stream, does not synchronise, allocates nothing, and
+// returns cudaGetLastError() as an int (0 = launched).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cfloat>
+
+#ifndef SPH_LAUNCH
+#define SPH_LAUNCH(kernel, grid, block, smem, stream, ...) \
+  kernel<<<(grid), (block), (smem), (stream)>>>(__VA_ARGS__)
+#endif
+
+namespace sph {
+
+// Per-type arithmetic. mul_rn/add_rn are the round-to-nearest intrinsics
+// that the compiler never contracts into an FMA: the squared distance
+// feeds <= comparisons (bisection counts, forward/reverse neighbour masks,
+// the r_k <= reach certificate) that must agree bit for bit between the
+// two tile kernels and with the plain PyTorch versions.
+template <typename T>
+struct Num;
+
+template <>
+struct Num<float> {
+  static __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float rsqrt(float a) { return rsqrtf(a); }
+  static __device__ __forceinline__ float sqrt(float a) { return sqrtf(a); }
+  static __device__ __forceinline__ float exp(float a) { return expf(a); }
+  static __device__ __forceinline__ float big() { return FLT_MAX; }
+};
+
+template <>
+struct Num<double> {
+  static __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ __forceinline__ double rsqrt(double a) { return ::rsqrt(a); }
+  static __device__ __forceinline__ double sqrt(double a) { return ::sqrt(a); }
+  static __device__ __forceinline__ double exp(double a) { return ::exp(a); }
+  static __device__ __forceinline__ double big() { return DBL_MAX; }
+};
+
+// d2 = (dx*dx + dy*dy) + dz*dz with every product and sum rounded on its
+// own, the evaluation order of the plain versions.
+template <typename T>
+__device__ __forceinline__ T dist2(T dx, T dy, T dz) {
+  return Num<T>::add_rn(
+      Num<T>::add_rn(Num<T>::mul_rn(dx, dx), Num<T>::mul_rn(dy, dy)),
+      Num<T>::mul_rn(dz, dz));
+}
+
+// The tile kernels give each query LANES_PER_QUERY consecutive lanes of a
+// warp; a block of TILE_THREADS threads owns QUERIES_PER_BLOCK queries of
+// one cell row.
+constexpr int LANES_PER_QUERY = 8;
+constexpr int TILE_THREADS = 256;
+constexpr int TILE_WARPS = TILE_THREADS / 32;
+constexpr int QUERIES_PER_BLOCK = TILE_THREADS / LANES_PER_QUERY;
+
+// Mask naming the LANES_PER_QUERY lanes of the calling thread's group: the
+// lanes of one query always run together, other groups of the warp may
+// have exited (masked-off queries).
+__device__ __forceinline__ unsigned group_mask() {
+  const int lane = threadIdx.x & 31;
+  return ((1u << LANES_PER_QUERY) - 1u) << (lane & ~(LANES_PER_QUERY - 1));
+}
+
+template <typename T>
+__device__ __forceinline__ T group_sum(T v) {
+  const unsigned mask = group_mask();
+#pragma unroll
+  for (int o = LANES_PER_QUERY / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T group_max(T v) {
+  const unsigned mask = group_mask();
+#pragma unroll
+  for (int o = LANES_PER_QUERY / 2; o > 0; o >>= 1) {
+    const T w = __shfl_xor_sync(mask, v, o);
+    v = w > v ? w : v;
+  }
+  return v;
+}
+
+// Block-wide, order-preserving compaction step: every thread of the block
+// calls it with the flag of ONE input slot; returns the slot's position in
+// the compacted list (valid only where keep is true) and advances `base`
+// (uniform across the block) by the number kept. wcount is TILE_WARPS ints
+// of shared memory. Two __syncthreads inside.
+__device__ __forceinline__ int compact_slot(bool keep, int& base, int* wcount) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+  if (lane == 0) wcount[warp] = __popc(ballot);
+  __syncthreads();
+  int off = base;
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < TILE_WARPS; ++w) {
+    const int c = wcount[w];
+    if (w < warp) off += c;
+    total += c;
+  }
+  const int pos = off + __popc(ballot & ((1u << lane) - 1u));
+  base += total;
+  __syncthreads();
+  return pos;
+}
+
+}  // namespace sph
+
+// Text of a code returned by an entry point of this library.
+extern "C" const char* sph_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

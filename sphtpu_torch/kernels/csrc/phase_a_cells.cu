@@ -1,0 +1,193 @@
+// phase_a_cells: exact k-th neighbour distance by count bisection + density.
+//
+// Replaces the TPU kernel sphtpu/kernels/pallas_strip_knn.py::phase_a_cells
+// (_kernel). Per query slot of a cell row: squared distances to the row's
+// candidates, n_bisect count bisections on [0, 1.001 * reach2] for the
+// exact k-th distance, rk2 = max{d2 <= hi}, nfound = #{d2 <= rk2},
+// h = sqrt(rk2) / 2, rho = m * sum W over d2 <= rk2 (self pair included),
+// ok = masked-off | (nfound >= kh & rk2 <= reach2).
+//
+// Bound on this card: operations (d2 once per (query, occupied candidate)
+// pair, then a compare and a count per pass) while the row's candidates are
+// read from device memory once. This kernel does more than that bound
+// counts: it keeps no d2 per pair and re-evaluates it on every one of the
+// n_bisect + 3 passes.
+// Design: a block owns 32 queries of one cell row, 8 lanes per query. The
+// row's OCCUPIED candidates (mask > 0; most stencil slots are padding) are
+// compacted, order kept, into shared memory once; every pass recomputes d2
+// from shared memory and reduces an INTEGER count by warp shuffle, so the
+// bisection fixed point does not depend on reduction order — only rho
+// reassociates. The three candidate planes of a row (3 * cw elements) must
+// fit the shared memory a block may opt into; the wrapper refuses wider rows.
+#include "common.cuh"
+
+namespace sph {
+
+template <typename T>
+struct PhaseAArgs {
+  const T* qx;
+  const T* qy;
+  const T* qz;
+  const T* qm;
+  const T* reach2;
+  const T* cx;
+  const T* cy;
+  const T* cz;
+  const T* cm;
+  const T* m;  // one element, on the device
+  T* h;
+  T* rho;
+  T* ok;
+  int cap;
+  int cw;
+  int kh;
+  int n_bisect;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int wcount[TILE_WARPS];
+  T* sx = reinterpret_cast<T*>(smem_raw);
+  T* sy = sx + a.cw;
+  T* sz = sy + a.cw;
+
+  const long row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int sub = tid % LANES_PER_QUERY;
+  const int q = blockIdx.y * QUERIES_PER_BLOCK + tid / LANES_PER_QUERY;
+  const T* cx = a.cx + row * a.cw;
+  const T* cy = a.cy + row * a.cw;
+  const T* cz = a.cz + row * a.cw;
+  const T* cm = a.cm + row * a.cw;
+
+  int ncand = 0;
+  for (int t0 = 0; t0 < a.cw; t0 += TILE_THREADS) {
+    const int j = t0 + tid;
+    const bool keep = j < a.cw && cm[j] > T(0);
+    const int p = compact_slot(keep, ncand, wcount);
+    if (keep) {
+      sx[p] = cx[j];
+      sy[p] = cy[j];
+      sz[p] = cz[j];
+    }
+  }
+  __syncthreads();
+
+  if (q >= a.cap) return;
+  const long qi = row * a.cap + q;
+  const bool qvalid = a.qm[qi] > T(0);
+  if (!qvalid) {
+    // off-mask rows: h = rho = 0, ok = 1 (all lanes of the group agree)
+    if (sub == 0) {
+      a.h[qi] = T(0);
+      a.rho[qi] = T(0);
+      a.ok[qi] = T(1);
+    }
+    return;
+  }
+  // from here on all LANES_PER_QUERY lanes of the group are active together
+
+  const T qx = a.qx[qi];
+  const T qy = a.qy[qi];
+  const T qz = a.qz[qi];
+  const T r2 = a.reach2[qi];
+
+#define SPH_FOR_EACH_CAND(...)                                 \
+  for (int j = sub; j < ncand; j += LANES_PER_QUERY) {           \
+    const T d2 = dist2<T>(qx - sx[j], qy - sy[j], qz - sz[j]);   \
+    __VA_ARGS__                                                  \
+  }
+
+  T lo = T(0);
+  T hi = T(1.001) * r2;
+  for (int it = 0; it < a.n_bisect; ++it) {
+    const T mid = T(0.5) * (lo + hi);
+    int cnt = 0;
+    SPH_FOR_EACH_CAND(cnt += (d2 <= mid) ? 1 : 0;)
+    cnt = group_sum<int>(cnt);
+    const bool ge = cnt >= a.kh;  // k-th distance <= mid: shrink to [lo, mid]
+    lo = ge ? lo : mid;
+    hi = ge ? mid : hi;
+  }
+
+  T rk2 = T(0);
+  SPH_FOR_EACH_CAND(if (d2 <= hi && d2 > rk2) rk2 = d2;)
+  rk2 = group_max<T>(rk2);
+
+  const T h_t = Num<T>::sqrt(rk2) / T(2);
+  const T h_safe = h_t > T(0) ? h_t : T(1);
+  const T ct = T(1) / (T(3.14159265358979323846) * (h_safe * h_safe * h_safe));
+  int nfound = 0;
+  T wsum = T(0);
+  SPH_FOR_EACH_CAND(
+      if (d2 <= rk2) {
+        nfound += 1;
+        const T qq = Num<T>::sqrt(d2) / h_safe;
+        const T two_m = T(2) - qq;
+        const T w = qq <= T(1)
+                        ? T(1) - T(1.5) * (qq * qq) + T(0.75) * (qq * qq * qq)
+                        : (qq <= T(2) ? T(0.25) * (two_m * two_m * two_m) : T(0));
+        wsum += ct * w;
+      })
+  nfound = group_sum<int>(nfound);
+  wsum = group_sum<T>(wsum);
+#undef SPH_FOR_EACH_CAND
+
+  if (sub == 0) {
+    a.h[qi] = h_t;
+    a.rho[qi] = a.m[0] * wsum;
+    a.ok[qi] = (nfound >= a.kh && rk2 <= r2) ? T(1) : T(0);
+  }
+}
+
+template <typename T>
+int launch_phase_a(PhaseAArgs<T> a, int n_cells, cudaStream_t stream) {
+  if (n_cells <= 0) return 0;
+  const dim3 grid(n_cells, (a.cap + QUERIES_PER_BLOCK - 1) / QUERIES_PER_BLOCK);
+  const size_t smem = size_t(3) * a.cw * sizeof(T);
+  cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  SPH_LAUNCH((phase_a_kernel<T>), grid, TILE_THREADS, smem, stream, a);
+  return int(cudaGetLastError());
+}
+
+}  // namespace sph
+
+namespace sph {
+
+template <typename T>
+int phase_a_from_ptrs(void* const* p, int n_cells, int cap, int cw, int kh, int n_bisect,
+                      cudaStream_t stream) {
+  PhaseAArgs<T> a;
+  a.qx = static_cast<const T*>(p[0]);
+  a.qy = static_cast<const T*>(p[1]);
+  a.qz = static_cast<const T*>(p[2]);
+  a.qm = static_cast<const T*>(p[3]);
+  a.reach2 = static_cast<const T*>(p[4]);
+  a.cx = static_cast<const T*>(p[5]);
+  a.cy = static_cast<const T*>(p[6]);
+  a.cz = static_cast<const T*>(p[7]);
+  a.cm = static_cast<const T*>(p[8]);
+  a.m = static_cast<const T*>(p[9]);
+  a.h = static_cast<T*>(p[10]);
+  a.rho = static_cast<T*>(p[11]);
+  a.ok = static_cast<T*>(p[12]);
+  a.cap = cap;
+  a.cw = cw;
+  a.kh = kh;
+  a.n_bisect = n_bisect;
+  return launch_phase_a<T>(a, n_cells, stream);
+}
+
+}  // namespace sph
+
+// ptrs: qx qy qz qm reach2 cx cy cz cm m h rho ok (13 device pointers, m one
+// element). 3 * cw elements must fit a block's opt-in shared memory.
+extern "C" int sph_phase_a_cells(void* const* ptrs, int n_cells, int cap, int cw, int kh,
+                                 int n_bisect, int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_double ? sph::phase_a_from_ptrs<double>(ptrs, n_cells, cap, cw, kh, n_bisect, s)
+                   : sph::phase_a_from_ptrs<float>(ptrs, n_cells, cap, cw, kh, n_bisect, s);
+}

@@ -1,0 +1,81 @@
+"""newton_sweep: the pure-Newtonian all-pairs gravity sweep.
+
+Counterpart of the reference's TPU kernel
+sphtpu/kernels/pallas_gravity.py::newton_sweep_pallas. Tensors on a CUDA
+device go to the hand-written kernel csrc/newton_sweep.cu; tensors on the
+CPU go to `newton_sweep_plain`. physics/gravity.py::gravity_newton_allpairs
+is a thin entry point over `newton_sweep`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+launches = 0  # kernel launches made by newton_sweep (CUDA tensors only)
+
+
+def newton_sweep_plain(
+    pos: torch.Tensor, m, *, block_q: int = 256, block_c: int = 2048
+):
+    """Plain PyTorch version, blocked so the (block_q, block_c) pair
+    temporaries stay bounded: g_i = m sum_j (x_i - x_j)/r^3,
+    phi_i = -m sum_j 1/r, pairs with r^2 = 0 excluded."""
+    n = pos.shape[0]
+    cx, cy, cz = (pos[:, a].contiguous() for a in range(3))
+    g = torch.empty_like(pos)
+    phi = torch.empty((n,), dtype=pos.dtype, device=pos.device)
+    one = torch.ones((), dtype=pos.dtype, device=pos.device)
+    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+    for r0 in range(0, n, block_q):
+        qpos = pos[r0 : r0 + block_q]
+        bq = qpos.shape[0]
+        gx = torch.zeros((bq,), dtype=pos.dtype, device=pos.device)
+        gy = torch.zeros_like(gx)
+        gz = torch.zeros_like(gx)
+        ph = torch.zeros_like(gx)
+        for c0 in range(0, n, block_c):
+            dx = qpos[:, 0:1] - cx[None, c0 : c0 + block_c]
+            dy = qpos[:, 1:2] - cy[None, c0 : c0 + block_c]
+            dz = qpos[:, 2:3] - cz[None, c0 : c0 + block_c]
+            r2 = dx * dx + dy * dy + dz * dz
+            pos_r2 = r2 > 0
+            inv_r = torch.where(
+                pos_r2, torch.rsqrt(torch.where(pos_r2, r2, one)), zero
+            )
+            inv_r3 = inv_r * inv_r * inv_r
+            gx = gx + torch.sum(inv_r3 * dx, dim=1)
+            gy = gy + torch.sum(inv_r3 * dy, dim=1)
+            gz = gz + torch.sum(inv_r3 * dz, dim=1)
+            ph = ph - torch.sum(inv_r, dim=1)
+        g[r0 : r0 + bq] = m * torch.stack([gx, gy, gz], dim=1)
+        phi[r0 : r0 + bq] = m * ph
+    return g, phi
+
+
+def newton_sweep(pos: torch.Tensor, m):
+    """(g (N, 3), phi (N,)): Newtonian all-pairs, self excluded by r = 0."""
+    if pos.device.type != "cuda":
+        return newton_sweep_plain(pos, m)
+    global launches
+    n = pos.shape[0]
+    dtype, device = pos.dtype, pos.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"newton_sweep: unsupported dtype {dtype}")
+    build.check_tensor("pos", pos, (n, 3), dtype, device)
+    m_dev = build.scalar_tensor([m], dtype, device)
+    g = torch.empty((n, 3), dtype=dtype, device=device)
+    phi = torch.empty((n,), dtype=dtype, device=device)
+    if n == 0:
+        return g, phi
+    lib = build.load_kernels()["newton_sweep"]
+    with torch.cuda.device(device):
+        code = lib.sph_newton_sweep(
+            pos.data_ptr(), m_dev.data_ptr(), g.data_ptr(), phi.data_ptr(),
+            n, int(dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check("newton_sweep", code)
+    launches += 1
+    return g, phi

@@ -1,0 +1,143 @@
+"""phase_a_cells: exact k-th neighbour distance + density per cell row.
+
+Counterpart of the reference's TPU kernel
+sphtpu/kernels/pallas_strip_knn.py::phase_a_cells. Tensors on a CUDA
+device go to the hand-written kernel csrc/phase_a_cells.cu; tensors on the
+CPU go to `phase_a_cells_plain`, the plain PyTorch version that repeats the
+kernel body step by step. The choice is made on the input's device only.
+
+Semantics: per query, d2 to every candidate of its cell row (invalid ->
++max), `n_bisect` binary count bisections on [0, 1.001 * reach2] for the
+exact k-th distance, rk2 = max{d2 <= hi}, nfound = #{d2 <= rk2},
+h = sqrt(rk2) / 2, rho = m * sum W over d2 <= rk2 (self pair included).
+Ties at the k-th distance are all included (they sit at q = 2 where W
+vanishes). Off-mask query rows return h = rho = 0, ok = 1.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .cubic_spline import W
+
+N_BISECT = 34
+
+# shared memory a block may opt into on Hopper (227 KB), less 1 KB for the
+# kernel's static share; the kernel keeps a row's three candidate planes there
+SMEM_LIMIT = 226 * 1024
+
+launches = 0  # kernel launches made by phase_a_cells (CUDA tensors only)
+
+
+def phase_a_cells_plain(
+    queries, reach2, cands, m, *, kh: int, cap: int,
+    n_bisect: int = N_BISECT, row_chunk: int = 0,
+):
+    """Plain PyTorch version: broadcast (rows, cap, 1) against
+    (rows, 1, cw), row-chunked to bound the pair temporaries."""
+    qx, qy, qz, qm = queries
+    cx, cy, cz, cm = cands
+    n_cells, cw = cx.shape
+    dtype = cx.dtype
+    big = torch.finfo(dtype).max
+    if not row_chunk:
+        row_chunk = max(1, 4_000_000 // max(cap * cw, 1))
+    h_out = torch.empty((n_cells, cap), dtype=dtype, device=cx.device)
+    rho_out = torch.empty_like(h_out)
+    ok_out = torch.empty_like(h_out)
+    zero = torch.zeros((), dtype=dtype, device=cx.device)
+    one = torch.ones((), dtype=dtype, device=cx.device)
+    for r0 in range(0, n_cells, row_chunk):
+        sl = slice(r0, r0 + row_chunk)
+        dx = qx[sl, :, None] - cx[sl, None, :]
+        dy = qy[sl, :, None] - cy[sl, None, :]
+        dz = qz[sl, :, None] - cz[sl, None, :]
+        d2 = dx * dx + dy * dy + dz * dz
+        valid = (cm[sl, None, :] > 0) & (qm[sl, :, None] > 0)
+        d2m = torch.where(valid, d2, torch.full_like(d2, big))
+        r2 = reach2[sl, :, None]
+        hi = 1.001 * r2
+        lo = torch.zeros_like(r2)
+        for _ in range(n_bisect):
+            mid = 0.5 * (lo + hi)
+            cnt = torch.sum(d2m <= mid, dim=2, keepdim=True)
+            ge = cnt >= kh  # k-th distance <= mid: shrink to [lo, mid]
+            lo, hi = torch.where(ge, lo, mid), torch.where(ge, mid, hi)
+        inw = d2m <= hi
+        rk2 = torch.max(torch.where(inw, d2m, zero), dim=2, keepdim=True).values
+        within = d2m <= rk2
+        nfound = torch.sum(within, dim=2, keepdim=True)
+        h_t = torch.sqrt(rk2) / 2.0
+        h_safe = torch.where(h_t > 0, h_t, one)
+        w_k = W(torch.sqrt(d2) / h_safe, h_safe)
+        rho_t = m * torch.sum(
+            torch.where(valid & within, w_k, zero), dim=2, keepdim=True
+        )
+        row_ok = (qm[sl, :, None] <= 0) | ((nfound >= kh) & (rk2 <= r2))
+        h_out[sl] = h_t[..., 0]
+        rho_out[sl] = rho_t[..., 0]
+        ok_out[sl] = row_ok[..., 0].to(dtype)
+    return h_out, rho_out, ok_out
+
+
+def shared_bytes(cw: int, dtype) -> int:
+    """Shared memory the kernel needs for a candidate row of width cw;
+    raises where that is more than a block may have."""
+    need = 3 * cw * dtype.itemsize
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"phase_a_cells: cw={cw} in {dtype} needs {need} B of shared memory, "
+            f"a block may have {SMEM_LIMIT}"
+        )
+    return need
+
+
+def phase_a_cells(
+    queries,  # (qx, qy, qz, qm): each (n_cells, cap); qm = query mask
+    reach2,  # (n_cells, cap) per-query certification radius^2
+    cands,  # (cx, cy, cz, cm): each (n_cells, cw); cm = occupancy
+    m,
+    *,
+    kh: int,
+    cap: int,
+    n_bisect: int = N_BISECT,
+):
+    """Returns (h, rho, ok) each (n_cells, cap); ok is 1.0 where the row
+    certifies (masked-off, or k found with r_k^2 <= reach2).
+
+    Shape-generic over cap and the candidate width cw, as far as a row's
+    candidates fit a block's shared memory (`shared_bytes`)."""
+    cx = cands[0]
+    if cx.device.type != "cuda":
+        return phase_a_cells_plain(
+            queries, reach2, cands, m, kh=kh, cap=cap, n_bisect=n_bisect
+        )
+    global launches
+    n_cells, cw = cx.shape
+    dtype, device = cx.dtype, cx.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"phase_a_cells: unsupported dtype {dtype}")
+    for i, t in enumerate(queries):
+        build.check_tensor(f"queries[{i}]", t, (n_cells, cap), dtype, device)
+    build.check_tensor("reach2", reach2, (n_cells, cap), dtype, device)
+    for i, t in enumerate(cands):
+        build.check_tensor(f"cands[{i}]", t, (n_cells, cw), dtype, device)
+    shared_bytes(cw, dtype)
+    m_dev = build.scalar_tensor([m], dtype, device)
+    h = torch.empty((n_cells, cap), dtype=dtype, device=device)
+    rho = torch.empty_like(h)
+    ok = torch.empty_like(h)
+    if n_cells == 0:
+        return h, rho, ok
+    lib = build.load_kernels()["phase_a_cells"]
+    ptrs = build.pointer_array([*queries, reach2, *cands, m_dev, h, rho, ok])
+    with torch.cuda.device(device):
+        code = lib.sph_phase_a_cells(
+            ptrs, n_cells, cap, cw, kh, n_bisect,
+            int(dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check("phase_a_cells", code)
+    launches += 1
+    return h, rho, ok

@@ -1,0 +1,252 @@
+"""phase_b_tiles: pair forces + near-field gravity correction per cell row.
+
+Counterpart of the reference's TPU kernel
+sphtpu/kernels/pallas_tile_pairs.py::phase_b_tiles. Tensors on a CUDA
+device go to the hand-written kernel csrc/phase_b_tiles.cu; tensors on the
+CPU go to `phase_b_tiles_plain`, the plain PyTorch version that repeats the
+kernel body step by step. The choice is made on the input's device only.
+
+There are NO candidate-side accumulators: the tile formulation evaluates
+the symmetric pair sum from the receiver's side (forward mask = c in
+knn(q), reverse mask = q in knn(c) — the scatter-free factoring of
+hydroCalculation, polytrope_hydroKDTree.jl:229-245), so each query row
+owns its complete result.
+
+Physics per slot is the division-diet algebra: everything on
+inv_r = rsqrt(d2) with polynomial piecewise helpers in q = r/h. The gravity
+correction is term 1 (softened - Newtonian, q <= 2) plus, with p3m=True,
+term 2 (Newtonian - mesh shape) — valid when the tail stencil half-width
+is one cell (EngineConfig.c_halfwidth == 1, i.e. mesh_factor >=
+ceil(4.4 * sigma_cells); the default mesh_factor of 5 does NOT satisfy
+it), which the caller must guarantee.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..physics.mesh_gravity import newton_minus_mesh
+from . import build
+
+launches = 0  # kernel launches made by phase_b_tiles (CUDA tensors only)
+
+
+def phase_b_tiles_plain(
+    qfields, cfields, m, alpha, beta, sigma, *, eos: str, p3m: bool, cap: int,
+    row_chunk: int = 0,
+):
+    """Plain PyTorch version: broadcast (rows, cap, 1) against
+    (rows, 1, cw), row-chunked to bound the pair temporaries."""
+    n_cells, cw = cfields[0].shape
+    dtype = cfields[0].dtype
+    device = cfields[0].device
+    big = torch.finfo(dtype).max
+    if not row_chunk:
+        row_chunk = max(1, 1_000_000 // max(cap * cw, 1))
+    outs = [torch.empty((n_cells, cap), dtype=dtype, device=device) for _ in range(10)]
+    zero = torch.zeros((), dtype=dtype, device=device)
+    one = torch.ones((), dtype=dtype, device=device)
+    for r0 in range(0, n_cells, row_chunk):
+        sl = slice(r0, r0 + row_chunk)
+        qx, qy, qz, qvx, qvy, qvz, qm, qh, qrho, qpor2, qcs = (
+            a[sl, :, None] for a in qfields
+        )
+        cx, cy, cz, cvx, cvy, cvz, cm, ch, crho, cpor2, ccs = (
+            a[sl, None, :] for a in cfields
+        )
+        dx = qx - cx
+        dy = qy - cy
+        dz = qz - cz
+        d2 = dx * dx + dy * dy + dz * dz
+        inv_r = torch.rsqrt(torch.where(d2 > 0, d2, one))
+        inv_r = torch.where(d2 > 0, inv_r, zero)  # self-pairs: 1/r -> 0
+        r = d2 * inv_r
+        valid = (cm > 0) & (qm > 0)
+
+        # r_k = 2h recomputed here ((2h)^2 rounds identically)
+        fwd = valid & (d2 <= (2.0 * qh) * (2.0 * qh))
+        rev = valid & (d2 <= (2.0 * ch) * (2.0 * ch))
+
+        h_q = torch.where(qh > 0, qh, one)
+        h_c = torch.where(ch > 0, ch, one)
+        h_avg = 0.5 * (h_q + h_c)
+        inv_h = 1.0 / h_avg
+        rho_avg = torch.where(valid, 0.5 * (qrho + crho), one)
+        inv_rho = 1.0 / rho_avg
+
+        dvx = qvx - cvx
+        dvy = qvy - cvy
+        dvz = qvz - cvz
+        v_dot_r = dvx * dx + dvy * dy + dvz * dz
+        mu = torch.clamp_max(
+            h_avg * v_dot_r * (1.0 / (d2 + 0.01 * (h_avg * h_avg))), 0.0
+        )
+        pi_fwd = (-alpha * qcs * mu + beta * mu * mu) * inv_rho
+        pi_rev = (-alpha * ccs * mu + beta * mu * mu) * inv_rho
+
+        # grad_W(q)/r with per-side h (row/column reciprocal powers)
+        inv_hq = 1.0 / h_q
+        inv_hq2 = inv_hq * inv_hq
+        ct_wq = (1.0 / math.pi) * inv_hq2 * inv_hq2
+        q_q = r * inv_hq
+        dwdr_q = torch.where(
+            q_q <= 1.0,
+            ct_wq * (2.25 * r * inv_hq2 - 3.0 * inv_hq),
+            torch.where(
+                q_q <= 2.0, ct_wq * (-0.75 * (2.0 - q_q) ** 2) * inv_r, zero
+            ),
+        )
+        inv_hc = 1.0 / h_c
+        inv_hc2 = inv_hc * inv_hc
+        ct_wc = (1.0 / math.pi) * inv_hc2 * inv_hc2
+        q_c = r * inv_hc
+        dwdr_c = torch.where(
+            q_c <= 1.0,
+            ct_wc * (2.25 * r * inv_hc2 - 3.0 * inv_hc),
+            torch.where(
+                q_c <= 2.0, ct_wc * (-0.75 * (2.0 - q_c) ** 2) * inv_r, zero
+            ),
+        )
+
+        if eos == "polytropic":
+            psum = qpor2 + cpor2
+            ct_fwd = m * (psum + pi_fwd) / 2.0
+            ct_rev = m * (psum + pi_rev) / 2.0
+        else:
+            ct_fwd = m * (qpor2 + pi_fwd / 2.0)
+            ct_rev = m * (cpor2 + pi_rev / 2.0)
+
+        coeff = -torch.where(fwd, ct_fwd * dwdr_q, zero) - torch.where(
+            rev, ct_rev * dwdr_c, zero
+        )
+        outs[0][sl] = torch.sum(coeff * dx, dim=2)
+        outs[1][sl] = torch.sum(coeff * dy, dim=2)
+        outs[2][sl] = torch.sum(coeff * dz, dim=2)
+
+        v_dot_dw_q = v_dot_r * dwdr_q
+        v_dot_dw_c = v_dot_r * dwdr_c
+        outs[3][sl] = m * torch.sum(torch.where(fwd, v_dot_dw_q, zero), dim=2)
+        outs[4][sl] = torch.max(
+            torch.where(fwd, mu, torch.full_like(mu, -big)), dim=2
+        ).values
+        outs[5][sl] = torch.sum(
+            torch.where(fwd, m * pi_fwd * v_dot_dw_q / 2.0, zero)
+            + torch.where(rev, m * pi_rev * v_dot_dw_c / 2.0, zero),
+            dim=2,
+        )
+
+        # near-field gravity correction, term 1: softened - Newtonian for
+        # q <= 2 (Newtonian terms vanish at self-pairs via inv_r = 0)
+        newt_g = inv_r * inv_r * inv_r
+        newt_p = -inv_r
+        q_g = r * inv_h
+        q2_g = q_g * q_g
+        q3_g = q2_g * q_g
+        inv_h2 = inv_h * inv_h
+        inv_q = h_avg * inv_r  # 1/q, 0 at self-pairs
+        soft_g = torch.where(
+            q_g <= 1.0,
+            inv_h2 * inv_h * (4.0 / 3.0 - 1.2 * q2_g + 0.5 * q3_g),
+            torch.where(
+                q_g <= 2.0,
+                inv_h2
+                * (
+                    8.0 / 3.0 * q_g
+                    - 3.0 * q2_g
+                    + 1.2 * q3_g
+                    - q2_g * q2_g / 6.0
+                    - (1.0 / 15.0) * inv_q * inv_q
+                )
+                * inv_r,
+                newt_g,
+            ),
+        )
+        soft_p = torch.where(
+            q_g <= 1.0,
+            inv_h
+            * (2.0 / 3.0 * q2_g - 0.3 * q2_g * q2_g + 0.1 * q2_g * q3_g - 1.4),
+            torch.where(
+                q_g <= 2.0,
+                inv_h
+                * (
+                    4.0 / 3.0 * q2_g
+                    - q3_g
+                    + 0.3 * q2_g * q2_g
+                    - q2_g * q3_g / 30.0
+                    - 1.6
+                    + (1.0 / 15.0) * inv_q
+                ),
+                newt_p,
+            ),
+        )
+        gmask = valid & (r <= 2.0 * h_avg)
+        cgp = torch.where(gmask, soft_g - newt_g, zero)
+        cpp = torch.where(gmask, soft_p - newt_p, zero)
+        if p3m:
+            # term 2 (Newtonian - mesh shape), the c_halfwidth == 1 geometry
+            tg, tp = newton_minus_mesh(d2, inv_r, sigma)
+            cgp = cgp + torch.where(valid, tg, zero)
+            cpp = cpp + torch.where(valid, tp, zero)
+        outs[6][sl] = m * torch.sum(cgp * dx, dim=2)
+        outs[7][sl] = m * torch.sum(cgp * dy, dim=2)
+        outs[8][sl] = m * torch.sum(cgp * dz, dim=2)
+        outs[9][sl] = m * torch.sum(cpp, dim=2)
+    return tuple(outs)
+
+
+def phase_b_tiles(
+    qfields,  # 11-tuple of (n_cells, cap) query-slot tensors
+    cfields,  # 11-tuple of (n_cells, cw) candidate prestack rows
+    m, alpha, beta, sigma,
+    *,
+    eos: str,
+    p3m: bool,
+    cap: int,
+):
+    """Returns 10 query-side (n_cells, cap) tensors: ax, ay, az, div,
+    mu_max, visc, ggx, ggy, ggz, gphi. Field order on both sides: x, y, z,
+    vx, vy, vz, mask, h, rho, P/rho^2, cs. sigma may be None when p3m is
+    False."""
+    if eos not in ("polytropic", "isothermal"):
+        raise ValueError(f"unknown EOS {eos!r}")
+    if p3m and sigma is None:
+        raise ValueError("p3m=True needs sigma")
+    c0 = cfields[0]
+    if c0.device.type != "cuda":
+        return phase_b_tiles_plain(
+            qfields, cfields, m, alpha, beta, sigma, eos=eos, p3m=p3m, cap=cap
+        )
+    global launches
+    n_cells, cw = c0.shape
+    dtype, device = c0.dtype, c0.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"phase_b_tiles: unsupported dtype {dtype}")
+    if len(qfields) != 11 or len(cfields) != 11:
+        raise ValueError("phase_b_tiles takes 11 query and 11 candidate fields")
+    for i, t in enumerate(qfields):
+        build.check_tensor(f"qfields[{i}]", t, (n_cells, cap), dtype, device)
+    for i, t in enumerate(cfields):
+        build.check_tensor(f"cfields[{i}]", t, (n_cells, cw), dtype, device)
+    scal = build.scalar_tensor(
+        [m, alpha, beta, sigma if sigma is not None else 1.0], dtype, device
+    )
+    out = torch.empty((10, n_cells, cap), dtype=dtype, device=device)
+    outs = tuple(out.unbind(0))
+    if n_cells == 0:
+        return outs
+    lib = build.load_kernels()["phase_b_tiles"]
+    with torch.cuda.device(device):
+        code = lib.sph_phase_b_tiles(
+            build.pointer_array(list(qfields)),
+            build.pointer_array(list(cfields)),
+            scal.data_ptr(),
+            build.pointer_array(list(outs)),
+            n_cells, cap, cw, int(eos == "isothermal"), int(p3m),
+            int(dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check("phase_b_tiles", code)
+    launches += 1
+    return outs

@@ -1,0 +1,239 @@
+"""The slice as a whole: chunk runner of the port vs the JAX package.
+
+Same numpy state through `sphtpu.engine.make_chunk_runner` (Pallas kernels
+interpreted on the CPU) and `sphtpu_torch.engine.make_chunk_runner` with
+device="cpu". f64, rtol 1e-8: the two differ by reduction order only."""
+
+import dataclasses
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.spatial import cKDTree
+
+import sphtpu.engine as ref_engine
+from sphtpu.physics.ctiles import choose_tile_classes
+from sphtpu_torch.engine import (
+    EngineConfig,
+    config_from_reference,
+    make_chunk_runner,
+    params_from_numpy,
+    state_from_numpy,
+)
+from sphtpu_torch.engine.step import force_eval
+
+# the suite runs several pytest workers per machine: keep torch's intra-op
+# pool from oversubscribing the cores they share
+torch.set_num_threads(2)
+
+
+N, KH, STEPS = 1500, 12, 3
+PARAMS = dict(m=1.0 / N, gamma=5 / 3, cs0=0.6, alpha=1.0, beta=2.0, U0=0.3, t_end=1e9)
+
+
+def _two_scale_ball(n, seed=4):
+    rng = np.random.default_rng(seed)
+    n_core = n // 3
+    u = rng.random(n) ** (1 / 3)
+    u[:n_core] *= 0.6
+    dirs = rng.standard_normal((n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    return u[:, None] * dirs, 0.3 * rng.standard_normal((n, 3))
+
+
+@pytest.fixture(scope="module")
+def scene():
+    pos, vel = _two_scale_ball(N)
+    d, _ = cKDTree(pos).query(pos, k=KH)
+    h0 = d[:, -1] / 2
+    K = 1.0 + 0.2 * np.random.default_rng(1).random(N)
+    return pos, vel, K, h0, choose_tile_classes(pos, h0, KH)
+
+
+def _ref_cfg(scene, eos, engine, fallback="gather", starve=False):
+    g, cap, classes = scene[4]
+    if starve:
+        classes = tuple((ck, 8) for ck, _ in classes)
+    tile = dict(tile=(g, cap), tile_classes=classes) if engine == "ctiles" else {}
+    return ref_engine.EngineConfig(
+        n=N, kh=KH, eos=eos, dtype="float64", gravity="exact",
+        fallback=fallback, **tile,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_runner(cfg_ref):
+    """One jitted reference runner per config: a second compile of the
+    same program would cost more than every port-side run here."""
+    return ref_engine.make_chunk_runner(cfg_ref)
+
+
+def _run_both(scene, cfg_ref, steps=STEPS, t_end=1e9):
+    pos, vel, K, h0, _ = scene
+    par = dict(PARAMS, t_end=t_end)
+    jd = jnp.float64
+    out_r = _ref_runner(cfg_ref)(
+        ref_engine.State(
+            pos=jnp.asarray(pos, jd), vel=jnp.asarray(vel, jd),
+            K=jnp.asarray(K, jd), t=jnp.asarray(0.0, jd),
+        ),
+        ref_engine.Params(**{k: jnp.asarray(v, jd) for k, v in par.items()}),
+        jnp.asarray(h0, jd), n_steps=steps,
+    )
+    cfg = config_from_reference(dataclasses.asdict(cfg_ref))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_ref)
+    out = make_chunk_runner(cfg, device="cpu")(
+        state_from_numpy(pos, vel, K, 0.0, dtype="float64", device="cpu"),
+        params_from_numpy(**par, dtype="float64", device="cpu"),
+        torch.from_numpy(h0), steps,
+    )
+    return out, out_r
+
+
+def _assert_chunks_equal(out, out_r, rtol=1e-8):
+    state, stats, valid, h_last, rho_last, nfb = out
+    state_r, stats_r, valid_r, h_r, rho_r, nfb_r = out_r
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(valid_r))
+    np.testing.assert_array_equal(nfb.numpy(), np.asarray(nfb_r))
+    for name in ("pos", "vel", "K", "t"):
+        b = np.asarray(getattr(state_r, name))
+        np.testing.assert_allclose(
+            getattr(state, name).numpy(), b, rtol=rtol,
+            atol=1e-11 * max(np.abs(b).max(), 1e-300), err_msg=name,
+        )
+    stats_r = np.asarray(stats_r)
+    assert stats.shape == stats_r.shape == (len(valid), 10)
+    # |p| and |L| of a near-symmetric ball are cancellation residues:
+    # compare every column on the scale of the row's energies
+    scale = np.abs(stats_r[:, 1:5]).max() + 1e-300
+    np.testing.assert_allclose(stats.numpy(), stats_r, rtol=rtol, atol=1e-10 * scale)
+    np.testing.assert_allclose(h_last.numpy(), np.asarray(h_r), rtol=rtol)
+    np.testing.assert_allclose(rho_last.numpy(), np.asarray(rho_r), rtol=rtol)
+
+
+@pytest.mark.parametrize(
+    "eos,engine",
+    [("polytropic", "ctiles"), ("isothermal", "gather"), ("polytropic", "gather")],
+)
+def test_chunk_matches_reference(scene, eos, engine):
+    out, out_r = _run_both(scene, _ref_cfg(scene, eos, engine))
+    assert out[2].all() and int(out[5].sum()) == 0
+    _assert_chunks_equal(out, out_r)
+
+
+def _run_port(scene, cfg_ref, steps, **kw):
+    pos, vel, K, h0, _ = scene
+    cfg = config_from_reference(dataclasses.asdict(cfg_ref))
+    return make_chunk_runner(cfg, device="cpu")(
+        state_from_numpy(pos, vel, K, 0.0, dtype="float64", device="cpu"),
+        params_from_numpy(**PARAMS, dtype="float64", device="cpu"),
+        torch.from_numpy(h0), steps, **kw,
+    )
+
+
+def test_chunk_fallback_gather_is_the_gather_engine(scene):
+    """A starved class list fails `fits`: every evaluation falls back and
+    the trajectory is the gather engine's own (whose parity with the
+    reference is pinned above) — the certificate costs speed, never
+    physics."""
+    out = _run_port(scene, _ref_cfg(scene, "polytropic", "ctiles", starve=True), 2)
+    out_g = _run_port(scene, _ref_cfg(scene, "polytropic", "gather"), 2)
+    assert out[5].tolist() == [2, 2] and out_g[5].tolist() == [0, 0]
+    assert out[2].tolist() == [True, True]
+    for a, b in zip(out[0], out_g[0]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    np.testing.assert_array_equal(out[1].numpy(), out_g[1].numpy())
+
+
+def test_chunk_fallback_none_matches_reference(scene):
+    """fallback="none" with a failing certificate: the step is discarded
+    (state unchanged, stats zeroed, rho zeroed, h = the hint) and — as the
+    reference does — still reported valid."""
+    out, out_r = _run_both(
+        scene,
+        _ref_cfg(scene, "polytropic", "ctiles", fallback="none", starve=True),
+        steps=2,
+    )
+    _assert_chunks_equal(out, out_r)
+    state, stats, valid, h_last, rho_last, nfb = out
+    assert nfb.tolist() == [2, 2] and valid.tolist() == [True, True]
+    assert float(state.t) == 0.0 and not stats.any() and not rho_last.any()
+    np.testing.assert_array_equal(state.pos.numpy(), scene[0])
+    np.testing.assert_array_equal(h_last.numpy(), scene[3])
+
+
+def test_chunk_freezes_at_t_end_and_pads_scan_length(scene):
+    out, out_r = _run_both(
+        scene, _ref_cfg(scene, "polytropic", "gather"), steps=3, t_end=1e-4
+    )
+    _assert_chunks_equal(out, out_r)
+    assert out[2].tolist() == [True, False, False]
+    pos, vel, K, h0, _ = scene
+    cfg = EngineConfig(n=N, kh=KH, eos="polytropic", dtype="float64")
+    chunk = make_chunk_runner(cfg, device="cpu")
+    res = chunk(
+        state_from_numpy(pos, vel, K, 0.0, dtype="float64", device="cpu"),
+        params_from_numpy(**PARAMS, dtype="float64", device="cpu"),
+        torch.from_numpy(h0), 1, scan_length=4,
+    )
+    assert res[1].shape == (4, 10) and res[2].tolist() == [True, False, False, False]
+    with pytest.raises(ValueError):
+        chunk(res[0], params_from_numpy(**PARAMS, dtype="float64", device="cpu"),
+              res[3], 5, scan_length=4)
+
+
+@pytest.mark.parametrize(
+    "kw,match",
+    [
+        (dict(tile=(6, 64)), "slice 2"),
+        (dict(tile=(6, 64), gravity="p3m"), "slice 2"),
+        (dict(blocks=((), (), (), 8)), "slice 3"),
+        (dict(mlevel=((), 0, 0, ())), "slice 4"),
+    ],
+)
+def test_unported_engines_raise(kw, match):
+    cfg = EngineConfig(n=8, kh=4, eos="polytropic", dtype="float64", **kw)
+    z = torch.zeros((8, 3), dtype=torch.float64)
+    p = params_from_numpy(**PARAMS, dtype="float64", device="cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        force_eval(cfg, p, z, z, z[:, 0], z[:, 0], device="cpu")
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(eos="adiabatic"),
+        dict(fallback="maybe"),
+        dict(gravity="tree"),
+        dict(gravity="p3m"),
+        dict(tile=(4, 32), mlevel=((), 0, 0, ())),
+        dict(tile_classes=((32, 8),)),
+        dict(tile=(4, 32), tile_classes=((32, 8),), outlier_budget=64),
+        dict(tile=(4, 32), tile_classes=((32, 8),), gravity="p3m"),
+    ],
+)
+def test_config_rules_match_reference(kw):
+    base = dict(n=8, kh=4, eos="polytropic")
+    with pytest.raises(ValueError):
+        ref_engine.EngineConfig(**{**base, **kw})
+    with pytest.raises(ValueError):
+        EngineConfig(**{**base, **kw})
+
+
+def test_config_p3m_classes_need_one_cell_stencil():
+    ok = EngineConfig(
+        n=8, kh=4, eos="polytropic", tile=(4, 32), tile_classes=((32, 8),),
+        gravity="p3m", mesh_factor=10,
+    )
+    assert ok.c_halfwidth == 1 and ok.mesh_gm == 40
+    assert EngineConfig(n=8, kh=4, eos="polytropic").c_halfwidth == 2
+    assert ok.torch_dtype == torch.float32
+
+
+def test_f64_host_values_round_once_to_f32():
+    x = np.array([[0.1, 1.0 / 3.0, 2.0 / 3.0]])
+    st = state_from_numpy(x, x, x[0], 0.1, dtype="float32", device="cpu")
+    np.testing.assert_array_equal(st.pos.numpy(), np.asarray(jnp.asarray(x, jnp.float32)))
+    assert st.t.dtype == torch.float32 and st.t.shape == ()
