@@ -5,22 +5,40 @@
 
 Builds the hand-written CUDA kernels from the sources in this checkout,
 holds each against its plain PyTorch version on the card, then drives the
-port's main path through the CLI: boss_bodenheimer, polytropic,
-N = 100 000, Kh = 50, float32, four steps on the class-compacted tile
-engine with exact gravity. Every phase prints one JSON line; any failure
-raises, so the process exits non-zero. There is no CPU continuation: with
-no CUDA device the script fails before it prints a result.
+port's three main paths through the CLI, each with the launch counts set to
+0 just before it and read just after:
+
+*   the class path: boss_bodenheimer, polytropic, N = 100 000, Kh = 32,
+    float32, four steps, which the planner gives the class-compacted tile
+    engine with exact gravity (kernels K1, K2, K3);
+*   the exact path: the headline scene, the same at Kh = 50, which the
+    planner gives the mono-tile engine with exact gravity (K4, K2, K3);
+*   the P3M path: the same scene at N = 200 000, four steps with
+    gravity="auto", which plans the mono-tile engine with the FFT mesh
+    and the W = 2 tail (kernels K4, K2 and the tail kernel; K3 0 times),
+    then the P3M force error against the exact sweep on its final state.
+
+Every phase prints one JSON line; any failure raises, so the process exits
+non-zero. There is no CPU continuation: with no CUDA device the script
+fails before it prints a result.
 
 The line before the last two is `{"kernels": [...]}` with, per kernel, its
-launches on the main path, its error against the plain version and its
-time beside the plain version's and the card's bound, all on the inputs
-that one force evaluation of the main path's final state gives it. Then
-the card's name and power limit as nvidia-smi prints them, then the
-verdict line.
+launches on the path its times were taken on (K1, K2, K3: the class path;
+K4 and the tail: the P3M path) and on every path (`launches_by_path`), its
+error against the plain version and its time beside the plain version's
+and the card's bound, all on the inputs that one force evaluation of that
+path's final state gives it (K2 carries the exact and the P3M paths'
+numbers under "on_exact_path" and "on_p3m_path", K4 the exact path's under
+"on_exact_path": every kernel is held against its plain version on the
+inputs of every path that launches it). A bound counts the bytes the
+function needs: the occupancy plane of a padded slot layout whole, its
+other planes at the occupied slots only. Then the card's name and power
+limit as nvidia-smi prints them, then the verdict line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -37,12 +55,22 @@ from sphtpu_torch import cli
 from sphtpu_torch.engine import EngineConfig, make_chunk_runner, state_from_numpy
 from sphtpu_torch.engine.step import force_eval
 from sphtpu_torch.io import read_snapshot, snapshot_path
-from sphtpu_torch.kernels import build, cuda_gravity, cuda_strip_knn, cuda_tile_pairs
-from sphtpu_torch.physics import ctiles
+from sphtpu_torch.kernels import (
+    build,
+    cuda_gravity,
+    cuda_knn,
+    cuda_p3m_tail,
+    cuda_strip_knn,
+    cuda_tile_pairs,
+)
+from sphtpu_torch.physics import ctiles, gravity_newton_allpairs, tiles
 from sphtpu_torch.physics.ctiles import CLASS_MENU, choose_tile_classes
+from sphtpu_torch.physics.mesh_gravity import greens_hat, p3m_mesh_force
 
 DEVICE = "cuda"
-N_MAIN = 100_000  # particles of the main path's scene
+N_MAIN = 100_000  # particles of the exact paths' scenes
+KH_CLASS = 32  # neighbour count of the class path's scene (Kh = 50 plans cap 160)
+N_P3M = 200_000  # particles of the P3M path's scene (gravity="auto" picks P3M)
 N_SMALL = 5_000  # particles of the fallback phase's scenes
 ROWS_F32, ROWS_F64 = 256, 64  # synthetic cell rows per class in the kernels phase
 N_NEWTON = {torch.float32: 100_000, torch.float64: 20_000}
@@ -63,11 +91,17 @@ K1_OPS_W = 12
 K2_OPS_MASK_TEST = 20
 K2_OPS_PER_PAIR = 140
 K3_FLOPS_PER_PAIR = 20
+# P3M tail: d2 (8), rsqrt, t and z (3), u (2), the degree-8 Horner chain
+# (16), exp(-z^2) (3), erfc and f (4), 1/r^3 and cgp (3), four sums (8)
+TAIL_OPS_PER_PAIR = 48
 B_OUTPUTS = "ax ay az div mu_max visc ggx ggy ggz gphi".split()
+TAIL_OUTPUTS = "gx gy gz gphi".split()
 MODULES = {
     "phase_a_cells": cuda_strip_knn,
     "phase_b_tiles": cuda_tile_pairs,
     "newton_sweep": cuda_gravity,
+    "phase_a_tile": cuda_knn,
+    "p3m_tail": cuda_p3m_tail,
 }
 KERNEL_INFO = {
     "phase_a_cells": (
@@ -81,6 +115,14 @@ KERNEL_INFO = {
     "newton_sweep": (
         "sphtpu_torch/kernels/csrc/newton_sweep.cu",
         "sphtpu/kernels/pallas_gravity.py:75",
+    ),
+    "phase_a_tile": (
+        "sphtpu_torch/kernels/csrc/phase_a_cells.cu",
+        "sphtpu/kernels/pallas_knn.py:117",
+    ),
+    "p3m_tail": (
+        "sphtpu_torch/kernels/csrc/p3m_tail.cu",
+        "sphtpu/physics/tiles.py:786 (phase C, XLA: no TPU kernel)",
     ),
 }
 
@@ -120,6 +162,13 @@ def dev(a, dtype):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def slot_bytes(mask, n_other: int) -> int:
+    """Bytes a function needs of a padded slot layout: its occupancy plane
+    whole, and its `n_other` other planes (of the same shape) only at the
+    occupied slots; the empty slots carry nothing it reads."""
+    return (mask.numel() + int((mask > 0).sum()) * n_other) * mask.element_size()
 
 
 # --------------------------------------------------------------------------
@@ -188,22 +237,22 @@ def check_phase_a(h_k, rho_k, ok_k, h_p, rho_p, ok_p, queries, reach2, cands, rh
     return float(err.max()) if err.numel() else 0.0, tie_rows
 
 
-def check_phase_b(outs_k, outs_p, dtype):
-    """Kernel vs plain for phase B: |a - b| <= rtol |b| + atol * (largest
-    |b| of that output). The outputs are sums of signed pair terms that
-    largely cancel for a particle with isotropic neighbours, so roundoff
-    scales with the terms — of the size of the output's largest values —
-    not with the particle's own (possibly cancelled) result. Returns the
-    worst error over that scale."""
+def check_phase_b(outs_k, outs_p, dtype, names=B_OUTPUTS, kernel="phase_b_tiles"):
+    """Kernel vs plain for a pair-sum kernel (phase B, the P3M tail):
+    |a - b| <= rtol |b| + atol * (largest |b| of that output). The outputs
+    are sums of signed pair terms that largely cancel for a particle with
+    isotropic neighbours, so roundoff scales with the terms — of the size
+    of the output's largest values — not with the particle's own (possibly
+    cancelled) result. Returns the worst error over that scale."""
     rtol, atol = (2e-4, 2e-5) if dtype == torch.float32 else (1e-9, 1e-11)
     worst = 0.0
-    for name, a, b in zip(B_OUTPUTS, outs_k, outs_p):
+    for name, a, b in zip(names, outs_k, outs_p):
         live = b > -torch.finfo(b.dtype).max  # mu_max of masked rows is -max
         scale = float(b[live].abs().max()) if bool(live.any()) else 0.0
         err = (a - b).abs()
         if not bool((err <= rtol * b.abs() + atol * scale).all()):
             raise AssertionError(
-                f"phase_b_tiles {name}: max abs err {err.max().item()} "
+                f"{kernel} {name}: max abs err {err.max().item()} "
                 f"(rtol {rtol}, atol {atol} of the output's scale {scale})"
             )
         if scale > 0:
@@ -284,8 +333,84 @@ def phase_kernels(seed: int = 0) -> None:
             {"dtype": str(dtype)[6:], "newton_n": n, "g_max_abs_err": g_err,
              "phi_max_rel_err": p_err, "rtol_of_max": rtol}
         )
-    report["tie_rows_total"] = sum(c["a"]["tie_rows"] for c in report["cases"] if "a" in c)
+    report["cases"] += kernels_k4(rng, kh, m) + kernels_tail(rng, m)
+    report["tie_rows_total"] = sum(
+        c[k]["tie_rows"] for c in report["cases"] for k in ("a", "k4") if k in c
+    )
     say("kernels", **report, kernels=list(MODULES))
+
+
+def kernels_k4(rng, kh, m):
+    """K4 vs its plain version on synthetic mono-tile rows: the queries are
+    the centre cell of each 27-cell row, one uniform s2 (the unit cell
+    edge squared, so most rows certify and the sparser ones do not)."""
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        n_rows = ROWS_F32 if dtype == torch.float32 else ROWS_F64
+        for cap in (64, 160):
+            t, sl, cw = synthetic_rows(rng, n_rows, cap, cap, dtype, 0.7 * cap)
+            t["m"][3, sl] = 0  # one cell with no particle
+            cands = tuple(t[k] for k in ("x", "y", "z", "m"))
+            queries = tuple(c[:, sl] for c in cands)
+            rho_rtol = 2e-5 if dtype == torch.float32 else 1e-12
+            # s2 = 1: most rows certify; s2 = 0.05: no occupied row can
+            for s2 in (1.0, 0.05):
+                h_k, rho_k, ok_k = cuda_knn.phase_a_tile(cands, s2, m, kh=kh, cap=cap)
+                sync()
+                res_p = cuda_knn.phase_a_tile_plain(cands, s2, m, kh=kh, cap=cap)
+                reach2 = torch.full((n_rows, cap), s2, dtype=dtype, device=DEVICE)
+                err, ties = check_phase_a(
+                    h_k, rho_k, ok_k, *res_p, queries, reach2, cands, rho_rtol
+                )
+                if not bool((ok_k[3] == 1).all() and (h_k[3] == 0).all()):
+                    raise AssertionError("phase_a_tile: empty cell row wrong")
+                cases.append({
+                    "dtype": str(dtype)[6:], "cap": cap, "rows": n_rows, "s2": s2,
+                    "k4": {"rho_max_abs_err": err, "rho_rtol": rho_rtol, "tie_rows": ties,
+                           "rows_failing_cert": int((ok_k == 0).any(1).sum())},
+                })
+            if not bool((ok_k[queries[3] > 0] == 0).all()):
+                raise AssertionError("phase_a_tile: rows certify beyond s2")
+    return cases
+
+
+def synthetic_tail_planes(rng, grid, cap, w, dtype, occupancy):
+    """x, y, z, mask planes of the tail kernel's layout for unit cells:
+    every cell holds between occupancy/2 and occupancy particles in its
+    first slots, a w-cell halo of zeros around the grid."""
+    gpc = grid + 2 * w
+    fill = rng.integers(max(1, occupancy // 2), occupancy + 1, size=(grid, grid, grid, 1))
+    occ = (np.arange(cap)[None, None, None, :] < fill).astype(np.float64)
+    idx = np.indices((grid, grid, grid))  # z, y, x
+    planes = np.zeros((4, gpc, gpc, gpc * cap))
+    inner = (slice(w, w + grid), slice(w, w + grid), slice(w * cap, (w + grid) * cap))
+    for k, a in enumerate((2, 1, 0)):  # x, y, z from the cell's index + [0, 1)
+        coord = (idx[a][..., None] + rng.random((grid, grid, grid, cap))) * occ
+        planes[k][inner] = coord.reshape(grid, grid, grid * cap)
+    planes[3][inner] = occ.reshape(grid, grid, grid * cap)
+    return dev(planes, dtype)
+
+
+def kernels_tail(rng, m):
+    """The P3M tail kernel vs its plain version on synthetic planes, W = 2
+    (the default mesh_factor 5) in both dtypes and W = 1 (mesh_factor 10)
+    in float64."""
+    cases = []
+    for dtype, w in ((torch.float32, 2), (torch.float64, 2), (torch.float64, 1)):
+        grid, cap = 8, 160
+        planes = synthetic_tail_planes(rng, grid, cap, w, dtype, 100)
+        sigma = 1.0 / {2: 5, 1: 10}[w] * 2.2
+        kw = dict(grid=grid, cap=cap, halfwidth=w)
+        out_k = cuda_p3m_tail.p3m_tail(planes, m, sigma, **kw)
+        sync()
+        out_p = cuda_p3m_tail.p3m_tail_plain(planes, m, sigma, **kw)
+        worst, rtol, atol = check_phase_b(
+            out_k, out_p, dtype, names=TAIL_OUTPUTS, kernel="p3m_tail"
+        )
+        cases.append({"dtype": str(dtype)[6:], "tail_w": w, "grid": grid, "cap": cap,
+                      "tail": {"max_err_over_scale": worst, "rtol": rtol,
+                               "atol_of_scale": atol}})
+    return cases
 
 
 # --------------------------------------------------------------------------
@@ -298,9 +423,13 @@ def reset_counts() -> None:
         mod.launches = 0
 
 
-def phase_main_path(tmp: str, gpu_line: str):
-    common = ["--EOS", "polytropic", "--ic_type", "boss_bodenheimer", "--root", tmp]
-    if cli.main(["--generate", *common, "--kwargs", f"N={N_MAIN}"]) != 0:
+def drive_cli(root: str, n: int, kh: int = 50):
+    """--generate boss_bodenheimer at N = n, Kh = kh, then --run four steps
+    on the card (snapshots 1, 3, 4) with the launch counts set to 0 just
+    before the run and read just after. Returns (summary, counts, checks
+    common to every path, energy drift)."""
+    common = ["--EOS", "polytropic", "--ic_type", "boss_bodenheimer", "--root", root]
+    if cli.main(["--generate", *common, "--kwargs", f"N={n},Kh={kh}"]) != 0:
         raise AssertionError("--generate failed")
     reset_counts()
     rc = cli.main(
@@ -312,18 +441,13 @@ def phase_main_path(tmp: str, gpu_line: str):
     res = cli.LAST_RUN
     if rc != 0 or res is None:
         raise AssertionError("--run failed")
-    cfg = res["configs"][0]
-    n_cls = len(cfg.tile_classes or ())
     checks = {
-        "one config, with tile_classes": len(res["configs"]) == 1 and n_cls > 0,
         "float32": res["state"].pos.dtype == torch.float32,
         "on the card": res["state"].pos.device.type == DEVICE,
         "4 steps": res["steps"] == 4,
         "0 fallback evals": res["fallback_evals"] == 0,
-        "kernel launches": counts
-        == {"phase_a_cells": 8 * n_cls, "phase_b_tiles": 8 * n_cls, "newton_sweep": 8},
     }
-    stats_path = os.path.join(tmp, "snapshots", "boss_bodenheimer", "stats")
+    stats_path = os.path.join(root, "snapshots", "boss_bodenheimer", "stats")
     checks["stats file is 8 000 000 bytes"] = os.path.getsize(stats_path) == 8_000_000
     from sphtpu_torch.io import StatsFile
 
@@ -337,51 +461,82 @@ def phase_main_path(tmp: str, gpu_line: str):
     drift = float(np.abs(e - e[0]).max() / abs(e[0]))
     checks["|dE/E| < 1e-2"] = drift < 1e-2
     for sid in res["snapshot_ids"]:
-        snap = read_snapshot(snapshot_path(tmp, "boss_bodenheimer", str(sid)))
+        snap = read_snapshot(snapshot_path(root, "boss_bodenheimer", str(sid)))
         checks[f"snapshot {sid} reads back"] = bool(
-            snap["pos"].shape == (N_MAIN, 3) and np.isfinite(snap["pos"]).all()
-            and snap["K"].shape == (N_MAIN,)
+            snap["pos"].shape == (n, 3) and np.isfinite(snap["pos"]).all()
+            and snap["K"].shape == (n,)
         )
     checks["snapshots 1, 3, 4"] = res["snapshot_ids"] == [1, 3, 4]
-    failed = [k for k, v in checks.items() if not v]
+    return res, counts, checks, drift
+
+
+def walls_summary(res, n):
     walls = res["chunk_walls"]
     later_steps = sum(c[0] for c in walls[1:])
     s_per_step = sum(c[1] for c in walls[1:]) / later_steps
+    return dict(chunk_walls=walls, first_step_s=walls[0][1], s_per_step_after_first=s_per_step,
+                particle_steps_per_s=n / s_per_step)
+
+
+def phase_exact_path(tmp: str, gpu_line: str, kh: int):
+    """An exact-gravity path at N = 1e5: with Kh = 50 (the headline scene)
+    the planner's ladder gives the mono-tile engine (cap 160 exceeds the
+    class planner's 128): K4, K2, K3; with Kh = KH_CLASS it gives the
+    class-compacted engine: K1 and K2 once per class, K3."""
+    name = "main_path" if kh == 50 else "class_path"
+    res, counts, checks, drift = drive_cli(os.path.join(tmp, name), N_MAIN, kh)
+    cfg = res["configs"][0]
+    n_cls = len(cfg.tile_classes or ())
+    if kh == 50:
+        engine = {"one config, mono-tile": len(res["configs"]) == 1 and n_cls == 0}
+        want = {"phase_a_cells": 0, "phase_b_tiles": 8, "newton_sweep": 8,
+                "phase_a_tile": 8, "p3m_tail": 0}
+    else:
+        engine = {"one config, with tile_classes": len(res["configs"]) == 1 and n_cls > 0}
+        want = {"phase_a_cells": 8 * n_cls, "phase_b_tiles": 8 * n_cls, "newton_sweep": 8,
+                "phase_a_tile": 0, "p3m_tail": 0}
+    checks = {
+        **engine, "exact gravity": cfg.gravity == "exact", **checks,
+        "kernel launches": counts == want,
+    }
+    failed = [k for k, v in checks.items() if not v]
     say(
-        "main_path", card=gpu_line, scene=f"boss_bodenheimer polytropic N={N_MAIN} Kh=50 float32",
-        tile=list(cfg.tile), tile_classes=[list(c) for c in cfg.tile_classes],
+        name, card=gpu_line, scene=f"boss_bodenheimer polytropic N={N_MAIN} Kh={kh} float32",
+        tile=list(cfg.tile), tile_classes=[list(c) for c in cfg.tile_classes or ()],
         steps=res["steps"], fallback_evals=res["fallback_evals"], launches=counts,
-        energy_drift=drift, chunk_walls=walls, first_step_s=walls[0][1],
-        s_per_step_after_first=s_per_step, particle_steps_per_s=N_MAIN / s_per_step,
+        energy_drift=drift, **walls_summary(res, N_MAIN),
         snapshot_ids=res["snapshot_ids"], runtime_s=res["runtime_s"], failed=failed,
     )
     if failed:
-        raise AssertionError(f"main path checks failed: {failed}")
+        raise AssertionError(f"{name} checks failed: {failed}")
     return res, cfg, counts
 
 
-def capture_eval_inputs(res, cfg):
-    """Arguments the two tile kernels get in one force evaluation of the
-    main path's final state."""
-    calls = {"a": [], "b": []}
-    orig_a, orig_b = ctiles.phase_a_cells, ctiles.phase_b_tiles
+def capture_eval_inputs(res, cfg, module, names):
+    """Arguments the kernel wrappers `names`, as `module` calls them, get in
+    one force evaluation of a path's final state."""
+    calls = {name: [] for name in names}
+    orig = {name: getattr(module, name) for name in names}
 
-    def rec_a(*args, **kw):
-        calls["a"].append((args, kw))
-        return orig_a(*args, **kw)
+    def recorder(name):
+        def rec(*args, **kw):
+            calls[name].append((args, kw))
+            return orig[name](*args, **kw)
 
-    def rec_b(*args, **kw):
-        calls["b"].append((args, kw))
-        return orig_b(*args, **kw)
+        return rec
 
-    ctiles.phase_a_cells, ctiles.phase_b_tiles = rec_a, rec_b
+    for name in names:
+        setattr(module, name, recorder(name))
     try:
         st = res["state"]
+        ghat = (greens_hat(cfg.mesh_pad, cfg.sigma_cells, st.pos.dtype, DEVICE)
+                if cfg.gravity == "p3m" else None)
         _, _, _, fell_back = force_eval(
-            cfg, res["params"], st.pos, st.vel, st.K, res["h_last"], device=DEVICE
+            cfg, res["params"], st.pos, st.vel, st.K, res["h_last"], ghat, device=DEVICE
         )
     finally:
-        ctiles.phase_a_cells, ctiles.phase_b_tiles = orig_a, orig_b
+        for name in names:
+            setattr(module, name, orig[name])
     if fell_back:
         raise AssertionError("the captured evaluation fell back")
     return calls
@@ -410,11 +565,11 @@ def pairs_in_a_mask(qfields, cfields, chunk_elems: int = 1 << 27) -> int:
 
 
 def phase_kernel_times(res, cfg, counts):
-    """Each kernel against its plain version on the inputs of one force
-    evaluation of the main path's final state: error, time of the
+    """Each kernel of the exact path against its plain version on the inputs
+    of one force evaluation of that path's final state: error, time of the
     evaluation's launches (all classes), the plain version's time and the
     card's bound for the same work."""
-    calls = capture_eval_inputs(res, cfg)
+    calls = capture_eval_inputs(res, cfg, ctiles, ("phase_a_cells", "phase_b_tiles"))
     dtype = res["state"].pos.dtype
     peak = PEAK_FLOPS[dtype]
     entries = []
@@ -423,7 +578,7 @@ def phase_kernel_times(res, cfg, counts):
     ms = plain_ms = flops = byts = 0.0
     err = 0.0
     ties = 0
-    for args, kw in calls["a"]:
+    for args, kw in calls["phase_a_cells"]:
         queries, reach2, cands, m = args
         out_k = cuda_strip_knn.phase_a_cells(*args, **kw)
         out_p = cuda_strip_knn.phase_a_cells_plain(*args, **kw)
@@ -433,19 +588,47 @@ def phase_kernel_times(res, cfg, counts):
         plain_ms += time_ms(
             lambda: cuda_strip_knn.phase_a_cells_plain(*args, **kw), iters=1, warmup=0
         )
-        pairs = float(((queries[3] > 0).sum(1) * (cands[3] > 0).sum(1)).sum())
-        n_bisect = kw.get("n_bisect", cuda_strip_knn.N_BISECT)
-        flops += pairs * (K1_OPS_D2 + K1_OPS_PER_PASS * (n_bisect + 3))
-        flops += float((queries[3] > 0).sum()) * kw["kh"] * K1_OPS_W
-        byts += nbytes(*queries, reach2, *cands, *out_k)
+        flops += phase_a_ops(queries[3], cands[3], kw["kh"],
+                             kw.get("n_bisect", cuda_strip_knn.N_BISECT))
+        # query x, y, z and reach2 at occupied slots; candidate x, y, z likewise
+        byts += slot_bytes(queries[3], 4) + slot_bytes(cands[3], 3) + nbytes(*out_k)
     entries.append(kernel_entry("phase_a_cells", counts, err, ms, plain_ms, flops, byts, peak,
                                 tie_rows=ties))
+    entries.append(k2_entry(calls["phase_b_tiles"], counts, dtype))
 
-    # K2
+    # K3
+    pos, m = res["state"].pos, res["params"].m
+    g_k, p_k = cuda_gravity.newton_sweep(pos, m)
+    g_p, p_p = cuda_gravity.newton_sweep_plain(pos, m)
+    err = max(float((g_k - g_p).abs().max()), float((p_k - p_p).abs().max()))
+    if err > 2e-4 * max(float(g_p.abs().max()), float(p_p.abs().max())):
+        raise AssertionError(f"newton_sweep on the main path's state: max abs err {err}")
+    n = pos.shape[0]
+    ms = time_ms(lambda: cuda_gravity.newton_sweep(pos, m))
+    plain_ms = time_ms(lambda: cuda_gravity.newton_sweep_plain(pos, m), iters=1, warmup=0)
+    entries.append(
+        kernel_entry("newton_sweep", counts, err, ms, plain_ms,
+                     float(n) * n * K3_FLOPS_PER_PAIR, nbytes(pos, g_k, p_k), peak)
+    )
+    return entries
+
+
+def phase_a_ops(qmask, cmask, kh: int, n_bisect: int) -> float:
+    """Operations a phase-A function needs on these rows: d2 once per
+    (occupied query, occupied candidate) pair, a compare and a count per
+    pass, and the spline W on the kh pairs inside the k-th distance."""
+    pairs = float(((qmask > 0).sum(1) * (cmask > 0).sum(1)).sum())
+    return (pairs * (K1_OPS_D2 + K1_OPS_PER_PASS * (n_bisect + 3))
+            + float((qmask > 0).sum()) * kh * K1_OPS_W)
+
+
+def k2_entry(calls, counts, dtype):
+    """K2 against its plain version over the captured launches of one
+    evaluation."""
     ms = plain_ms = flops = byts = 0.0
     err = rel = err_scale = pairs_all = pairs_masked = 0.0
     err_field = None
-    for args, kw in calls["b"]:
+    for args, kw in calls:
         qfields, cfields = args[0], args[1]
         out_k = cuda_tile_pairs.phase_b_tiles(*args, **kw)
         out_p = cuda_tile_pairs.phase_b_tiles_plain(*args, **kw)
@@ -463,29 +646,184 @@ def phase_kernel_times(res, cfg, counts):
         pairs_all += pairs
         pairs_masked += in_mask
         flops += pairs * K2_OPS_MASK_TEST + in_mask * (K2_OPS_PER_PAIR - K2_OPS_MASK_TEST)
-        byts += nbytes(*qfields, *cfields, *out_k)
+        # the mask plane (index 6) of each side whole, the other ten fields
+        # at occupied slots only
+        byts += slot_bytes(qfields[6], 10) + slot_bytes(cfields[6], 10) + nbytes(*out_k)
     # the absolute error is in code units of whichever output is largest;
     # the check itself is relative to each output's scale
-    entries.append(kernel_entry("phase_b_tiles", counts, err, ms, plain_ms, flops, byts, peak,
-                                max_abs_err_output=err_field, largest_value_of_it=err_scale,
-                                max_err_over_scale=rel, occupied_pairs=pairs_all,
-                                pairs_in_a_mask=pairs_masked))
+    return kernel_entry("phase_b_tiles", counts, err, ms, plain_ms, flops, byts,
+                        PEAK_FLOPS[dtype], max_abs_err_output=err_field,
+                        largest_value_of_it=err_scale, max_err_over_scale=rel,
+                        occupied_pairs=pairs_all, pairs_in_a_mask=pairs_masked)
 
-    # K3
-    pos, m = res["state"].pos, res["params"].m
-    g_k, p_k = cuda_gravity.newton_sweep(pos, m)
-    g_p, p_p = cuda_gravity.newton_sweep_plain(pos, m)
-    err = max(float((g_k - g_p).abs().max()), float((p_k - p_p).abs().max()))
-    if err > 2e-4 * max(float(g_p.abs().max()), float(p_p.abs().max())):
-        raise AssertionError(f"newton_sweep on the main path's state: max abs err {err}")
-    n = pos.shape[0]
-    ms = time_ms(lambda: cuda_gravity.newton_sweep(pos, m))
-    plain_ms = time_ms(lambda: cuda_gravity.newton_sweep_plain(pos, m), iters=1, warmup=0)
-    entries.append(
-        kernel_entry("newton_sweep", counts, err, ms, plain_ms,
-                     float(n) * n * K3_FLOPS_PER_PAIR, nbytes(pos, g_k, p_k), peak)
+
+# --------------------------------------------------------------------------
+# the P3M path
+# --------------------------------------------------------------------------
+
+
+def phase_p3m_path(tmp: str, gpu_line: str):
+    """boss_bodenheimer N = 200 000 through the CLI with gravity="auto": the
+    planner must pick the mono-tile engine with P3M gravity (about grid 19,
+    cap 160, mesh gm 95 / pad 200, tail W = 2), and the run must go
+    through K4, K2 and the tail kernel and never through K1 or K3."""
+    res, counts, checks, drift = drive_cli(os.path.join(tmp, "p3m"), N_P3M)
+    cfg = res["configs"][0]
+    checks.update({
+        "one config, mono-tile": len(res["configs"]) == 1 and cfg.tile is not None
+        and cfg.tile_classes is None,
+        "P3M gravity": cfg.gravity == "p3m",
+        "tail stencil W = 2": cfg.c_halfwidth == 2,
+        "kernel launches": counts
+        == {"phase_a_cells": 0, "phase_b_tiles": 8, "newton_sweep": 0,
+            "phase_a_tile": 8, "p3m_tail": 8},
+    })
+    failed = [k for k, v in checks.items() if not v]
+    walls = walls_summary(res, N_P3M)
+    say(
+        "p3m_path", card=gpu_line, scene=f"boss_bodenheimer polytropic N={N_P3M} Kh=50 float32",
+        plan={"grid": cfg.tile[0] if cfg.tile else None, "cap": cfg.tile[1] if cfg.tile else None,
+              "mesh_gm": cfg.mesh_gm if cfg.tile else None,
+              "mesh_pad": cfg.mesh_pad if cfg.tile else None, "W": cfg.c_halfwidth},
+        steps=res["steps"], fallback_evals=res["fallback_evals"], launches=counts,
+        energy_drift=drift, **walls, snapshot_ids=res["snapshot_ids"],
+        runtime_s=res["runtime_s"], failed=failed,
     )
-    return entries
+    if failed:
+        raise AssertionError(f"P3M path checks failed: {failed}")
+    return res, cfg, counts, walls["s_per_step_after_first"]
+
+
+def tail_pairs(planes, grid: int, cap: int, w: int) -> float:
+    """(occupied query, occupied candidate) pairs of the tail kernel's
+    stencil: per cell, its occupancy times the occupancy summed over its
+    (2w+1)^3 neighbourhood."""
+    gpc = grid + 2 * w
+    occ = (planes[3] > 0).reshape(gpc, gpc, gpc, cap).sum(-1).double()
+    box = torch.zeros((grid, grid, grid), dtype=torch.float64, device=occ.device)
+    for dz in range(2 * w + 1):
+        for dy in range(2 * w + 1):
+            for dx in range(2 * w + 1):
+                box += occ[dz : dz + grid, dy : dy + grid, dx : dx + grid]
+    own = occ[w : w + grid, w : w + grid, w : w + grid]
+    return float((own * box).sum())
+
+
+def phase_mono_kernel_times(res, cfg, counts):
+    """K4, K2 and (under P3M) the tail kernel against their plain versions on
+    the inputs of one force evaluation of a mono-tile path's final state.
+    Returns the K4 entry, K2's numbers on this path, and the tail entry
+    (None under exact gravity)."""
+    calls = capture_eval_inputs(
+        res, cfg, tiles, ("phase_a_tile", "phase_b_tiles", "p3m_tail")
+    )
+    dtype = res["state"].pos.dtype
+    peak = PEAK_FLOPS[dtype]
+
+    # K4: one launch over every cell row; h and ok bit-equal, rho at 2e-5
+    (args, kw), = calls["phase_a_tile"]
+    cands, s2, m = args
+    cap = kw["cap"]
+    out_k = cuda_knn.phase_a_tile(*args, **kw)
+    out_p = cuda_knn.phase_a_tile_plain(*args, **kw)
+    queries = tuple(c[:, 13 * cap : 14 * cap] for c in cands)
+    reach2 = torch.as_tensor(s2, dtype=dtype, device=DEVICE).expand(cands[0].shape[0], cap)
+    err, ties = check_phase_a(*out_k, *out_p, queries, reach2, cands, 2e-5)
+    ms = time_ms(lambda: cuda_knn.phase_a_tile(*args, **kw))
+    plain_ms = time_ms(lambda: cuda_knn.phase_a_tile_plain(*args, **kw), iters=1, warmup=0)
+    flops = phase_a_ops(queries[3], cands[3], kw["kh"], kw.get("n_bisect", cuda_knn.N_BISECT))
+    # the queries are the candidate planes' centre cells: x, y, z of the
+    # occupied candidate slots and the mask cover both
+    k4 = kernel_entry("phase_a_tile", counts, err, ms, plain_ms, flops,
+                      slot_bytes(cands[3], 3) + nbytes(*out_k), peak, tie_rows=ties,
+                      rows=cands[0].shape[0], cap=cap)
+
+    # the tail: one launch over every cell row
+    tail = None
+    if calls["p3m_tail"]:
+        (args, kw), = calls["p3m_tail"]
+        planes = args[0]
+        out_k = cuda_p3m_tail.p3m_tail(*args, **kw)
+        out_p = cuda_p3m_tail.p3m_tail_plain(*args, **kw)
+        rel, rtol, atol = check_phase_b(out_k, out_p, dtype, names=TAIL_OUTPUTS,
+                                        kernel="p3m_tail")
+        err = float((out_k - out_p).abs().max())
+        ms = time_ms(lambda: cuda_p3m_tail.p3m_tail(*args, **kw))
+        plain_ms = time_ms(lambda: cuda_p3m_tail.p3m_tail_plain(*args, **kw),
+                           iters=1, warmup=0)
+        pairs = tail_pairs(planes, kw["grid"], kw["cap"], kw["halfwidth"])
+        tail = kernel_entry("p3m_tail", counts, err, ms, plain_ms, pairs * TAIL_OPS_PER_PAIR,
+                            slot_bytes(planes[3], 3) + nbytes(out_k), peak,
+                            max_err_over_scale=rel,
+                            tolerance={"rtol": rtol, "atol_of_scale": atol},
+                            occupied_pairs=pairs, halfwidth=kw["halfwidth"])
+
+    k2 = k2_entry(calls["phase_b_tiles"], counts, dtype)
+    k2_here = {k: k2[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "max_err_over_scale", "occupied_pairs",
+                                  "pairs_in_a_mask")}
+    return k4, k2_here, tail
+
+
+def phase_p3m_accuracy(res, cfg, gpu_line, s_per_step):
+    """On the P3M path's final state, one force evaluation with exact
+    gravity (mono-tile + K3) and one with P3M: the bars of
+    tests/test_mesh_gravity.py::test_p3m_beats_reference_octree. Then the
+    mesh's own time and its FFTs' share of a step."""
+    st, p, h = res["state"], res["params"], res["h_last"]
+    ghat = greens_hat(cfg.mesh_pad, cfg.sigma_cells, st.pos.dtype, DEVICE)
+    cfg_ex = dataclasses.replace(cfg, gravity="exact")
+    _, _, phi_e, fb_e = force_eval(cfg_ex, p, st.pos, st.vel, st.K, h, device=DEVICE)
+    _, _, phi_p, fb_p = force_eval(cfg, p, st.pos, st.vel, st.K, h, ghat, device=DEVICE)
+    # g from the pieces force_eval sums (acc - hydro acc would cancel: on
+    # this scene the pressure term is ~1e7 times gravity in code units)
+    kw = dict(eos=cfg.eos, gamma=p.gamma, cs0=p.cs0, alpha=p.alpha, beta=p.beta,
+              kh=cfg.kh, grid=cfg.tile[0], cap=cfg.tile[1], sigma_cells=cfg.sigma_cells,
+              device=DEVICE)
+    g_far = {
+        "exact": gravity_newton_allpairs(st.pos, p.m, device=DEVICE)[0],
+        "p3m": p3m_mesh_force(st.pos, p.m, ghat, gm=cfg.mesh_gm, pad=cfg.mesh_pad)[0],
+    }
+    g = {}
+    for mode, mf in (("exact", 0), ("p3m", cfg.mesh_factor)):
+        _, gcorr, _ = tiles.tile_sph_forces(st.pos, st.vel, p.m, st.K, h, mesh_factor=mf, **kw)
+        g[mode] = (g_far[mode] + torch.stack(gcorr[:3], dim=1)).double()
+    sync()
+
+    def rms(v):
+        return float(torch.sqrt(torch.mean(torch.sum(v * v, dim=1))))
+
+    dg = g["p3m"] - g["exact"]
+    rms_g = rms(g["exact"])
+    err = rms(dg) / rms_g
+    phi_e, phi_p = phi_e.double(), phi_p.double()
+    phi_rel = float(torch.sqrt(torch.mean(((phi_p - phi_e) / phi_e) ** 2)))
+    mom = float((float(p.m) * dg.sum(0)).abs().max()) / rms_g
+
+    dtype, pad = st.pos.dtype, cfg.mesh_pad
+    mesh_ms = time_ms(lambda: p3m_mesh_force(st.pos, p.m, ghat, gm=cfg.mesh_gm, pad=pad))
+    rho = torch.rand((pad, pad, pad), dtype=dtype, device=DEVICE)
+
+    def ffts():
+        rho_hat = torch.fft.rfftn(rho)
+        for _ in range(4):
+            torch.fft.irfftn(rho_hat, s=(pad, pad, pad))
+
+    fft_ms = time_ms(ffts)
+    checks = {
+        "no fallback": not fb_e and not fb_p,
+        "g error RMS < 2e-3 of |g|": err < 2e-3,
+        "phi relative RMS < 1e-3": phi_rel < 1e-3,
+        "momentum < 1e-5 of |g|": mom < 1e-5,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    say("p3m_accuracy", card=gpu_line, n=st.pos.shape[0], g_err_rms_over_rms_g=err,
+        phi_rel_rms=phi_rel, momentum_over_rms_g=mom, rms_g=rms_g,
+        mesh_ms_per_eval=mesh_ms, fft_ms_per_eval=fft_ms,
+        mesh_share_of_step=2 * mesh_ms / 1e3 / s_per_step,
+        fft_share_of_step=2 * fft_ms / 1e3 / s_per_step, failed=failed)
+    if failed:
+        raise AssertionError(f"P3M accuracy checks failed: {failed}")
 
 
 def kernel_entry(name, counts, err, ms, plain_ms, flops, byts, peak, **extra):
@@ -506,16 +844,18 @@ def kernel_entry(name, counts, err, ms, plain_ms, flops, byts, peak, **extra):
 # --------------------------------------------------------------------------
 
 
-def load_scene(tmp: str, ic_type: str, n: int):
-    """Generate a polytropic scene through the CLI and put it on the card
-    in code units: (cfg fields, state, params, pos, h0)."""
+def load_scene(tmp: str, ic_type: str, n: int, kh: int | None = None):
+    """Generate a polytropic scene through the CLI (Kh = kh, or the scene's
+    default) and put it on the card in code units: (cfg fields, state,
+    params, pos, h0)."""
     from scipy.spatial import cKDTree
 
     from sphtpu_torch.engine import params_from_numpy
     from sphtpu_torch.units import UnitSystem
 
     common = ["--EOS", "polytropic", "--ic_type", ic_type, "--root", tmp]
-    if cli.main(["--generate", *common, "--kwargs", f"N={n}"]) != 0:
+    kwargs = f"N={n}" if kh is None else f"N={n},Kh={kh}"
+    if cli.main(["--generate", *common, "--kwargs", kwargs]) != 0:
         raise AssertionError("--generate failed")
     snap = read_snapshot(snapshot_path(tmp, ic_type, "1"))
     c = snap["constants"]
@@ -601,14 +941,33 @@ def main() -> int:
                if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln][:24])
 
     phase_kernels()
+    by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
-        res, cfg, counts = phase_main_path(tmp, gpu_line)
-        entries = phase_kernel_times(res, cfg, counts)
+        res, cfg, by_path["class_n1e5_kh32"] = phase_exact_path(tmp, gpu_line, KH_CLASS)
+        entries = phase_kernel_times(res, cfg, by_path["class_n1e5_kh32"])
+        del res
+        torch.cuda.empty_cache()
+        res, cfg, by_path["exact_n1e5"] = phase_exact_path(tmp, gpu_line, 50)
+        k4_exact, k2_exact, _ = phase_mono_kernel_times(res, cfg, by_path["exact_n1e5"])
+        del res
+        torch.cuda.empty_cache()
+        res, cfg, by_path["p3m_n2e5"], s_per_step = phase_p3m_path(tmp, gpu_line)
+        k4, k2_p3m, tail = phase_mono_kernel_times(res, cfg, by_path["p3m_n2e5"])
+        phase_p3m_accuracy(res, cfg, gpu_line, s_per_step)
         del res
         torch.cuda.empty_cache()
         phase_fallback(tmp)
-    if any(e["launches"] <= 0 for e in entries):
-        raise AssertionError("a kernel of the main path was never launched")
+    entries[1]["on_exact_path"] = k2_exact
+    entries[1]["on_p3m_path"] = k2_p3m
+    k4["on_exact_path"] = {k: k4_exact[k] for k in (
+        "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "tie_rows",
+        "rows", "cap")}
+    entries += [k4, tail]
+    for e in entries:
+        e["launches_by_path"] = {path: c[e["name"]] for path, c in by_path.items()}
+    side = (k2_exact, k2_p3m, k4["on_exact_path"])
+    if any(e["launches"] <= 0 for e in entries + list(side)):
+        raise AssertionError("a kernel of a main path was never launched")
     print(json.dumps({"kernels": entries}), flush=True)
     print(gpu_line, flush=True)
     print(json.dumps({

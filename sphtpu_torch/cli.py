@@ -81,8 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gravity", default="auto",
                    choices=("auto", "exact", "p3m"),
                    help="tile-path far field: exact N^2 sweep or P3M FFT "
-                        "mesh (auto: P3M above the crossover N; P3M is not "
-                        "ported yet and raises)")
+                        "mesh (auto: P3M from N = 150 000 on)")
     p.add_argument("--n-devices", type=int, default=1,
                    help="Devices to shard over; only 1 is ported so far")
     p.add_argument("--device", default=None,

@@ -9,11 +9,12 @@ tensors on the run's device. All Params/State values are in code units
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..physics.mesh_gravity import good_fft_size, tail_halfwidth
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +43,8 @@ class EngineConfig:
     # carried from the reference config for round-tripping; the port
     # dispatches kernels on the tensor's device, not on this flag
     pallas_a: bool = None
-    # outlier-lane row budget (not ported yet). 0 = mono-level.
+    # outlier-lane row budget (not ported yet: the mono-tile engine raises
+    # for a non-zero budget). 0 = mono-level.
     outlier_budget: int = 0
     # occupancy-class query compaction for the tile path
     # (physics/ctiles.py): ((cap_k, n_cells_k), ...) plan-time class list
@@ -103,14 +105,17 @@ class EngineConfig:
         return self.mesh_factor * g0
 
     @property
+    def mesh_pad(self) -> int:
+        """Padded FFT edge for isolated boundaries (p3m mode)."""
+        return good_fft_size(2 * (self.mesh_gm + 2))
+
+    @property
     def c_halfwidth(self) -> int:
         """P3M tail-correction stencil half-width in tile cells: the
         (2w+1)^3 block guarantees pair coverage to w tile cells = w *
         mesh_factor / sigma_cells Gaussian widths; w is the smallest
         half-width reaching TAIL_T = 4.4 sigma (complement ~1e-4)."""
-        return max(
-            1, math.ceil(4.4 * self.sigma_cells / self.mesh_factor - 1e-9)
-        )
+        return tail_halfwidth(self.mesh_factor, self.sigma_cells)
 
 
 _TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}

@@ -28,7 +28,7 @@ from scipy.spatial import cKDTree
 from ..device import resolve_device
 from ..io import StatsFile, read_snapshot, snapshot_path, write_snapshot
 from ..physics.ctiles import choose_tile_classes, ctile_classes_still_ok
-from ..physics.tiles import tile_params_still_ok
+from ..physics.tiles import choose_tile_params, tile_params_still_ok
 from ..profiling import StageTimer
 from ..units import UnitSystem
 from .config import EngineConfig, params_from_numpy, state_from_numpy
@@ -38,20 +38,43 @@ from .step import make_chunk_runner
 PLOT_N = {"polytropic": 10000, "isothermal": 1000}
 
 # gravity="auto" switches the tile path to P3M at this particle count (the
-# exact sweep grows as N^2, the P3M side ~linearly). The P3M path is not
-# ported yet: at or above this count an "auto" run raises.
+# exact sweep grows as N^2, the P3M side ~linearly); the reference's
+# threshold, kept as it is.
 P3M_MIN_N = 150_000
-
-# largest slot capacity the class planner may choose (the reference's
-# mono-tile planner's ceiling, physics/tiles.py::choose_tile_params)
-CLASS_CAP_MAX = 256
 
 # planner rungs of the reference package that the port does not have yet;
 # states they would serve run on the gather engine
 RUNGS_NOT_PORTED = (
-    "mono-tile engine", "block-compact engine", "multi-level engine",
-    "outlier-lane tiles",
+    "block-compact engine", "multi-level engine", "outlier-lane tiles",
 )
+
+
+def plan_engine(pos_host, h_host, *, n: int, kh: int, eos: str, dtype: str,
+                gravity: str) -> Optional[EngineConfig]:
+    """A fresh plan for the next chunk, the reference's ladder over the
+    ported rungs (code-unit host arrays; gravity "exact" or "p3m"):
+
+    1. exact gravity only: the class-compacted tile engine, when its
+       planner fits the state (1.5x occupancy headroom, cap <= 128);
+    2. the mono-tile engine (cap <= 256), under either gravity;
+    3. None: no ported rung can plan; the caller runs the gather engine.
+
+    p3m skips the class engine: it needs a one-cell tail stencil, which the
+    default mesh_factor does not give."""
+    if gravity == "exact":
+        tp_cls = choose_tile_classes(pos_host, h_host, kh, headroom=1.5)
+        if tp_cls is not None:
+            grid, cap, classes = tp_cls
+            return EngineConfig(
+                n=n, kh=kh, eos=eos, dtype=dtype, tile=(grid, cap),
+                tile_classes=classes, gravity=gravity,
+            )
+    tp_mono = choose_tile_params(pos_host, h_host, kh, headroom=1.5)
+    if tp_mono is not None:
+        return EngineConfig(
+            n=n, kh=kh, eos=eos, dtype=dtype, tile=tp_mono, gravity=gravity
+        )
+    return None
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -93,12 +116,14 @@ def run_simulation(
     """Run from snapshot `snap_id` until tEnd (or max_steps). Returns a
     summary dict (steps run, final time, last stats row, snapshot ids).
 
-    engine: "auto" uses the class-compacted cell-tile fast path with
-    certified fallback (grid re-sized per chunk from the evolving h);
-    "gather" forces the neighbor-list engine.
-    gravity: "auto"/"exact" run the exact Newtonian sweep + near-field
-    correction; "p3m" (and "auto" at N >= P3M_MIN_N) is not ported yet and
-    raises NotImplementedError.
+    engine: "auto" uses a cell-tile fast path with certified fallback
+    (grid re-sized per chunk from the evolving h): the class-compacted
+    engine (exact gravity only), else the mono-tile engine; "gather"
+    forces the neighbor-list engine.
+    gravity: "exact" runs the exact Newtonian sweep + near-field
+    correction on the tile path; "p3m" the FFT mesh + the tiles' tail
+    correction; "auto" is p3m at N >= P3M_MIN_N, else exact. The gather
+    engine's gravity is always the exact softened all-pairs sum.
     device: None means the card ("cuda"); only an explicit "cpu" runs on
     the CPU."""
     start_wall = time.time()
@@ -113,11 +138,13 @@ def run_simulation(
     kh = int(c["Kh"])
     gamma = float(c.get("gamma", 5.0 / 3.0))
     u = UnitSystem.from_constants(float(c["G"]), float(c["M"]), float(c["R"]))
-    if gravity == "p3m" or (gravity == "auto" and n >= P3M_MIN_N):
-        raise NotImplementedError(
-            f"P3M gravity (gravity={gravity!r}, N={n}) arrives with slice 2 "
-            "of the port; pass gravity='exact' for the O(N^2) sweep"
-        )
+    if gravity not in ("auto", "exact", "p3m"):
+        raise ValueError(f"unknown gravity mode {gravity!r}")
+    grav = (
+        "p3m"
+        if gravity == "p3m" or (gravity == "auto" and n >= P3M_MIN_N)
+        else "exact"
+    )
 
     base_cfg = EngineConfig(n=n, kh=kh, eos=eos, dtype=dtype)
 
@@ -158,12 +185,15 @@ def run_simulation(
         return _runner_cache[cfg]
 
     def _cfg_cost(c: EngineConfig) -> float:
-        if c.tile is not None and c.tile_classes is not None:
-            # class-compacted query rows: only occupied-class slots
-            # sweep pair tiles
-            return sum(
-                nk * float(ck) for ck, nk in c.tile_classes
-            ) * 27.0 * float(c.tile[1])
+        if c.tile is not None:
+            if c.tile_classes is not None:
+                # class-compacted query rows: only occupied-class slots
+                # sweep pair tiles
+                return sum(
+                    nk * float(ck) for ck, nk in c.tile_classes
+                ) * 27.0 * float(c.tile[1])
+            # mono tile: every cell's full capacity sweeps pair tiles
+            return c.tile[0] ** 3 * float(c.tile[1]) ** 2 * 27.0
         return float("inf")
 
     said_rungs = []
@@ -184,34 +214,25 @@ def run_simulation(
             and tile_params_still_ok(
                 pos_host, h_host, c.tile[0], c.tile[1], c.outlier_budget
             )
-            and ctile_classes_still_ok(
-                pos_host, h_host, c.tile[0], c.tile[1], c.tile_classes
+            and (
+                c.tile_classes is None
+                or ctile_classes_still_ok(
+                    pos_host, h_host, c.tile[0], c.tile[1], c.tile_classes
+                )
             )
         ]
         if cached:
             return min(cached, key=_cfg_cost)
-
-        # occupancy-class query compaction (exact-gravity states), planned
-        # as the reference plans it (1.5x occupancy headroom) except for
-        # the capacity ceiling: the reference stops at cap 128, a bound of
-        # its phase-A kernel's on-chip memory, and hands denser states to
-        # its mono-tile rung (cap <= 256). The CUDA kernels take any
-        # capacity, so the class engine keeps those states here.
-        tp_cls = choose_tile_classes(
-            pos_host, h_host, kh, headroom=1.5, cap_max=CLASS_CAP_MAX
+        cfg = plan_engine(
+            pos_host, h_host, n=n, kh=kh, eos=eos, dtype=dtype, gravity=grav
         )
-        if tp_cls is not None:
-            grid_c, cap_c, classes = tp_cls
-            return EngineConfig(
-                n=n, kh=kh, eos=eos, dtype=dtype,
-                tile=(grid_c, cap_c), tile_classes=classes,
-                gravity="exact",
-            )
+        if cfg is not None:
+            return cfg
         if verbose and not said_rungs:
             said_rungs.append(True)
             print(
-                "[engine] the class-compacted tile engine cannot plan this "
-                "state; the rungs not ported yet ("
+                "[engine] the tile engines cannot plan this state; the "
+                "rungs not ported yet ("
                 + ", ".join(RUNGS_NOT_PORTED)
                 + ") are skipped and the gather engine runs"
             )
@@ -436,8 +457,9 @@ def run_simulation(
     timer.report()
     if verbose:
         print(
-            f"Engine on {dev}: class-compacted cell-tiles for Pressure/AV + "
-            f"all-pairs gravity. Runtime: {runtime} seconds"
+            f"Engine on {dev}: cell-tiles for Pressure/AV + "
+            f"{'P3M mesh' if grav == 'p3m' else 'all-pairs'} gravity. "
+            f"Runtime: {runtime} seconds"
         )
     return {
         "steps": total_steps,

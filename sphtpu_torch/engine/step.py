@@ -6,10 +6,13 @@ loop over steps; dt is data-dependent and stays on the device. Snapshot
 cadence is step-count based, so run_simulation slices chunks at snapshot
 boundaries.
 
-Neighbor engines: when cfg.tile_classes is set, the class-compacted tile
-engine (sphtpu_torch.physics.ctiles) runs first and its per-evaluation
-exactness certificate gates the fallback to the gather engine — a stale
-grid costs speed, never correctness. Reading that certificate is the one
+Neighbor engines: when cfg.tile is set, a tile engine runs first — the
+class-compacted one (sphtpu_torch.physics.ctiles) when cfg.tile_classes is
+set, else the mono-tile one (sphtpu_torch.physics.tiles) — and its
+per-evaluation exactness certificate gates the fallback to the gather
+engine: a stale grid costs speed, never correctness. Gravity on a tile
+path is the exact Newtonian sweep or, under p3m, the FFT mesh; either way
+plus the tiles' near-field corrections. Reading that certificate is the one
 host synchronisation of a force evaluation. The smoothing lengths ride the
 loop as the grid-sizing hint for the next evaluation.
 
@@ -31,7 +34,9 @@ from ..physics import (
     gravity_newton_allpairs,
     sph_forces,
 )
-from ..physics.tiles import ReducedForces
+from ..physics.ctiles import ctile_sph_forces
+from ..physics.mesh_gravity import greens_hat, p3m_mesh_force
+from ..physics.tiles import ReducedForces, tile_sph_forces
 from ..profiling import stage
 from .config import EngineConfig, Params, State
 
@@ -59,62 +64,78 @@ def _not_ported(cfg: EngineConfig):
         return "blocks (the block-compact engine arrives with slice 3 of the port)"
     if cfg.mlevel is not None:
         return "mlevel (the multi-level engine arrives with slice 4 of the port)"
-    if cfg.tile is not None and cfg.tile_classes is None:
-        return (
-            "tile without tile_classes (the mono-tile engine arrives with "
-            "slice 2 of the port)"
-        )
-    if cfg.gravity == "p3m":
-        return "gravity='p3m' (the FFT mesh arrives with slice 2 of the port)"
+    if cfg.outlier_budget:
+        return "outlier_budget (the outlier lane arrives with slice 4 of the port)"
     return None
 
 
-def force_eval(cfg: EngineConfig, p: Params, pos, vel, K, h_hint, *, device=None):
+def force_eval(
+    cfg: EngineConfig, p: Params, pos, vel, K, h_hint, ghat=None, *, device=None
+):
     """Hydro + gravity acceleration (getAcc, polytrope_sim.jl:17-51).
 
-    Returns (acc, reduced, phi, fell_back); fell_back is a python bool
-    (the certificate is read back here). device=None means the card."""
+    ghat: the Green's function of cfg's mesh, `greens_hat(cfg.mesh_pad,
+    cfg.sigma_cells, dtype, device)`; required when the config is p3m (the
+    chunk runner computes it once). Returns (acc, reduced, phi,
+    fell_back); fell_back is a python bool (the certificate is read back
+    here). device=None means the card."""
     dev = resolve_device(device)
     require_on(dev, pos, vel, K)
     missing = _not_ported(cfg)
     if missing is not None:
         raise NotImplementedError(f"EngineConfig with {missing}")
+    if cfg.gravity == "p3m" and ghat is None:
+        raise ValueError(
+            "a p3m config needs ghat = greens_hat(cfg.mesh_pad, cfg.sigma_cells, ...)"
+        )
 
-    if cfg.tile is not None and cfg.tile_classes is not None:
-        # occupancy-class-compacted tile path (physics/ctiles.py): padded
-        # query rows are not swept; candidates stay the full 27-cell
-        # prestack so certification equals a mono engine's
-        from ..physics.ctiles import ctile_sph_forces
-
+    if cfg.tile is not None:
         grid, cap = cfg.tile
-        with stage("hydro_ctiles"):
-            tf, gcorr, ok = ctile_sph_forces(
-                pos,
-                vel,
-                p.m,
-                K,
-                h_hint,
-                eos=cfg.eos,
-                gamma=p.gamma,
-                cs0=p.cs0,
-                alpha=p.alpha,
-                beta=p.beta,
-                kh=cfg.kh,
-                grid=grid,
-                cap=cap,
-                classes=cfg.tile_classes,
-                mesh_factor=0,
-                sigma_cells=cfg.sigma_cells,
-                device=dev,
-            )
+        p3m = cfg.gravity == "p3m"
+        kw = dict(
+            eos=cfg.eos,
+            gamma=p.gamma,
+            cs0=p.cs0,
+            alpha=p.alpha,
+            beta=p.beta,
+            kh=cfg.kh,
+            grid=grid,
+            cap=cap,
+            mesh_factor=cfg.mesh_factor if p3m else 0,
+            sigma_cells=cfg.sigma_cells,
+            device=dev,
+        )
+        if cfg.tile_classes is not None:
+            # occupancy-class-compacted tile path (physics/ctiles.py):
+            # padded query rows are not swept; candidates stay the full
+            # 27-cell prestack so certification equals the mono engine's
+            with stage("hydro_ctiles"):
+                tf, gcorr, ok = ctile_sph_forces(
+                    pos, vel, p.m, K, h_hint, classes=cfg.tile_classes, **kw
+                )
+        else:
+            # mono-tile path (physics/tiles.py): every cell at the full
+            # capacity; under p3m its phase C adds the (2W+1)^3 tail
+            with stage("hydro_tiles"):
+                tf, gcorr, ok = tile_sph_forces(pos, vel, p.m, K, h_hint, **kw)
         ok = bool(ok)  # the one host synchronisation of this evaluation
         if ok or cfg.fallback == "none":
             # failed certs under fallback="none" are discarded by
             # make_step; the gather branch never runs
             with stage("gravity"):
-                gn, phin = gravity_newton_allpairs(pos, p.m, device=dev)
-            g = gn + torch.stack(gcorr[:3], dim=1)
-            return tf.acc - g, tf, phin + gcorr[3], not ok
+                if p3m:
+                    # FFT mesh far field + the tiles' (softened - mesh
+                    # shape) corrections
+                    gfar, phifar = p3m_mesh_force(
+                        pos, p.m, ghat, gm=cfg.mesh_gm, pad=cfg.mesh_pad
+                    )
+                else:
+                    # pure-Newtonian global sweep + the tiles' near-field
+                    # softening correction == the reference's softened
+                    # gravity, exactly
+                    gfar, phifar = gravity_newton_allpairs(pos, p.m, device=dev)
+            g = gfar + torch.stack(gcorr[:3], dim=1)
+            return tf.acc - g, tf, phifar + gcorr[3], not ok
         with stage("hydro_gather"):
             red = _gather_reduced(cfg, p, pos, vel, K)
         with stage("gravity"):
@@ -165,14 +186,16 @@ def _diagnostics(cfg: EngineConfig, p: Params, state: State, sf, phi, vel_r2):
 
 
 def make_step(cfg: EngineConfig, *, device=None):
-    """Returns step(state, params, h_hint) ->
+    """Returns step(state, params, h_hint, ghat=None) ->
     (state', stats_row, h_new, rho_new, n_fallbacks). n_fallbacks is a
-    python int. device=None means the card."""
+    python int; ghat is force_eval's. device=None means the card."""
     dev = resolve_device(device)
 
-    def step(state: State, p: Params, h_hint) -> Tuple:
+    def step(state: State, p: Params, h_hint, ghat=None) -> Tuple:
         pos, vel, K = state.pos, state.vel, state.K
-        acc, sf, phi, fb1 = force_eval(cfg, p, pos, vel, K, h_hint, device=dev)
+        acc, sf, phi, fb1 = force_eval(
+            cfg, p, pos, vel, K, h_hint, ghat, device=dev
+        )
         dt = _adaptive_dt(p, sf, acc, vel)
         vel_r2 = torch.sum(vel * vel, dim=1)
         stats = _diagnostics(cfg, p, state, sf, phi, vel_r2)
@@ -183,7 +206,7 @@ def make_step(cfg: EngineConfig, *, device=None):
         if cfg.eos == "polytropic":
             K = evolve_K(K, sf.visc_dk, p.gamma, sf.rho, dt)
         acc2, sf2, _, fb2 = force_eval(
-            cfg, p, pos_half, vel_half, K, sf.h, device=dev
+            cfg, p, pos_half, vel_half, K, sf.h, ghat, device=dev
         )
         if cfg.eos == "polytropic":
             K = evolve_K(K, sf2.visc_dk, p.gamma, sf2.rho, dt)
@@ -224,9 +247,16 @@ def make_chunk_runner(cfg: EngineConfig, *, device=None):
     n_steps, like steps at t >= t_end, leave the state untouched and report
     valid=False with a zero stats row. One host read of `t < t_end` per
     step and one of the certificate per force evaluation are the only
-    synchronisations. device=None means the card."""
+    synchronisations. Under p3m the mesh's Green's function is computed
+    once, with the runner, not per evaluation. device=None means the
+    card."""
     dev = resolve_device(device)
     step = make_step(cfg, device=dev)
+    ghat = (
+        greens_hat(cfg.mesh_pad, cfg.sigma_cells, cfg.torch_dtype, dev)
+        if cfg.gravity == "p3m"
+        else None
+    )
 
     def chunk(state: State, p: Params, h0, n_steps, *, scan_length=None):
         require_on(dev, *state, h0)
@@ -243,7 +273,7 @@ def make_chunk_runner(cfg: EngineConfig, *, device=None):
         for i in range(n_steps):
             if not bool(state.t < p.t_end):
                 break
-            state, stats_i, h, rho, n_fb = step(state, p, h)
+            state, stats_i, h, rho, n_fb = step(state, p, h, ghat)
             stats[i] = stats_i
             valid[i] = True
             nfb[i] = n_fb

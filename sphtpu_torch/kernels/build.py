@@ -8,7 +8,7 @@ to ``<repo>/build/sphtpu_torch_kernels`` (git-ignored), keyed by a hash of
 the sources, so a later process reuses them.
 
 The wrappers' argument helpers (`check_tensor`, `scalar_tensor`,
-`pointer_array`) live here too.
+`pointer_array`) and the plain versions' `occupied_columns` live here too.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``. A build or load failure raises — there is no
@@ -27,7 +27,7 @@ import threading
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("phase_a_cells", "phase_b_tiles", "newton_sweep")
+SOURCES = ("phase_a_cells", "phase_b_tiles", "newton_sweep", "p3m_tail")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(CSRC)), "..", "build", "sphtpu_torch_kernels"
 )
@@ -65,17 +65,20 @@ def _source_tag() -> str:
 def _declare(libs) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pp = ctypes.POINTER(ctypes.c_void_p)
-    fa = libs["phase_a_cells"].sph_phase_a_cells
-    fa.argtypes = [pp, ci, ci, ci, ci, ci, ci, vp]
-    fb = libs["phase_b_tiles"].sph_phase_b_tiles
-    fb.argtypes = [pp, pp, vp, pp, ci, ci, ci, ci, ci, ci, vp]
-    fn = libs["newton_sweep"].sph_newton_sweep
-    fn.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-    for name, fnc in (("phase_a_cells", fa), ("phase_b_tiles", fb), ("newton_sweep", fn)):
+    entries = (
+        ("phase_a_cells", "sph_phase_a_cells", [pp, ci, ci, ci, ci, ci, ci, vp]),
+        ("phase_a_cells", "sph_phase_a_tile", [pp, ci, ci, ci, ci, ci, vp]),
+        ("phase_b_tiles", "sph_phase_b_tiles", [pp, pp, vp, pp, ci, ci, ci, ci, ci, ci, vp]),
+        ("newton_sweep", "sph_newton_sweep", [vp, vp, vp, vp, ci, ci, vp]),
+        ("p3m_tail", "sph_p3m_tail", [pp, vp, pp, ci, ci, ci, ci, vp]),
+    )
+    for lib, entry, argtypes in entries:
+        fnc = getattr(libs[lib], entry)
+        fnc.argtypes = argtypes
         fnc.restype = ci
-        es = libs[name].sph_error_string
-        es.argtypes = [ci]
-        es.restype = ctypes.c_char_p
+    for lib in libs.values():
+        lib.sph_error_string.argtypes = [ci]
+        lib.sph_error_string.restype = ctypes.c_char_p
 
 
 def load_kernels():
@@ -150,3 +153,13 @@ def scalar_tensor(values, dtype, device):
     return torch.stack(
         [torch.as_tensor(v, dtype=dtype, device=device).reshape(()) for v in values]
     )
+
+
+def occupied_columns(mask_rows: torch.Tensor) -> torch.Tensor:
+    """Indices of the columns of a (rows, width) mask chunk that hold at
+    least one occupied slot (mask > 0), never empty: a chunk with none
+    keeps column 0. The plain versions sweep only these, as the kernels
+    sweep only compacted occupied slots; the others add nothing to any
+    sum, count or max. Reads the mask on the host."""
+    cols = torch.nonzero((mask_rows > 0).any(0)).flatten()
+    return cols if cols.numel() else cols.new_zeros(1)

@@ -1,7 +1,15 @@
-// phase_a_cells: exact k-th neighbour distance by count bisection + density.
+// phase_a_cells / phase_a_tile: exact k-th neighbour distance by count
+// bisection + density.
 //
-// Replaces the TPU kernel sphtpu/kernels/pallas_strip_knn.py::phase_a_cells
-// (_kernel). Per query slot of a cell row: squared distances to the row's
+// Replaces two TPU kernels that compute the same thing on different
+// layouts: sphtpu/kernels/pallas_strip_knn.py::phase_a_cells (_kernel; the
+// class-compacted engine: explicit query planes and a per-query reach2)
+// and sphtpu/kernels/pallas_knn.py::phase_a_pallas (_phase_a_kernel; the
+// mono-tile engine: the queries are the centre cell of the 27-cell
+// candidate row, slots 13*cap .. 14*cap, the occupancy plane is the query
+// mask, and the threshold is one uniform s2 = (cell edge)^2). One kernel
+// template serves both (MONO selects the layout). Per query slot of a cell
+// row: squared distances to the row's
 // candidates, n_bisect count bisections on [0, 1.001 * reach2] for the
 // exact k-th distance, rk2 = max{d2 <= hi}, nfound = #{d2 <= rk2},
 // h = sqrt(rk2) / 2, rho = m * sum W over d2 <= rk2 (self pair included),
@@ -19,17 +27,20 @@
 // bisection fixed point does not depend on reduction order — only rho
 // reassociates. The three candidate planes of a row (3 * cw elements) must
 // fit the shared memory a block may opt into; the wrapper refuses wider rows.
+// A block whose 32 query slots are all masked off (the padding of a cell
+// with fewer particles than the capacity) writes its outputs and leaves
+// before it stages anything.
 #include "common.cuh"
 
 namespace sph {
 
 template <typename T>
 struct PhaseAArgs {
-  const T* qx;
+  const T* qx;  // MONO: unused (queries are the centre slice of cx..cm)
   const T* qy;
   const T* qz;
   const T* qm;
-  const T* reach2;
+  const T* reach2;  // (n_cells, cap); MONO: one element, s2
   const T* cx;
   const T* cy;
   const T* cz;
@@ -44,7 +55,7 @@ struct PhaseAArgs {
   int n_bisect;
 };
 
-template <typename T>
+template <typename T, bool MONO>
 __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int wcount[TILE_WARPS];
@@ -60,6 +71,19 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
   const T* cy = a.cy + row * a.cw;
   const T* cz = a.cz + row * a.cw;
   const T* cm = a.cm + row * a.cw;
+  const long qi = row * a.cap + q;
+  const int centre = 13 * a.cap;  // MONO: cell (1,1,1) of the 27-stack
+  const bool qvalid = q < a.cap && (MONO ? cm[centre + q] : a.qm[qi]) > T(0);
+
+  if (!__syncthreads_or(qvalid)) {
+    // no query of this block is occupied: h = rho = 0, ok = 1
+    if (q < a.cap && sub == 0) {
+      a.h[qi] = T(0);
+      a.rho[qi] = T(0);
+      a.ok[qi] = T(1);
+    }
+    return;
+  }
 
   int ncand = 0;
   for (int t0 = 0; t0 < a.cw; t0 += TILE_THREADS) {
@@ -75,8 +99,6 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
   __syncthreads();
 
   if (q >= a.cap) return;
-  const long qi = row * a.cap + q;
-  const bool qvalid = a.qm[qi] > T(0);
   if (!qvalid) {
     // off-mask rows: h = rho = 0, ok = 1 (all lanes of the group agree)
     if (sub == 0) {
@@ -88,10 +110,10 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
   }
   // from here on all LANES_PER_QUERY lanes of the group are active together
 
-  const T qx = a.qx[qi];
-  const T qy = a.qy[qi];
-  const T qz = a.qz[qi];
-  const T r2 = a.reach2[qi];
+  const T qx = MONO ? cx[centre + q] : a.qx[qi];
+  const T qy = MONO ? cy[centre + q] : a.qy[qi];
+  const T qz = MONO ? cz[centre + q] : a.qz[qi];
+  const T r2 = MONO ? a.reach2[0] : a.reach2[qi];
 
 #define SPH_FOR_EACH_CAND(...)                                 \
   for (int j = sub; j < ncand; j += LANES_PER_QUERY) {           \
@@ -141,15 +163,15 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
   }
 }
 
-template <typename T>
+template <typename T, bool MONO>
 int launch_phase_a(PhaseAArgs<T> a, int n_cells, cudaStream_t stream) {
   if (n_cells <= 0) return 0;
   const dim3 grid(n_cells, (a.cap + QUERIES_PER_BLOCK - 1) / QUERIES_PER_BLOCK);
   const size_t smem = size_t(3) * a.cw * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<T, MONO>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
-  SPH_LAUNCH((phase_a_kernel<T>), grid, TILE_THREADS, smem, stream, a);
+  SPH_LAUNCH((phase_a_kernel<T, MONO>), grid, TILE_THREADS, smem, stream, a);
   return int(cudaGetLastError());
 }
 
@@ -178,7 +200,27 @@ int phase_a_from_ptrs(void* const* p, int n_cells, int cap, int cw, int kh, int 
   a.cw = cw;
   a.kh = kh;
   a.n_bisect = n_bisect;
-  return launch_phase_a<T>(a, n_cells, stream);
+  return launch_phase_a<T, false>(a, n_cells, stream);
+}
+
+template <typename T>
+int phase_a_tile_from_ptrs(void* const* p, int n_cells, int cap, int kh, int n_bisect,
+                           cudaStream_t stream) {
+  PhaseAArgs<T> a = {};
+  a.reach2 = static_cast<const T*>(p[0]);
+  a.cx = static_cast<const T*>(p[1]);
+  a.cy = static_cast<const T*>(p[2]);
+  a.cz = static_cast<const T*>(p[3]);
+  a.cm = static_cast<const T*>(p[4]);
+  a.m = static_cast<const T*>(p[5]);
+  a.h = static_cast<T*>(p[6]);
+  a.rho = static_cast<T*>(p[7]);
+  a.ok = static_cast<T*>(p[8]);
+  a.cap = cap;
+  a.cw = 27 * cap;
+  a.kh = kh;
+  a.n_bisect = n_bisect;
+  return launch_phase_a<T, true>(a, n_cells, stream);
 }
 
 }  // namespace sph
@@ -190,4 +232,14 @@ extern "C" int sph_phase_a_cells(void* const* ptrs, int n_cells, int cap, int cw
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double ? sph::phase_a_from_ptrs<double>(ptrs, n_cells, cap, cw, kh, n_bisect, s)
                    : sph::phase_a_from_ptrs<float>(ptrs, n_cells, cap, cw, kh, n_bisect, s);
+}
+
+// ptrs: s2 cx cy cz cm m h rho ok (9 device pointers; s2 and m one element
+// each; cx..cm (n_cells, 27 * cap), the outputs (n_cells, cap)). The
+// queries are slots 13 * cap .. 14 * cap of each candidate row.
+extern "C" int sph_phase_a_tile(void* const* ptrs, int n_cells, int cap, int kh, int n_bisect,
+                                int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_double ? sph::phase_a_tile_from_ptrs<double>(ptrs, n_cells, cap, kh, n_bisect, s)
+                   : sph::phase_a_tile_from_ptrs<float>(ptrs, n_cells, cap, kh, n_bisect, s);
 }

@@ -18,8 +18,10 @@
 // accumulators in registers. The candidate axis is walked in chunks of
 // CHUNK slots whose OCCUPIED entries (mask > 0) are compacted, order kept,
 // into ten shared-memory planes, so shared memory never depends on the
-// candidate width. No candidate-side outputs, hence no atomics: the lanes
-// of a query combine by warp shuffle at the end.
+// candidate width. A block with no occupied query slot leaves before it
+// stages anything (the mono-tile engine sweeps every cell at the full
+// capacity, most of whose slots are padding). No candidate-side outputs,
+// hence no atomics: the lanes of a query combine by warp shuffle at the end.
 #include "common.cuh"
 
 namespace sph {
@@ -48,6 +50,17 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_b_kernel(PhaseBArgs<T> a) 
   const int q = blockIdx.y * QUERIES_PER_BLOCK + tid / LANES_PER_QUERY;
   const long qi = row * a.cap + (q < a.cap ? q : 0);
   const bool active = q < a.cap && a.q[6][qi] > T(0);
+
+  if (!__syncthreads_or(active)) {
+    // no query of this block is occupied (the padding of a cell with fewer
+    // particles than the capacity): zeros, mu_max = -max, nothing staged
+    if (q < a.cap && sub == 0) {
+#pragma unroll
+      for (int k = 0; k < 10; ++k) a.out[k][qi] = T(0);
+      a.out[4][qi] = -Num<T>::big();
+    }
+    return;
+  }
 
   const T m = a.scal[0];
   const T alpha = a.scal[1];

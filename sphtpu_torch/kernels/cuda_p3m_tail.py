@@ -1,0 +1,125 @@
+"""p3m_tail: the mono-tile engine's P3M tail correction.
+
+Per query slot, m * sum over the occupied candidates of the (2W+1)^3-cell
+stencil of newton_minus_mesh (Newtonian minus the mesh's Gaussian-smoothed
+shape): (gx, gy, gz, gphi). The reference runs this pass as XLA (phase C of
+sphtpu/physics/tiles.py::tile_sph_forces); it has no TPU kernel. Tensors
+on a CUDA device go to the hand-written kernel csrc/p3m_tail.cu; tensors on
+the CPU go to `p3m_tail_plain`. The choice is made on the input's device
+only.
+
+Input layout: four padded planes (x, y, z, mask) of shape
+(gpc, gpc, gpc * cap), gpc = grid + 2W — particles at their (cell, rank)
+slots with a W-cell halo of zeros. Cell (iz, iy, ix) owns slots
+[(iz+W, iy+W), (ix+W) * cap : (ix+W+1) * cap]; its stencil is the
+(2W+1)^2 runs [(iz+dz, iy+dy), ix * cap : (ix+2W+1) * cap], in that
+(dz, dy, x-slot) order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..physics.mesh_gravity import newton_minus_mesh
+from . import build
+
+launches = 0  # kernel launches made by p3m_tail (CUDA tensors only)
+
+
+def stencil_index(grid: int, cap: int, halfwidth: int, device):
+    """(corner (n_cells,), offsets (cwc,), centre (n_cells,)): flat plane
+    index of each cell's stencil corner, the offsets of the (2W+1)^3 * cap
+    stencil slots from it in (dz, dy, x-slot) order, and the flat index of
+    each cell's first own slot."""
+    g, w = grid, halfwidth
+    gpc = g + 2 * w
+    xs = gpc * cap
+    span = 2 * w + 1
+    a = torch.arange(span, device=device)
+    offsets = (
+        (a[:, None, None] * gpc + a[None, :, None]) * xs
+        + torch.arange(span * cap, device=device)[None, None, :]
+    ).reshape(-1)
+    rows = torch.arange(g**3, device=device)
+    ix, iy, iz = rows % g, (rows // g) % g, rows // (g * g)
+    corner = (iz * gpc + iy) * xs + ix * cap
+    centre = ((iz + w) * gpc + (iy + w)) * xs + (ix + w) * cap
+    return corner, offsets, centre
+
+
+def p3m_tail_plain(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
+                   row_chunk: int = 0):
+    """Plain PyTorch version: per chunk of cell rows, gather the stencil's
+    slots and broadcast (rows, cap', 1) against (rows, 1, cwc') over the
+    chunk's occupied query and stencil columns only
+    (`build.occupied_columns`)."""
+    dtype, device = planes.dtype, planes.device
+    n_cells = grid**3
+    corner, offsets, centre = stencil_index(grid, cap, halfwidth, device)
+    cwc = offsets.numel()
+    if not row_chunk:
+        row_chunk = max(1, 2_000_000 // max(cap * cwc, 1))
+    flat = planes.reshape(4, -1)
+    slot = torch.arange(cap, device=device)
+    out = torch.zeros((4, n_cells, cap), dtype=dtype, device=device)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    one = torch.ones((), dtype=dtype, device=device)
+    for r0 in range(0, n_cells, row_chunk):
+        sl = slice(r0, r0 + row_chunk)
+        qidx = centre[sl, None] + slot[None, :]
+        qm = flat[3][qidx]
+        if not bool((qm > 0).any()):
+            continue
+        qc = build.occupied_columns(qm)
+        cidx = corner[sl, None] + offsets[None, :]
+        cidx = cidx[:, build.occupied_columns(flat[3][cidx])]
+        cx, cy, cz, cm = (flat[k][cidx][:, None, :] for k in range(4))
+        qx, qy, qz, qm = (flat[k][qidx[:, qc]][:, :, None] for k in range(4))
+        dx = qx - cx
+        dy = qy - cy
+        dz = qz - cz
+        d2 = dx * dx + dy * dy + dz * dz
+        valid = (cm > 0) & (qm > 0)
+        inv_r = torch.rsqrt(torch.where(d2 > 0, d2, one))
+        cgp, cpp = newton_minus_mesh(d2, inv_r, sigma)
+        cgp = torch.where(valid, cgp, zero)
+        cpp = torch.where(valid, cpp, zero)
+        out[0, sl, qc] = m * torch.sum(cgp * dx, dim=2)
+        out[1, sl, qc] = m * torch.sum(cgp * dy, dim=2)
+        out[2, sl, qc] = m * torch.sum(cgp * dz, dim=2)
+        out[3, sl, qc] = m * torch.sum(cpp, dim=2)
+    return out
+
+
+def p3m_tail(planes, m, sigma, *, grid: int, cap: int, halfwidth: int):
+    """Returns (4, grid^3, cap): gx, gy, gz, gphi of the tail correction at
+    every query slot (zeros at unoccupied slots). planes: (4, gpc, gpc,
+    gpc * cap) x, y, z, mask with gpc = grid + 2 * halfwidth."""
+    if planes.device.type != "cuda":
+        return p3m_tail_plain(
+            planes, m, sigma, grid=grid, cap=cap, halfwidth=halfwidth
+        )
+    global launches
+    dtype, device = planes.dtype, planes.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"p3m_tail: unsupported dtype {dtype}")
+    if halfwidth < 1:
+        raise ValueError("p3m_tail: halfwidth must be >= 1")
+    gpc = grid + 2 * halfwidth
+    build.check_tensor("planes", planes, (4, gpc, gpc, gpc * cap), dtype, device)
+    scal = build.scalar_tensor([m, sigma], dtype, device)
+    out = torch.empty((4, grid**3, cap), dtype=dtype, device=device)
+    if grid == 0:
+        return out
+    lib = build.load_kernels()["p3m_tail"]
+    with torch.cuda.device(device):
+        code = lib.sph_p3m_tail(
+            build.pointer_array(list(planes.unbind(0))),
+            scal.data_ptr(),
+            build.pointer_array(list(out.unbind(0))),
+            grid, cap, halfwidth, int(dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check("p3m_tail", code)
+    launches += 1
+    return out

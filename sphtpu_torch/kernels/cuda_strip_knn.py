@@ -34,8 +34,10 @@ def phase_a_cells_plain(
     queries, reach2, cands, m, *, kh: int, cap: int,
     n_bisect: int = N_BISECT, row_chunk: int = 0,
 ):
-    """Plain PyTorch version: broadcast (rows, cap, 1) against
-    (rows, 1, cw), row-chunked to bound the pair temporaries."""
+    """Plain PyTorch version: broadcast (rows, cap', 1) against
+    (rows, 1, cw'), row-chunked to bound the pair temporaries, over the
+    chunk's occupied query and candidate columns only (cap' <= cap,
+    cw' <= cw; `build.occupied_columns`)."""
     qx, qy, qz, qm = queries
     cx, cy, cz, cm = cands
     n_cells, cw = cx.shape
@@ -43,20 +45,25 @@ def phase_a_cells_plain(
     big = torch.finfo(dtype).max
     if not row_chunk:
         row_chunk = max(1, 4_000_000 // max(cap * cw, 1))
-    h_out = torch.empty((n_cells, cap), dtype=dtype, device=cx.device)
-    rho_out = torch.empty_like(h_out)
-    ok_out = torch.empty_like(h_out)
+    # off-mask query slots: h = rho = 0, ok = 1
+    h_out = torch.zeros((n_cells, cap), dtype=dtype, device=cx.device)
+    rho_out = torch.zeros_like(h_out)
+    ok_out = torch.ones_like(h_out)
     zero = torch.zeros((), dtype=dtype, device=cx.device)
     one = torch.ones((), dtype=dtype, device=cx.device)
     for r0 in range(0, n_cells, row_chunk):
         sl = slice(r0, r0 + row_chunk)
-        dx = qx[sl, :, None] - cx[sl, None, :]
-        dy = qy[sl, :, None] - cy[sl, None, :]
-        dz = qz[sl, :, None] - cz[sl, None, :]
+        if not bool((qm[sl] > 0).any()):
+            continue
+        qc = build.occupied_columns(qm[sl])
+        cc = build.occupied_columns(cm[sl])
+        dx = qx[sl][:, qc, None] - cx[sl][:, None, cc]
+        dy = qy[sl][:, qc, None] - cy[sl][:, None, cc]
+        dz = qz[sl][:, qc, None] - cz[sl][:, None, cc]
         d2 = dx * dx + dy * dy + dz * dz
-        valid = (cm[sl, None, :] > 0) & (qm[sl, :, None] > 0)
+        valid = (cm[sl][:, None, cc] > 0) & (qm[sl][:, qc, None] > 0)
         d2m = torch.where(valid, d2, torch.full_like(d2, big))
-        r2 = reach2[sl, :, None]
+        r2 = reach2[sl][:, qc, None]
         hi = 1.001 * r2
         lo = torch.zeros_like(r2)
         for _ in range(n_bisect):
@@ -74,10 +81,10 @@ def phase_a_cells_plain(
         rho_t = m * torch.sum(
             torch.where(valid & within, w_k, zero), dim=2, keepdim=True
         )
-        row_ok = (qm[sl, :, None] <= 0) | ((nfound >= kh) & (rk2 <= r2))
-        h_out[sl] = h_t[..., 0]
-        rho_out[sl] = rho_t[..., 0]
-        ok_out[sl] = row_ok[..., 0].to(dtype)
+        row_ok = (qm[sl][:, qc, None] <= 0) | ((nfound >= kh) & (rk2 <= r2))
+        h_out[sl, qc] = h_t[..., 0]
+        rho_out[sl, qc] = rho_t[..., 0]
+        ok_out[sl, qc] = row_ok[..., 0].to(dtype)
     return h_out, rho_out, ok_out
 
 

@@ -37,24 +37,32 @@ def phase_b_tiles_plain(
     qfields, cfields, m, alpha, beta, sigma, *, eos: str, p3m: bool, cap: int,
     row_chunk: int = 0,
 ):
-    """Plain PyTorch version: broadcast (rows, cap, 1) against
-    (rows, 1, cw), row-chunked to bound the pair temporaries."""
+    """Plain PyTorch version: broadcast (rows, cap', 1) against
+    (rows, 1, cw'), row-chunked to bound the pair temporaries, over the
+    chunk's occupied query and candidate columns only (cap' <= cap,
+    cw' <= cw; `build.occupied_columns`)."""
     n_cells, cw = cfields[0].shape
     dtype = cfields[0].dtype
     device = cfields[0].device
     big = torch.finfo(dtype).max
     if not row_chunk:
         row_chunk = max(1, 1_000_000 // max(cap * cw, 1))
-    outs = [torch.empty((n_cells, cap), dtype=dtype, device=device) for _ in range(10)]
+    # off-mask query slots: zeros, mu_max = -max
+    outs = [torch.zeros((n_cells, cap), dtype=dtype, device=device) for _ in range(10)]
+    outs[4].fill_(-big)
     zero = torch.zeros((), dtype=dtype, device=device)
     one = torch.ones((), dtype=dtype, device=device)
     for r0 in range(0, n_cells, row_chunk):
         sl = slice(r0, r0 + row_chunk)
+        if not bool((qfields[6][sl] > 0).any()):
+            continue
+        qc = build.occupied_columns(qfields[6][sl])
+        cc = build.occupied_columns(cfields[6][sl])
         qx, qy, qz, qvx, qvy, qvz, qm, qh, qrho, qpor2, qcs = (
-            a[sl, :, None] for a in qfields
+            a[sl][:, qc, None] for a in qfields
         )
         cx, cy, cz, cvx, cvy, cvz, cm, ch, crho, cpor2, ccs = (
-            a[sl, None, :] for a in cfields
+            a[sl][:, None, cc] for a in cfields
         )
         dx = qx - cx
         dy = qy - cy
@@ -121,17 +129,17 @@ def phase_b_tiles_plain(
         coeff = -torch.where(fwd, ct_fwd * dwdr_q, zero) - torch.where(
             rev, ct_rev * dwdr_c, zero
         )
-        outs[0][sl] = torch.sum(coeff * dx, dim=2)
-        outs[1][sl] = torch.sum(coeff * dy, dim=2)
-        outs[2][sl] = torch.sum(coeff * dz, dim=2)
+        outs[0][sl, qc] = torch.sum(coeff * dx, dim=2)
+        outs[1][sl, qc] = torch.sum(coeff * dy, dim=2)
+        outs[2][sl, qc] = torch.sum(coeff * dz, dim=2)
 
         v_dot_dw_q = v_dot_r * dwdr_q
         v_dot_dw_c = v_dot_r * dwdr_c
-        outs[3][sl] = m * torch.sum(torch.where(fwd, v_dot_dw_q, zero), dim=2)
-        outs[4][sl] = torch.max(
+        outs[3][sl, qc] = m * torch.sum(torch.where(fwd, v_dot_dw_q, zero), dim=2)
+        outs[4][sl, qc] = torch.max(
             torch.where(fwd, mu, torch.full_like(mu, -big)), dim=2
         ).values
-        outs[5][sl] = torch.sum(
+        outs[5][sl, qc] = torch.sum(
             torch.where(fwd, m * pi_fwd * v_dot_dw_q / 2.0, zero)
             + torch.where(rev, m * pi_rev * v_dot_dw_c / 2.0, zero),
             dim=2,
@@ -189,10 +197,10 @@ def phase_b_tiles_plain(
             tg, tp = newton_minus_mesh(d2, inv_r, sigma)
             cgp = cgp + torch.where(valid, tg, zero)
             cpp = cpp + torch.where(valid, tp, zero)
-        outs[6][sl] = m * torch.sum(cgp * dx, dim=2)
-        outs[7][sl] = m * torch.sum(cgp * dy, dim=2)
-        outs[8][sl] = m * torch.sum(cgp * dz, dim=2)
-        outs[9][sl] = m * torch.sum(cpp, dim=2)
+        outs[6][sl, qc] = m * torch.sum(cgp * dx, dim=2)
+        outs[7][sl, qc] = m * torch.sum(cgp * dy, dim=2)
+        outs[8][sl, qc] = m * torch.sum(cgp * dz, dim=2)
+        outs[9][sl, qc] = m * torch.sum(cpp, dim=2)
     return tuple(outs)
 
 

@@ -45,7 +45,7 @@ import torch
 from ..device import require_on, resolve_device
 from ..kernels.cuda_strip_knn import phase_a_cells
 from ..kernels.cuda_tile_pairs import phase_b_tiles
-from .tiles import ReducedForces, _bin_particles
+from .tiles import MASK, X, Y, Z, _extract, _stack_sph_fields, _tile_stack
 
 CLASS_MENU = (32, 64, 96, 128)
 
@@ -139,52 +139,15 @@ def ctile_sph_forces(
     c_halfwidth == 1 REQUIRED (the caller/planner guarantees
     mesh_factor >= ceil(4.4 * sigma_cells)). device=None means the card."""
     require_on(resolve_device(device), pos, vel)
-    n = pos.shape[0]
     dtype = pos.dtype
     dev = pos.device
     g = grid
     del h_hint  # classing is from actual occupancy, not the hint
-    half = torch.max(torch.abs(pos)) * (1.0 + 1e-6) + 1e-30
-    coords, rank, (pz, py, px), overflow, s = _bin_particles(pos, g, cap, half)
-    cell_row = (coords[:, 2] * g + coords[:, 1]) * g + coords[:, 0]
-    # out-of-capacity ranks fail the certificate (`overflow`); clamp them
-    # so the slot gathers/scatters below stay in bounds meanwhile
-    rank = torch.clamp_max(rank, cap - 1)
+    st = _tile_stack(pos, vel, g, cap)
+    cell_row = st.cell_row
     n_cells = g**3
     n_cls = len(classes)
-
-    gp = g + 2
-    xslots = gp * cap
-    # field planes x y z vx vy vz mask h rho P/rho^2 cs, one-cell halo
-    X, Y, Z, VX, VY, VZ, MASK, H, RHO, POR2, CS = range(11)
-    planes = torch.zeros((11, gp, gp, xslots), dtype=dtype, device=dev)
-    planes[: MASK + 1, pz, py, px] = torch.cat(
-        [pos.T, vel.T.to(dtype), torch.ones((1, n), dtype=dtype, device=dev)]
-    )
-
-    # candidate prestack (field, cell, 27 neighbour cells, cap) and the
-    # (field, cell, cap) query-slot view, each with one all-padding
-    # sentinel row n_cells that absorbs the unused entries of a class list
-    pre = torch.zeros((11, n_cells + 1, 27, cap), dtype=dtype, device=dev)
-    qpl = torch.zeros((11, n_cells + 1, cap), dtype=dtype, device=dev)
-
-    def fill(lo, hi):
-        i = 0
-        for dz in range(3):
-            for dy in range(3):
-                for dxs in range(3):
-                    blk = planes[
-                        lo:hi, dz : dz + g, dy : dy + g,
-                        dxs * cap : (dxs + g) * cap,
-                    ]
-                    pre[lo:hi, :n_cells, i] = blk.reshape(hi - lo, n_cells, cap)
-                    i += 1
-        qpl[lo:hi, :n_cells] = planes[
-            lo:hi, 1 : g + 1, 1 : g + 1, cap : (g + 1) * cap
-        ].reshape(hi - lo, n_cells, cap)
-
-    fill(X, MASK + 1)
-    pre_rows = pre.view(11, n_cells + 1, 27 * cap)
+    qpl, pre_rows = st.qpl, st.pre_rows
 
     # per-eval occupancy classing (data-dependent; certified). Same
     # thresholds as choose_tile_classes so plan counts predict eval
@@ -224,7 +187,7 @@ def ctile_sph_forces(
     Hf = torch.zeros((n_cells + 1, cap), dtype=dtype, device=dev)
     RHOf = torch.zeros((n_cells + 1, cap), dtype=dtype, device=dev)
     rows_ok = torch.ones((), dtype=torch.bool, device=dev)
-    s2 = s * s
+    s2 = st.s * st.s
     cands_k = []
     for k, (cap_k, nk) in enumerate(classes):
         ck = cells_k[k]
@@ -243,28 +206,10 @@ def ctile_sph_forces(
 
     Hq = Hf[:n_cells]
     RHOq = RHOf[:n_cells]
-    rho_safe = torch.where(RHOq > 0, RHOq, torch.ones_like(RHOq))
-    occ_mask = qpl[MASK, :n_cells] > 0
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    if eos == "polytropic":
-        Kq = torch.zeros((n_cells, cap), dtype=dtype, device=dev)
-        Kq[cell_row, rank] = K.to(dtype)
-        POR2q = torch.where(occ_mask, Kq * rho_safe ** (gamma - 2.0), zero)
-        CSq = torch.where(
-            occ_mask, torch.sqrt(gamma * Kq * rho_safe ** (gamma - 1.0)), zero
-        )
-    else:
-        POR2q = torch.where(occ_mask, cs0**2 / rho_safe, zero)
-        CSq = torch.where(occ_mask, torch.zeros_like(rho_safe) + cs0, zero)
-
-    interior = planes[H:, 1 : g + 1, 1 : g + 1, cap : (g + 1) * cap]
-    interior.copy_(
-        torch.stack([Hq, RHOq, POR2q, CSq]).view(4, g, g, g * cap)
-    )
-    fill(H, CS + 1)
+    CSq = _stack_sph_fields(st, Hq, RHOq, K, eos=eos, gamma=gamma, cs0=cs0)
 
     if mesh_factor > 0:
-        sigma = (s / mesh_factor) * sigma_cells
+        sigma = (st.s / mesh_factor) * sigma_cells
     else:
         sigma = None
 
@@ -286,25 +231,9 @@ def ctile_sph_forces(
         )
         outs_flat[:, ck, :cap_k] = torch.stack(outs_k)
 
-    # per-particle extraction
-    def at_rows(a):
-        return a[cell_row, rank]
-
-    AX, AY, AZ, DIV, MU, VISC, GX, GY, GZ, GP = outs_flat[:, cell_row, rank]
-    acc = torch.stack([AX, AY, AZ], dim=1)
-    out = ReducedForces(
-        acc=acc,
-        rho=at_rows(RHOq),
-        h=at_rows(Hq),
-        cs=at_rows(CSq)
-        if eos == "polytropic"
-        else torch.zeros((n,), dtype=dtype, device=dev) + cs0,
-        mu_max=MU,
-        div_sum=DIV,
-        visc_dk=VISC,
-    )
-    ok = (~overflow) & rows_ok & fits
-    return out, (GX, GY, GZ, GP), ok
+    out, gcorr = _extract(st, outs_flat, Hq, RHOq, CSq, eos=eos, cs0=cs0)
+    ok = (~st.overflow) & rows_ok & fits
+    return out, gcorr, ok
 
 
 def ctile_classes_still_ok(

@@ -1,12 +1,28 @@
-"""Analytic mesh-shape pair terms of the P3M split.
+"""P3M far-field gravity: FFT particle-mesh + the analytic mesh-shape pair
+terms the tile engines' in-tile correction subtracts.
 
-Only the pair terms that the tile engines' phase B needs are here:
-`newton_minus_mesh` (the short-range complement the `p3m=True` branch of
-kernels/cuda_tile_pairs.py adds) and the `mesh_gphi_over_r` / `mesh_phi`
-shapes it is the complement of. The FFT mesh solve itself (Green's
-function, CIC deposit, interpolation) is not ported yet.
+  total = mesh(smoothed, all pairs, via FFT) + near(exact - mesh_shape)
 
-All quantities are code units, per unit G.
+*   Every particle's mass is Gaussian-smoothed (width sigma = sigma_cells
+    mesh cells) and deposited on a mesh with CIC weights; one forward real
+    FFT, a multiply with the isolated-boundary Green's function, and
+    spectral-gradient inverse FFTs give the smoothed potential and force
+    fields, interpolated back with the same CIC weights (`p3m_mesh_force`,
+    on torch.fft — cuFFT on the card).
+*   Isolated (non-periodic) boundaries use the Hockney-Eastwood doubled
+    grid: the Green's function is sampled in real space on a >= 2x padded
+    grid in cell units (`greens_hat`), so it depends only on the static
+    (pad, sigma_cells) and is computed once per chunk runner.
+*   Deposit and interpolation share the CIC window and the spectral
+    gradient is antisymmetric, so the mesh pair force is antisymmetric and
+    total momentum is conserved to rounding.
+*   `newton_minus_mesh` is the short-range complement (Newtonian minus
+    mesh shape) that the tile engines add per pair inside their stencil
+    (kernels/cuda_p3m_tail.py for the mono engine's (2W+1)^3 pass, the
+    p3m branch of kernels/cuda_tile_pairs.py for the class engine).
+
+All quantities are code units, per unit G. Returned (g, phi) include the
+particle mass m.
 """
 
 from __future__ import annotations
@@ -16,6 +32,88 @@ import math
 import torch
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def good_fft_size(n: int) -> int:
+    """Smallest 5-smooth integer >= n (FFT libraries like {2,3,5} factors)."""
+    best = None
+    p2 = 1
+    while p2 < 8 * n:
+        p3 = p2
+        while p3 < 8 * n:
+            p5 = p3
+            while p5 < n:
+                p5 *= 5
+            if best is None or p5 < best:
+                best = p5
+            p3 *= 3
+        p2 *= 2
+    return best
+
+
+def tail_halfwidth(mesh_factor: int, sigma_cells: float) -> int:
+    """P3M tail-correction stencil half-width in tile cells: the smallest W
+    with W * s >= 4.4 sigma (sigma = sigma_cells * s / mesh_factor), beyond
+    which the Newtonian-minus-mesh complement is ~1e-4."""
+    return max(1, math.ceil(4.4 * sigma_cells / mesh_factor - 1e-9))
+
+
+def _domain_half(pos: torch.Tensor) -> torch.Tensor:
+    """Half-edge of the particle bounding cube. The tile engines size their
+    grid with this same function, so sigma = s / mesh_factor * sigma_cells
+    holds bit for bit between the mesh and the in-tile pair correction."""
+    return torch.max(torch.abs(pos)) * (1.0 + 1e-6) + 1e-30
+
+
+def greens_hat(pad: int, sigma_cells: float, dtype=torch.float32, device=None):
+    """rfftn of the isolated-BC smoothed potential kernel, in mesh-cell
+    units: K_phi(r) = -erf(r / (sqrt2 sigma)) / r, K_phi(0) = -sqrt(2/pi)/sigma,
+    sampled with minimum-image displacements on the padded grid, with the
+    CIC window deconvolved twice (deposit + interpolation): dividing by
+    What^2 = prod sinc^4(k_i/2) restores the analytic erf shape the
+    in-tile correction subtracts (Hockney & Eastwood ch. 8). Physical
+    scaling is the single factor 1/a applied at use (a = mesh cell edge).
+    Built in `dtype` (complex of that precision out)."""
+    ax = torch.arange(pad, device=device)
+    ax = torch.where(ax <= pad // 2, ax, ax - pad).to(dtype)
+    r = torch.sqrt(
+        ax[:, None, None] ** 2 + ax[None, :, None] ** 2 + ax[None, None, :] ** 2
+    )
+    r_safe = torch.where(r > 0, r, torch.ones_like(r))
+    sqrt2 = torch.sqrt(torch.tensor(2.0, dtype=dtype, device=device))
+    k = torch.where(
+        r > 0,
+        -torch.erf(r / (sqrt2 * sigma_cells)) / r_safe,
+        -torch.sqrt(torch.tensor(2.0 / math.pi, dtype=dtype, device=device))
+        / sigma_cells,
+    )
+    khat = torch.fft.rfftn(k)
+
+    kf, krf = _kfreqs(pad, dtype, device)
+
+    def sinc2(kk):
+        x = kk / 2.0
+        x_safe = torch.where(x != 0, x, torch.ones_like(x))
+        return torch.where(x != 0, (torch.sin(x_safe) / x_safe) ** 2, torch.ones_like(x))
+
+    w2 = (
+        sinc2(kf)[:, None, None]
+        * sinc2(kf)[None, :, None]
+        * sinc2(krf)[None, None, :]
+    )
+    return khat / (w2 * w2)
+
+
+def _kfreqs(pad: int, dtype, device):
+    """Angular frequencies of the full and the real (last) FFT axis, in
+    cell units, rounded once from float64 into `dtype`."""
+    kf = (2.0 * math.pi) * torch.fft.fftfreq(pad, dtype=torch.float64).to(
+        device=device, dtype=dtype
+    )
+    krf = (2.0 * math.pi) * torch.fft.rfftfreq(pad, dtype=torch.float64).to(
+        device=device, dtype=dtype
+    )
+    return kf, krf
 
 
 def mesh_gphi_over_r(r: torch.Tensor, sigma) -> torch.Tensor:
@@ -82,3 +180,69 @@ def newton_minus_mesh(d2: torch.Tensor, inv_r: torch.Tensor, sigma):
     gphi_over_r = torch.where(d2 > 0, f * inv_r3, zero)
     phi = torch.where(d2 > 0, -erfc_z * inv_r, zero + 0.7978845608028654 / sigma)
     return gphi_over_r, phi
+
+
+def _cic(pos: torch.Tensor, half, a, pad: int):
+    """CIC cell indices and weights: (idx (N,8) flat int64 into the padded
+    pad^3 grid, w (N,8)). Mesh cell centers sit at (i+0.5-1) a - half (one
+    ghost cell of offset keeps all 8 deposit corners in range without
+    wrapping)."""
+    u = (pos + half) / a - 0.5 + 1.0  # +1: ghost-cell offset
+    i0 = torch.floor(u).to(torch.int64)
+    f = (u - i0).to(pos.dtype)
+    idx_list = []
+    w_list = []
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                iz = i0[:, 2] + dz
+                iy = i0[:, 1] + dy
+                ix = i0[:, 0] + dx
+                idx_list.append((iz * pad + iy) * pad + ix)
+                wz = f[:, 2] if dz else 1.0 - f[:, 2]
+                wy = f[:, 1] if dy else 1.0 - f[:, 1]
+                wx = f[:, 0] if dx else 1.0 - f[:, 0]
+                w_list.append(wz * wy * wx)
+    return torch.stack(idx_list, dim=1), torch.stack(w_list, dim=1)
+
+
+def p3m_mesh_force(pos: torch.Tensor, m, greens_hat: torch.Tensor, *, gm: int, pad: int):
+    """Smoothed-interaction (g, phi) at every particle from the mesh.
+
+    gm: live mesh cells per edge (mesh_factor * tile grid); pad: padded FFT
+    edge (>= 2*(gm+2), from good_fft_size). greens_hat: `greens_hat(pad,
+    sigma_cells, dtype)` on pos's device. Self-interaction is included
+    (the in-tile correction subtracts its analytic value). Returns g (N,3)
+    with g_i = grad phi_mesh(x_i), phi (N,), both including the source
+    mass m (per unit G)."""
+    dtype = pos.dtype
+    half = _domain_half(pos)
+    a = 2.0 * half / gm
+
+    idx, w = _cic(pos, half, a, pad)
+    rho = torch.zeros((pad * pad * pad,), dtype=dtype, device=pos.device)
+    rho.index_add_(0, idx.reshape(-1), (m * w).reshape(-1))
+    rho_hat = torch.fft.rfftn(rho.reshape(pad, pad, pad))
+    phi_hat = rho_hat * greens_hat  # cell-unit kernel; 1/a applied below
+
+    # spectral gradient: k in cell units (the extra 1/a folds into scale)
+    kfreq, krfreq = _kfreqs(pad, dtype, pos.device)
+    kz = kfreq[:, None, None]
+    ky = kfreq[None, :, None]
+    kx = krfreq[None, None, :]
+
+    shape = (pad, pad, pad)
+    phi_grid = torch.fft.irfftn(phi_hat, s=shape).reshape(-1)
+    gx_grid = torch.fft.irfftn(1j * kx * phi_hat, s=shape).reshape(-1)
+    gy_grid = torch.fft.irfftn(1j * ky * phi_hat, s=shape).reshape(-1)
+    gz_grid = torch.fft.irfftn(1j * kz * phi_hat, s=shape).reshape(-1)
+
+    def interp(grid):
+        return torch.sum(grid[idx] * w, dim=1)
+
+    inv_a = 1.0 / a
+    phi = interp(phi_grid) * inv_a
+    g = torch.stack([interp(gx_grid), interp(gy_grid), interp(gz_grid)], dim=1) * (
+        inv_a * inv_a
+    )
+    return g.to(dtype), phi.to(dtype)

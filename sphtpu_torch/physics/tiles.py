@@ -1,18 +1,31 @@
-"""Masked cell-tile machinery shared by the tile engines.
-
-Only what the class-compacted engine (physics/ctiles.py) needs is here:
-`ReducedForces`, the particle binning `_bin_particles`, and the host-side
-planners `choose_tile_params` / `tile_params_still_ok`. The mono-tile
-engine itself (`tile_sph_forces`) and `choose_tile_params_ml` are not
-ported yet.
+"""Masked cell-tile machinery and the mono-tile engine.
 
 Particles are binned into a dense mono-level grid (edge >= safety * 2*max
-h, chosen by run_simulation from the previous step's h) and scattered ONCE per
-field into padded slot planes of shape (G+2, G+2, (G+2)*cap) — z, y, x*cap
-with a one-cell halo. Exactness is certified per evaluation (slot-capacity
-overflow, k found, r_k <= cell edge); the engine layer falls back to the
-gather engine when certification fails, so a bad grid choice degrades
-speed, never physics.
+h, chosen by run_simulation from the previous step's h) and scattered ONCE
+per field into padded slot planes of shape (G+2, G+2, (G+2)*cap) — z, y,
+x*cap with a one-cell halo — and from there into a 27-cell candidate
+prestack (field, cell, 27*cap). `_tile_stack`, `_stack_sph_fields` and
+`_extract` build and read that layout for both tile engines: the
+class-compacted engine (physics/ctiles.py) and `tile_sph_forces` here.
+
+`tile_sph_forces` is the mono-tile engine, the planner's rung for states
+the class engine does not take and the engine of the P3M path. Every cell
+sweeps all `cap` query slots:
+
+*   phase A — kernels/cuda_knn.phase_a_tile (exact k-th distance by count
+    bisection, density, certificate r_k <= cell edge), the queries being
+    the centre cell of each candidate row;
+*   phase B — kernels/cuda_tile_pairs.phase_b_tiles, the class engine's
+    pair kernel (forward/reverse masked pair forces + the softened minus
+    Newtonian near-field term) driven over every cell row;
+*   phase C (P3M only) — kernels/cuda_p3m_tail.p3m_tail, (Newtonian minus
+    mesh shape) over the (2W+1)^3-cell stencil, W = the tail half-width.
+
+Exactness is certified per evaluation (slot-capacity overflow, k found,
+r_k <= cell edge); the engine layer falls back to the gather engine when
+certification fails, so a bad grid choice degrades speed, never physics.
+The outlier lane (`outlier_budget > 0`) and `choose_tile_params_ml` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +33,15 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..device import require_on, resolve_device
+from ..kernels.cuda_knn import phase_a_tile
+from ..kernels.cuda_p3m_tail import p3m_tail
+from ..kernels.cuda_tile_pairs import phase_b_tiles
+from .mesh_gravity import _domain_half, tail_halfwidth
+
+# field planes of the slot layout, in the order the pair kernel takes them
+X, Y, Z, VX, VY, VZ, MASK, H, RHO, POR2, CS = range(11)
 
 # rows with h * OUTLIER_CUT > cell edge need the outlier lane (its engine is
 # not ported yet; the constant is part of tile_params_still_ok's forecast)
@@ -142,3 +164,199 @@ def _bin_particles(pos, grid, cap, half):
     py = c[:, 1] + 1
     px = (c[:, 0] + 1) * cap + torch.clamp_max(rank, cap - 1)
     return c, rank, (pz, py, px), overflow, s
+
+
+class TileStack(NamedTuple):
+    """The slot layout of one evaluation (see `_tile_stack`)."""
+
+    cell_row: torch.Tensor  # (N,) flat cell of each particle
+    rank: torch.Tensor  # (N,) slot within the cell, clamped to cap - 1
+    pz: torch.Tensor  # (N,) padded-plane indices (one-cell halo)
+    py: torch.Tensor
+    px: torch.Tensor
+    overflow: torch.Tensor  # device bool: a cell holds more than cap
+    s: torch.Tensor  # cell edge
+    planes: torch.Tensor  # (11, G+2, G+2, (G+2)*cap)
+    pre: torch.Tensor  # (11, G^3 + 1, 27, cap) candidate prestack
+    qpl: torch.Tensor  # (11, G^3 + 1, cap) query slots
+    grid: int
+    cap: int
+
+    @property
+    def pre_rows(self) -> torch.Tensor:
+        """(11, G^3 + 1, 27*cap) view of the prestack: one candidate row
+        per cell."""
+        return self.pre.view(11, self.grid**3 + 1, 27 * self.cap)
+
+
+def _tile_stack(pos, vel, grid: int, cap: int) -> TileStack:
+    """Bin the particles, scatter the kinematic fields (x y z vx vy vz mask)
+    into the slot planes and from there into the candidate prestack and
+    the query-slot view. Row G^3 of both is an all-padding sentinel (the
+    class engine pads its class lists with it). No host synchronisation."""
+    n = pos.shape[0]
+    dtype, dev = pos.dtype, pos.device
+    g = grid
+    half = _domain_half(pos)
+    coords, rank, (pz, py, px), overflow, s = _bin_particles(pos, g, cap, half)
+    cell_row = (coords[:, 2] * g + coords[:, 1]) * g + coords[:, 0]
+    # out-of-capacity ranks fail the certificate (`overflow`); clamp them
+    # so the slot gathers/scatters stay in bounds meanwhile
+    rank = torch.clamp_max(rank, cap - 1)
+    gp = g + 2
+    n_cells = g**3
+    planes = torch.zeros((11, gp, gp, gp * cap), dtype=dtype, device=dev)
+    planes[: MASK + 1, pz, py, px] = torch.cat(
+        [pos.T, vel.T.to(dtype), torch.ones((1, n), dtype=dtype, device=dev)]
+    )
+    pre = torch.zeros((11, n_cells + 1, 27, cap), dtype=dtype, device=dev)
+    qpl = torch.zeros((11, n_cells + 1, cap), dtype=dtype, device=dev)
+    st = TileStack(cell_row, rank, pz, py, px, overflow, s, planes, pre, qpl, g, cap)
+    _fill(st, X, MASK + 1)
+    return st
+
+
+def _fill(st: TileStack, lo: int, hi: int) -> None:
+    """Copy fields lo..hi-1 of the slot planes into the prestack (27
+    neighbour cells in (dz, dy, dx) order) and the query-slot view."""
+    g, cap = st.grid, st.cap
+    n_cells = g**3
+    i = 0
+    for dz in range(3):
+        for dy in range(3):
+            for dxs in range(3):
+                blk = st.planes[
+                    lo:hi, dz : dz + g, dy : dy + g, dxs * cap : (dxs + g) * cap
+                ]
+                st.pre[lo:hi, :n_cells, i] = blk.reshape(hi - lo, n_cells, cap)
+                i += 1
+    st.qpl[lo:hi, :n_cells] = st.planes[
+        lo:hi, 1 : g + 1, 1 : g + 1, cap : (g + 1) * cap
+    ].reshape(hi - lo, n_cells, cap)
+
+
+def _stack_sph_fields(st: TileStack, Hq, RHOq, K, *, eos, gamma, cs0):
+    """P/rho^2 and cs per query slot from phase A's (G^3, cap) h and rho,
+    and all four fields (h, rho, P/rho^2, cs) into the planes, the
+    prestack and the query-slot view. Returns cs per slot."""
+    g, cap = st.grid, st.cap
+    n_cells = g**3
+    dtype, dev = Hq.dtype, Hq.device
+    rho_safe = torch.where(RHOq > 0, RHOq, torch.ones_like(RHOq))
+    occ_mask = st.qpl[MASK, :n_cells] > 0
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    if eos == "polytropic":
+        Kq = torch.zeros((n_cells, cap), dtype=dtype, device=dev)
+        Kq[st.cell_row, st.rank] = K.to(dtype)
+        POR2q = torch.where(occ_mask, Kq * rho_safe ** (gamma - 2.0), zero)
+        CSq = torch.where(
+            occ_mask, torch.sqrt(gamma * Kq * rho_safe ** (gamma - 1.0)), zero
+        )
+    else:
+        POR2q = torch.where(occ_mask, cs0**2 / rho_safe, zero)
+        CSq = torch.where(occ_mask, torch.zeros_like(rho_safe) + cs0, zero)
+    interior = st.planes[H:, 1 : g + 1, 1 : g + 1, cap : (g + 1) * cap]
+    interior.copy_(torch.stack([Hq, RHOq, POR2q, CSq]).view(4, g, g, g * cap))
+    _fill(st, H, CS + 1)
+    return CSq
+
+
+def _extract(st: TileStack, outs, Hq, RHOq, CSq, *, eos, cs0):
+    """Per-particle results from the (10, rows, cap) pair outputs (ax ay az
+    div mu_max visc ggx ggy ggz gphi) and phase A's slot fields:
+    (ReducedForces, (gx, gy, gz, phi) near-gravity corrections)."""
+    n = st.cell_row.shape[0]
+    AX, AY, AZ, DIV, MU, VISC, GX, GY, GZ, GP = outs[:, st.cell_row, st.rank]
+    red = ReducedForces(
+        acc=torch.stack([AX, AY, AZ], dim=1),
+        rho=RHOq[st.cell_row, st.rank],
+        h=Hq[st.cell_row, st.rank],
+        cs=CSq[st.cell_row, st.rank]
+        if eos == "polytropic"
+        else torch.zeros((n,), dtype=Hq.dtype, device=Hq.device) + cs0,
+        mu_max=MU,
+        div_sum=DIV,
+        visc_dk=VISC,
+    )
+    return red, (GX, GY, GZ, GP)
+
+
+def _tail_planes(pos, st: TileStack, w: int) -> torch.Tensor:
+    """x, y, z, mask at the particles' slots with a w-cell halo: the input
+    layout of kernels/cuda_p3m_tail (gpc = G + 2w)."""
+    n = pos.shape[0]
+    g, cap = st.grid, st.cap
+    gpc = g + 2 * w
+    out = torch.zeros((4, gpc, gpc, gpc * cap), dtype=pos.dtype, device=pos.device)
+    out[:, st.pz + (w - 1), st.py + (w - 1), st.px + (w - 1) * cap] = torch.cat(
+        [pos.T, torch.ones((1, n), dtype=pos.dtype, device=pos.device)]
+    )
+    return out
+
+
+def tile_sph_forces(
+    pos: torch.Tensor,
+    vel: torch.Tensor,
+    m,
+    K,
+    h_hint: torch.Tensor,
+    *,
+    eos: str,
+    gamma,
+    cs0,
+    alpha,
+    beta,
+    kh: int,
+    grid: int,
+    cap: int,
+    mesh_factor: int = 0,
+    sigma_cells: float = 2.2,
+    outlier_budget: int = 0,
+    device=None,
+):
+    """(ReducedForces, (gx, gy, gz, phi) near-gravity corrections, ok).
+    ok False => result invalid, the caller falls back.
+
+    mesh_factor == 0 (exact mode): the corrections turn a pure-Newtonian
+    all-pairs sweep into the reference's softened gravity — for pairs with
+    q = r/h_avg <= 2 the 27-cell pass adds (softened - Newtonian).
+    mesh_factor > 0 (P3M mode): phase C adds (Newtonian - mesh shape) over
+    the (2W+1)^3 stencil, W = tail_halfwidth(mesh_factor, sigma_cells), so
+    mesh + corrections is the softened interaction up to the ~1e-4
+    Gaussian tail beyond W cells. No host synchronisation: ok is a device
+    scalar. device=None means the card."""
+    if outlier_budget:
+        raise NotImplementedError(
+            "the outlier lane of the mono-tile engine arrives with slice 4 of the port"
+        )
+    require_on(resolve_device(device), pos, vel)
+    del h_hint  # the outlier lane's species hint; unused without it
+    n_cells = grid**3
+    st = _tile_stack(pos, vel, grid, cap)
+
+    # phase A: exact k-th distance + density, queries = each row's centre cell
+    cands = tuple(st.pre_rows[f, :n_cells] for f in (X, Y, Z, MASK))
+    Hq, RHOq, OKq = phase_a_tile(cands, st.s * st.s, m, kh=kh, cap=cap)
+    rows_ok = torch.all(OKq > 0)
+    CSq = _stack_sph_fields(st, Hq, RHOq, K, eos=eos, gamma=gamma, cs0=cs0)
+
+    # phase B: the pair kernel over every cell row at the full capacity
+    outs = torch.stack(
+        phase_b_tiles(
+            tuple(st.qpl[f, :n_cells] for f in range(11)),
+            tuple(st.pre_rows[f, :n_cells] for f in range(11)),
+            m, alpha, beta, None, eos=eos, p3m=False, cap=cap,
+        )
+    )
+
+    if mesh_factor > 0:
+        # phase C: the P3M tail, term 2 (Newtonian - mesh shape)
+        w = tail_halfwidth(mesh_factor, sigma_cells)
+        sigma = (st.s / mesh_factor) * sigma_cells
+        outs[6:] += p3m_tail(
+            _tail_planes(pos, st, w), m, sigma, grid=grid, cap=cap, halfwidth=w
+        )
+
+    red, gcorr = _extract(st, outs, Hq, RHOq, CSq, eos=eos, cs0=cs0)
+    return red, gcorr, (~st.overflow) & rows_ok
+

@@ -6,7 +6,9 @@ device="cpu". f64, rtol 1e-8: the two differ by reduction order only."""
 
 import dataclasses
 import functools
+import gc
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,8 @@ from scipy.spatial import cKDTree
 
 import sphtpu.engine as ref_engine
 from sphtpu.physics.ctiles import choose_tile_classes
+from sphtpu.physics.tiles import choose_tile_params
+from sphtpu.scenes.generators import boss_bodenheimer
 from sphtpu_torch.engine import (
     EngineConfig,
     config_from_reference,
@@ -27,6 +31,17 @@ from sphtpu_torch.engine.step import force_eval
 # the suite runs several pytest workers per machine: keep torch's intra-op
 # pool from oversubscribing the cores they share
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _free_reference_caches():
+    """When the module is done, drop its cached JAX results and compiled
+    programs, so that the test worker does not carry them into the tests it
+    runs next."""
+    yield
+    _ref_runner.cache_clear()
+    jax.clear_caches()
+    gc.collect()
 
 
 N, KH, STEPS = 1500, 12, 3
@@ -187,8 +202,8 @@ def test_chunk_freezes_at_t_end_and_pads_scan_length(scene):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(tile=(6, 64)), "slice 2"),
-        (dict(tile=(6, 64), gravity="p3m"), "slice 2"),
+        (dict(tile=(6, 64), outlier_budget=64), "slice 4"),
+        (dict(tile=(6, 64), gravity="p3m", outlier_budget=64), "slice 4"),
         (dict(blocks=((), (), (), 8)), "slice 3"),
         (dict(mlevel=((), 0, 0, ())), "slice 4"),
     ],
@@ -237,3 +252,69 @@ def test_f64_host_values_round_once_to_f32():
     st = state_from_numpy(x, x, x[0], 0.1, dtype="float32", device="cpu")
     np.testing.assert_array_equal(st.pos.numpy(), np.asarray(jnp.asarray(x, jnp.float32)))
     assert st.t.dtype == torch.float32 and st.t.shape == ()
+
+
+def test_p3m_mono_chunk_matches_reference():
+    """The P3M path as a whole: three steps of the mono-tile engine with the
+    FFT mesh and the W = 2 tail (the default mesh_factor 5), f64, against
+    the reference's chunk runner on a boss_bodenheimer cloud of 2000
+    particles. The two differ by reduction order only."""
+    n, kh = 2000, 12
+    rng = np.random.default_rng(7)
+    pos, vel, _ = boss_bodenheimer(n, 1.0, 1.0, rng=rng)
+    K = 1.0 + 0.1 * rng.random(n)
+    d, _ = cKDTree(pos).query(pos, k=kh)
+    h0 = d[:, -1] / 2
+    tile = choose_tile_params(pos, h0, kh, headroom=1.5)
+    cfg_ref = ref_engine.EngineConfig(
+        n=n, kh=kh, eos="polytropic", dtype="float64", tile=tile, gravity="p3m"
+    )
+    assert cfg_ref.c_halfwidth == 2 and cfg_ref.tile_classes is None
+    par = dict(PARAMS, m=1.0 / n)
+    jd = jnp.float64
+    out_r = ref_engine.make_chunk_runner(cfg_ref)(
+        ref_engine.State(
+            pos=jnp.asarray(pos, jd), vel=jnp.asarray(vel, jd),
+            K=jnp.asarray(K, jd), t=jnp.asarray(0.0, jd),
+        ),
+        ref_engine.Params(**{k: jnp.asarray(v, jd) for k, v in par.items()}),
+        jnp.asarray(h0, jd), n_steps=STEPS,
+    )
+    cfg = config_from_reference(dataclasses.asdict(cfg_ref))
+    assert cfg.mesh_pad == cfg_ref.mesh_pad and cfg.mesh_gm == cfg_ref.mesh_gm
+    out = make_chunk_runner(cfg, device="cpu")(
+        state_from_numpy(pos, vel, K, 0.0, dtype="float64", device="cpu"),
+        params_from_numpy(**par, dtype="float64", device="cpu"),
+        torch.from_numpy(h0), STEPS,
+    )
+    assert out[2].all() and int(out[5].sum()) == 0
+    _assert_chunks_equal(out, out_r)
+
+
+@pytest.mark.parametrize("gravity", ["exact", "p3m"])
+@pytest.mark.parametrize("kh", [12, 24, 40])
+def test_plan_engine_follows_the_reference_ladder(scene, gravity, kh):
+    """run_simulation's fresh plan: the class-compacted engine (exact gravity
+    only, the reference's cap <= 128) when its planner fits, else the
+    mono-tile engine (cap <= 256), else None (the gather engine) — the
+    reference's rungs, planned by its own host planners. On this ball kh 12
+    plans classes, kh 24 needs cap 160, kh 40 more than 256."""
+    from sphtpu.physics.ctiles import choose_tile_classes as classes_ref
+    from sphtpu_torch.engine.driver import plan_engine
+
+    pos = scene[0]
+    d, _ = cKDTree(pos).query(pos, k=kh)
+    h = d[:, -1] / 2
+    cfg = plan_engine(pos, h, n=N, kh=kh, eos="polytropic", dtype="float64",
+                      gravity=gravity)
+    cls = classes_ref(pos, h, kh, headroom=1.5) if gravity == "exact" else None
+    mono = choose_tile_params(pos, h, kh, headroom=1.5)
+    assert (cls is not None) == (kh == 12 and gravity == "exact")
+    assert (mono is None) == (kh == 40)
+    if cls is not None:
+        assert (cfg.tile, cfg.tile_classes) == ((cls[0], cls[1]), cls[2])
+    elif mono is not None:
+        assert cfg.tile == mono and cfg.tile_classes is None
+    else:
+        assert cfg is None
+    assert cfg is None or cfg.gravity == gravity

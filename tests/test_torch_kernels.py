@@ -119,10 +119,14 @@ def test_phase_a_cells_plain_is_generic_in_shape():
 
 def test_phase_a_cells_shared_memory_covers_every_plannable_row():
     """The kernel keeps a row's candidates in shared memory: the widest row
-    the run loop can plan fits in both dtypes, a wider one is refused."""
-    from sphtpu_torch.engine.driver import CLASS_CAP_MAX
+    the run loop can plan (the mono-tile planner's ceiling; its phase A,
+    phase_a_tile, is the same kernel) fits in both dtypes, a wider one is
+    refused."""
+    import inspect
 
-    cw = 27 * CLASS_CAP_MAX
+    from sphtpu_torch.physics.tiles import choose_tile_params
+
+    cw = 27 * inspect.signature(choose_tile_params).parameters["cap_max"].default
     assert cuda_strip_knn.shared_bytes(cw, torch.float32) == 12 * cw
     assert cuda_strip_knn.shared_bytes(cw, torch.float64) == 24 * cw
     with pytest.raises(ValueError, match="shared memory"):

@@ -5,7 +5,8 @@
 Generates boss_bodenheimer (polytropic, Kh = 50) at N particles (100 000
 unless given), runs STEPS steps (40 unless given) in float32 with a
 snapshot every 10, and prints one JSON object: steps, fallback
-evaluations, the engine configs the planner used, (steps, seconds,
+evaluations, the engine configs the planner used (tile, classes, gravity;
+P3M from N = 150 000 on), (steps, seconds,
 fallback evaluations) of every chunk, and the relative energy drift."""
 
 import json
@@ -46,8 +47,8 @@ def main() -> int:
     print(json.dumps({
         "card": card, "n": n, "steps": res["steps"],
         "fallback_evals": res["fallback_evals"],
-        "configs": [[list(c.tile), [list(k) for k in c.tile_classes]] if c.tile else "gather"
-                    for c in res["configs"]],
+        "configs": [[list(c.tile), [list(k) for k in c.tile_classes or ()], c.gravity]
+                    if c.tile else "gather" for c in res["configs"]],
         "chunks_steps_seconds_fallbacks": res["chunk_walls"],
         "s_per_step_after_first_chunk": sum(c[1] for c in walls) / sum(c[0] for c in walls),
         "particle_steps_per_s": n * sum(c[0] for c in walls) / sum(c[1] for c in walls),

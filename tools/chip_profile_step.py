@@ -3,8 +3,8 @@
     python3 tools/chip_profile_step.py [N]
 
 Builds the headline scene (boss_bodenheimer, polytropic, Kh = 50, float32,
-N = 100 000 unless given), plans the class-compacted tile engine as
-run_simulation does, warms up one step, then traces three steps with
+N = 100 000 unless given), plans the engine as run_simulation does
+(`plan_engine`; P3M gravity from N = 150 000 on), warms up one step, then traces three steps with
 torch.profiler and prints: wall seconds per step, the device's busy and
 idle share (device time of the traced steps over the wall of the same
 steps run untraced), and device time by kernel name."""
@@ -22,9 +22,8 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from sphtpu_torch.engine import EngineConfig, make_chunk_runner  # noqa: E402
-from sphtpu_torch.engine.driver import CLASS_CAP_MAX  # noqa: E402
-from sphtpu_torch.physics.ctiles import choose_tile_classes  # noqa: E402
+from sphtpu_torch.engine import make_chunk_runner  # noqa: E402
+from sphtpu_torch.engine.driver import P3M_MIN_N, plan_engine  # noqa: E402
 
 
 def main() -> int:
@@ -37,9 +36,7 @@ def main() -> int:
     ).stdout.strip()
     with tempfile.TemporaryDirectory() as tmp:
         base, state, params, pos, h0 = chip_smoke.load_scene(tmp, "boss_bodenheimer", n)
-    plan = choose_tile_classes(pos, h0, base["kh"], headroom=1.5, cap_max=CLASS_CAP_MAX)
-    grid, cap, classes = plan
-    cfg = EngineConfig(**base, tile=(grid, cap), tile_classes=classes)
+    cfg = plan_engine(pos, h0, **base, gravity="p3m" if n >= P3M_MIN_N else "exact")
     chunk = make_chunk_runner(cfg)
     h = chip_smoke.dev(h0, torch.float32)
     state, _, _, h, _, nfb = chunk(state, params, h, 1)  # warm-up, builds the kernels
@@ -63,7 +60,8 @@ def main() -> int:
     busy_ms = sum(r[1] for r in kernels) / steps
     ours = sum(r[1] for r in kernels if "sph::" in r[0]) / steps
     out = {
-        "card": card, "n": n, "tile": [grid, cap], "tile_classes": [list(c) for c in classes],
+        "card": card, "n": n, "tile": list(cfg.tile), "gravity": cfg.gravity,
+        "tile_classes": [list(c) for c in cfg.tile_classes or ()],
         "steps_timed": steps, "steps_traced": steps,
         "fallbacks": int(nfb.sum()) + int(nfb1.sum()) + int(nfb2.sum()),
         "wall_ms_per_step_untraced": wall * 1e3,
