@@ -16,7 +16,16 @@ port's three main paths through the CLI, each with the launch counts set to
 *   the P3M path: the same scene at N = 200 000, four steps with
     gravity="auto", which plans the mono-tile engine with the FFT mesh
     and the W = 2 tail (kernels K4, K2 and the tail kernel; K3 0 times),
-    then the P3M force error against the exact sweep on its final state.
+    then the P3M force error against the exact sweep on its final state;
+*   the collapse path: the committed deep-collapse state
+    bench_data/bb_collapsed.npz (N = 100 000, density contrast 395)
+    written as a snapshot through the port's writer and run four steps
+    through the CLI, which no tile engine can plan: the block-compact
+    engine with exact gravity (K1 once a capacity bucket, K5, K3 each
+    evaluation), then one step on its per-bucket phase B (K6), one block
+    evaluation against the gather engine's, and one evaluation of
+    bench_data/bb_collapsed_deep.npz (contrast 1001) in each gravity mode
+    with the P3M force error against the exact sweep.
 
 Every phase prints one JSON line; any failure raises, so the process exits
 non-zero. There is no CPU continuation: with no CUDA device the script
@@ -24,13 +33,15 @@ fails before it prints a result.
 
 The line before the last two is `{"kernels": [...]}` with, per kernel, its
 launches on the path its times were taken on (K1, K2, K3: the class path;
-K4 and the tail: the P3M path) and on every path (`launches_by_path`), its
+K4 and the tail: the P3M path; K5: the collapse path; K6: the collapse
+path's per-bucket step) and on every path (`launches_by_path`), its
 error against the plain version and its time beside the plain version's
 and the card's bound, all on the inputs that one force evaluation of that
 path's final state gives it (K2 carries the exact and the P3M paths'
 numbers under "on_exact_path" and "on_p3m_path", K4 the exact path's under
-"on_exact_path": every kernel is held against its plain version on the
-inputs of every path that launches it). A bound counts the bytes the
+"on_exact_path", K1 the collapse path's under "on_collapse_path": every
+kernel is held against its plain version on the inputs of every path that
+launches it). A bound counts the bytes the
 function needs: the occupancy plane of a padded slot layout whole, its
 other planes at the occupied slots only. Then the card's name and power
 limit as nvidia-smi prints them, then the verdict line.
@@ -57,13 +68,15 @@ from sphtpu_torch.engine.step import force_eval
 from sphtpu_torch.io import read_snapshot, snapshot_path
 from sphtpu_torch.kernels import (
     build,
+    cuda_block_pairs,
     cuda_gravity,
+    cuda_grouped_pairs,
     cuda_knn,
     cuda_p3m_tail,
     cuda_strip_knn,
     cuda_tile_pairs,
 )
-from sphtpu_torch.physics import ctiles, gravity_newton_allpairs, tiles
+from sphtpu_torch.physics import blocks, ctiles, gravity_newton_allpairs, tiles
 from sphtpu_torch.physics.ctiles import CLASS_MENU, choose_tile_classes
 from sphtpu_torch.physics.mesh_gravity import greens_hat, p3m_mesh_force
 
@@ -74,6 +87,10 @@ N_P3M = 200_000  # particles of the P3M path's scene (gravity="auto" picks P3M)
 N_SMALL = 5_000  # particles of the fallback phase's scenes
 ROWS_F32, ROWS_F64 = 256, 64  # synthetic cell rows per class in the kernels phase
 N_NEWTON = {torch.float32: 100_000, torch.float64: 20_000}
+# synthetic block rows of the kernels phase: candidate widths C_b and blocks
+# per width (f32 from 24 576 and f64 from 12 288 on, K1 streams its rows)
+BLOCK_ROWS = {torch.float32: ((4096, 24576, 32768), 16),
+              torch.float64: ((4096, 12288, 32768), 4)}
 
 # Published peaks of one H100 SXM (dense, no sparsity): float32 outside the
 # tensor cores, float64 likewise, and HBM bandwidth.
@@ -102,6 +119,8 @@ MODULES = {
     "newton_sweep": cuda_gravity,
     "phase_a_tile": cuda_knn,
     "p3m_tail": cuda_p3m_tail,
+    "phase_b_grouped": cuda_grouped_pairs,
+    "phase_b_blocks": cuda_block_pairs,
 }
 KERNEL_INFO = {
     "phase_a_cells": (
@@ -123,6 +142,14 @@ KERNEL_INFO = {
     "p3m_tail": (
         "sphtpu_torch/kernels/csrc/p3m_tail.cu",
         "sphtpu/physics/tiles.py:786 (phase C, XLA: no TPU kernel)",
+    ),
+    "phase_b_grouped": (
+        "sphtpu_torch/kernels/csrc/phase_b_grouped.cu",
+        "sphtpu/kernels/pallas_grouped_pairs.py:241",
+    ),
+    "phase_b_blocks": (
+        "sphtpu_torch/kernels/csrc/phase_b_grouped.cu",
+        "sphtpu/kernels/pallas_block_pairs.py:230",
     ),
 }
 
@@ -333,7 +360,7 @@ def phase_kernels(seed: int = 0) -> None:
             {"dtype": str(dtype)[6:], "newton_n": n, "g_max_abs_err": g_err,
              "phi_max_rel_err": p_err, "rtol_of_max": rtol}
         )
-    report["cases"] += kernels_k4(rng, kh, m) + kernels_tail(rng, m)
+    report["cases"] += kernels_k4(rng, kh, m) + kernels_tail(rng, m) + kernels_blocks(rng, m)
     report["tie_rows_total"] = sum(
         c[k]["tie_rows"] for c in report["cases"] for k in ("a", "k4") if k in c
     )
@@ -413,6 +440,115 @@ def kernels_tail(rng, m):
     return cases
 
 
+def synthetic_blocks(rng, nb, cw, dtype, kh):
+    """Rows shaped like the block engine's: nb blocks of BQ = 128 queries
+    in the unit cube, each against cw candidate slots spread over
+    [-0.25, 1.25]^3 of which the first 85 % are occupied (the rest the
+    sentinel padding of a table), each query also a candidate (its self
+    pair), one query slot masked off. reach2 = (1.5 r_k)^2 for the
+    candidates' mean density, as the engine's h-hint cap gives. Returns
+    (queries, reach2, cands, 11 query fields, 10 candidate fields in K6's
+    order)."""
+    cap = blocks.BQ
+    n_occ = int(0.85 * cw)
+    q = [rng.random((nb, cap)) for _ in range(3)]
+    c = [rng.random((nb, cw)) * 1.5 - 0.25 for _ in range(3)]
+    for a in range(3):
+        c[a][:, :cap] = q[a]
+    cm = np.broadcast_to((np.arange(cw) < n_occ).astype(np.float64), (nb, cw)).copy()
+    qm = np.ones((nb, cap))
+    qm[0, 3] = 0.0
+    r_k = (3.0 * kh * 1.5**3 / (4.0 * np.pi * n_occ)) ** (1 / 3)
+    reach2 = np.full((nb, cap), (1.5 * r_k) ** 2)
+    reach2[1, :8] = (0.3 * r_k) ** 2  # rows whose reach cannot hold kh neighbours
+    qv = [0.3 * rng.standard_normal((nb, cap)) for _ in range(3)]
+    cv = [0.3 * rng.standard_normal((nb, cw)) for _ in range(3)]
+    qh = (0.45 + 0.1 * rng.random((nb, cap))) * r_k
+    ch = (0.45 + 0.1 * rng.random((nb, cw))) * r_k
+    for a in range(3):
+        cv[a][:, :cap] = qv[a]
+    ch[:, :cap] = qh
+    qrho, crho = 0.5 + rng.random((nb, cap)), 0.5 + rng.random((nb, cw))
+    qpor2, cpor2 = 0.5 + rng.random((nb, cap)), 0.5 + rng.random((nb, cw))
+    qcs = 0.8 + 0.4 * rng.random((nb, cap))
+    qf = [dev(x, dtype) for x in (*q, *qv, qm, qh, qrho, qpor2, qcs)]
+    cf = [dev(x, dtype) for x in (*c, *cv, cm, ch, crho, cpor2)]
+    queries = (qf[0], qf[1], qf[2], qf[6])
+    cands = (cf[0], cf[1], cf[2], cf[6])
+    return queries, dev(reach2, dtype), cands, qf, cf
+
+
+def grouped_layout(cf):
+    """K6's per-bucket candidate planes (nb, cw) as K5's flat chunk stack
+    (nb * cw / 512, 10, 512) with its (qblk, first)."""
+    nb, cw = cf[0].shape
+    cw_k = cuda_grouped_pairs.CW
+    order = (0, 1, 2, 3, 4, 5, 7, 8, 9, 6)
+    cstack = torch.stack([cf[k] for k in order], 0)  # (10, nb, cw)
+    cstack = cstack.reshape(10, nb * cw // cw_k, cw_k).transpose(0, 1).contiguous()
+    ck = cw // cw_k
+    qblk = tuple(b for b in range(nb) for _ in range(ck))
+    first = tuple(int(j == 0) for _ in range(nb) for j in range(ck))
+    return cstack, qblk, first
+
+
+C_NAMES = "sax say saz svisc sgx sgy sgz sgp".split()
+
+
+def kernels_blocks(rng, m):
+    """K1 at block widths (C_b from 4096 to 32 768: resident and streamed
+    rows; a resident row also forced to stream, which must not change a
+    bit), K5 and K6 against their plain versions on synthetic block rows,
+    float32 (28 bisection passes) and float64 (68), both gravity modes."""
+    kh = 50
+    cases = []
+    for dtype, (widths, nb) in BLOCK_ROWS.items():
+        n_bisect = blocks.N_BISECT_HINT if dtype == torch.float32 else blocks.N_BISECT_F64
+        for cw in widths:
+            queries, reach2, cands, qf, cf = synthetic_blocks(rng, nb, cw, dtype, kh)
+            kw = dict(kh=kh, cap=blocks.BQ, n_bisect=n_bisect)
+            out_k = cuda_strip_knn.phase_a_cells(queries, reach2, cands, m, **kw)
+            out_s = cuda_strip_knn.phase_a_cells(queries, reach2, cands, m, stream_chunk=1000,
+                                                 **kw)
+            sync()
+            out_p = cuda_strip_knn.phase_a_cells_plain(queries, reach2, cands, m, **kw)
+            rho_rtol = 2e-5 if dtype == torch.float32 else 1e-12
+            err, ties = check_phase_a(*out_k, *out_p, queries, reach2, cands, rho_rtol)
+            if not all(bool(torch.equal(a, b)) for a, b in zip(out_k, out_s)):
+                raise AssertionError(f"phase_a_cells cw={cw}: streamed rows differ")
+            ok = out_k[2]
+            if not (bool((ok[1, :8] == 0).all()) and bool((ok[0, 3] == 1).all())):
+                raise AssertionError(f"phase_a_cells cw={cw}: certificate rows wrong")
+            case = {"dtype": str(dtype)[6:], "blocks": nb, "c_b": cw, "n_bisect": n_bisect,
+                    "k1_block": {"rho_max_abs_err": err, "rho_rtol": rho_rtol,
+                                 "tie_rows": ties, "streamed_equal": True,
+                                 "rows_certified": int((ok > 0).sum())}}
+            for p3m in (False, True):
+                sigma, r_c = (0.05, 0.22) if p3m else (None, 0.0)
+                args = (m, 1.0, 2.0, sigma, r_c)
+                kwb = dict(eos="polytropic", p3m=p3m, cap=blocks.BQ)
+                qo_k, co_k = cuda_block_pairs.phase_b_blocks(qf, cf, *args, **kwb)
+                sync()
+                qo_p, co_p = cuda_block_pairs.phase_b_blocks_plain(qf, cf, *args, **kwb)
+                wq = check_phase_b(qo_k, qo_p, dtype, kernel="phase_b_blocks")[0]
+                wc = check_phase_b(co_k, co_p, dtype, names=C_NAMES, kernel="phase_b_blocks")[0]
+                cstack, qblk, first = grouped_layout(cf)
+                kwg = dict(kwb, qblk=qblk, first=first)
+                gq_k, gc_k = cuda_grouped_pairs.phase_b_grouped(qf, cstack, *args, **kwg)
+                sync()
+                gq_p, gc_p = cuda_grouped_pairs.phase_b_grouped_plain(qf, cstack, *args, **kwg)
+                gq = check_phase_b(gq_k, gq_p, dtype, kernel="phase_b_grouped")[0]
+                gcw = check_phase_b(gc_k.transpose(0, 1), gc_p.transpose(0, 1), dtype,
+                                    names=C_NAMES, kernel="phase_b_grouped")[0]
+                case[f"k5_k6_{'p3m' if p3m else 'exact'}"] = {
+                    "k6_query_err_over_scale": wq, "k6_cand_err_over_scale": wc,
+                    "k5_query_err_over_scale": gq, "k5_cand_err_over_scale": gcw}
+            cases.append(case)
+            del queries, cands, qf, cf, out_k, out_s, out_p
+            torch.cuda.empty_cache()
+    return cases
+
+
 # --------------------------------------------------------------------------
 # main path
 # --------------------------------------------------------------------------
@@ -423,13 +559,13 @@ def reset_counts() -> None:
         mod.launches = 0
 
 
-def drive_cli(root: str, n: int, kh: int = 50):
-    """--generate boss_bodenheimer at N = n, Kh = kh, then --run four steps
-    on the card (snapshots 1, 3, 4) with the launch counts set to 0 just
-    before the run and read just after. Returns (summary, counts, checks
-    common to every path, energy drift)."""
+def drive_cli(root: str, n: int, kh: int = 50, generate: bool = True):
+    """--generate boss_bodenheimer at N = n, Kh = kh (unless snapshot 1 is
+    already written), then --run four steps on the card (snapshots 1, 3, 4)
+    with the launch counts set to 0 just before the run and read just after.
+    Returns (summary, counts, checks common to every path, energy drift)."""
     common = ["--EOS", "polytropic", "--ic_type", "boss_bodenheimer", "--root", root]
-    if cli.main(["--generate", *common, "--kwargs", f"N={n},Kh={kh}"]) != 0:
+    if generate and cli.main(["--generate", *common, "--kwargs", f"N={n},Kh={kh}"]) != 0:
         raise AssertionError("--generate failed")
     reset_counts()
     rc = cli.main(
@@ -471,11 +607,16 @@ def drive_cli(root: str, n: int, kh: int = 50):
 
 
 def walls_summary(res, n):
-    walls = res["chunk_walls"]
+    """Seconds a step after the first chunk: the chunks' own walls, and the
+    end-to-end figure that adds the host planning before each chunk (the
+    block engine's refit runs there)."""
+    walls, picks = res["chunk_walls"], res["pick_walls"]
     later_steps = sum(c[0] for c in walls[1:])
     s_per_step = sum(c[1] for c in walls[1:]) / later_steps
-    return dict(chunk_walls=walls, first_step_s=walls[0][1], s_per_step_after_first=s_per_step,
-                particle_steps_per_s=n / s_per_step)
+    s_e2e = (sum(c[1] for c in walls[1:]) + sum(picks[1:])) / later_steps
+    return dict(chunk_walls=walls, pick_walls=picks, first_step_s=walls[0][1],
+                s_per_step_after_first=s_per_step, particle_steps_per_s=n / s_per_step,
+                s_per_step_end_to_end=s_e2e, particle_steps_per_s_end_to_end=n / s_e2e)
 
 
 def phase_exact_path(tmp: str, gpu_line: str, kh: int):
@@ -490,11 +631,11 @@ def phase_exact_path(tmp: str, gpu_line: str, kh: int):
     if kh == 50:
         engine = {"one config, mono-tile": len(res["configs"]) == 1 and n_cls == 0}
         want = {"phase_a_cells": 0, "phase_b_tiles": 8, "newton_sweep": 8,
-                "phase_a_tile": 8, "p3m_tail": 0}
+                "phase_a_tile": 8, "p3m_tail": 0, "phase_b_grouped": 0, "phase_b_blocks": 0}
     else:
         engine = {"one config, with tile_classes": len(res["configs"]) == 1 and n_cls > 0}
         want = {"phase_a_cells": 8 * n_cls, "phase_b_tiles": 8 * n_cls, "newton_sweep": 8,
-                "phase_a_tile": 0, "p3m_tail": 0}
+                "phase_a_tile": 0, "p3m_tail": 0, "phase_b_grouped": 0, "phase_b_blocks": 0}
     checks = {
         **engine, "exact gravity": cfg.gravity == "exact", **checks,
         "kernel launches": counts == want,
@@ -512,9 +653,11 @@ def phase_exact_path(tmp: str, gpu_line: str, kh: int):
     return res, cfg, counts
 
 
-def capture_eval_inputs(res, cfg, module, names):
+def capture_eval_inputs(res, cfg, module, names, mlargs=None, grouped=True, out=None):
     """Arguments the kernel wrappers `names`, as `module` calls them, get in
-    one force evaluation of a path's final state."""
+    one force evaluation of a path's final state (a block config's with its
+    BlockArgs `mlargs`; `grouped` as force_eval takes it). When `out` is a
+    dict, the evaluation's (acc, reduced, phi) go there."""
     calls = {name: [] for name in names}
     orig = {name: getattr(module, name) for name in names}
 
@@ -531,9 +674,12 @@ def capture_eval_inputs(res, cfg, module, names):
         st = res["state"]
         ghat = (greens_hat(cfg.mesh_pad, cfg.sigma_cells, st.pos.dtype, DEVICE)
                 if cfg.gravity == "p3m" else None)
-        _, _, _, fell_back = force_eval(
-            cfg, res["params"], st.pos, st.vel, st.K, res["h_last"], ghat, device=DEVICE
+        acc, red, phi, fell_back = force_eval(
+            cfg, res["params"], st.pos, st.vel, st.K, res["h_last"], ghat, mlargs,
+            device=DEVICE, grouped=grouped,
         )
+        if out is not None:
+            out.update(acc=acc, red=red, phi=phi)
     finally:
         for name in names:
             setattr(module, name, orig[name])
@@ -676,7 +822,7 @@ def phase_p3m_path(tmp: str, gpu_line: str):
         "tail stencil W = 2": cfg.c_halfwidth == 2,
         "kernel launches": counts
         == {"phase_a_cells": 0, "phase_b_tiles": 8, "newton_sweep": 0,
-            "phase_a_tile": 8, "p3m_tail": 8},
+            "phase_a_tile": 8, "p3m_tail": 8, "phase_b_grouped": 0, "phase_b_blocks": 0},
     })
     failed = [k for k, v in checks.items() if not v]
     walls = walls_summary(res, N_P3M)
@@ -826,16 +972,358 @@ def phase_p3m_accuracy(res, cfg, gpu_line, s_per_step):
         raise AssertionError(f"P3M accuracy checks failed: {failed}")
 
 
-def kernel_entry(name, counts, err, ms, plain_ms, flops, byts, peak, **extra):
+# --------------------------------------------------------------------------
+# the collapse path (block-compact engine)
+# --------------------------------------------------------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+COLLAPSE = os.path.join(HERE, "bench_data", "bb_collapsed.npz")
+COLLAPSE_DEEP = os.path.join(HERE, "bench_data", "bb_collapsed_deep.npz")
+# code units of the committed collapse states (their `note`): G = 1 with
+COLLAPSE_R, COLLAPSE_M = 1.077e17, 1.989e33  # unit length [cm], unit mass [g]
+KH_COLLAPSE = 50  # and the reference's hard-regime parameters (bench.py:175-183)
+# Phase B of the block engine (K5, K6), counted on phase_b_grouped.cu's
+# pair_terms. Every occupied pair needs d2 and one compare against the
+# query's visibility radius max(2 h_q, r_c), squared once a query row; only
+# a pair inside it needs the rest: 1/r, the mask radii, one kernel gradient,
+# viscosity, the softened-gravity polynomials, the weights and 18 sums (130
+# in all, the test included). The P3M tail adds the erfcx chain
+# (TAIL_OPS_PER_PAIR less d2 and the sums).
+K5_OPS_PAIR_TEST = K1_OPS_D2 + 1
+K5_OPS_PER_PAIR = 130
+K5_OPS_P3M_EXTRA = 32
+
+
+def write_collapse_snapshot(root: str, path: str) -> None:
+    """A committed collapse state (code units, float32 or float64) as
+    snapshot 1 of boss_bodenheimer under `root`, through the port's writer,
+    in CGS with the units of its note; the run parameters of the reference's
+    hard-regime benchmark: Kh 50, polytropic, gamma 5/3, alpha 1, beta 2."""
+    from sphtpu_torch import constants as C
+    from sphtpu_torch.io import write_snapshot
+    from sphtpu_torch.scenes.setup import DEFAULTS
+    from sphtpu_torch.units import UnitSystem
+
+    d = np.load(path)
+    u = UnitSystem.from_constants(C.G_CGS, COLLAPSE_M, COLLAPSE_R)
+    gamma = 5.0 / 3.0
+    consts = {
+        "iterID": 1, "N": int(d["pos"].shape[0]), "Kh": KH_COLLAPSE, "Kgr": DEFAULTS["Kgr"],
+        "t": float(d["t"]) * u.T, "tEnd": DEFAULTS["tEnd"], "M": COLLAPSE_M, "R": COLLAPSE_R,
+        "alpha": 1.0, "beta": 2.0, "G": C.G_CGS, "theta": DEFAULTS["theta"],
+        "m": float(d["m"]) * u.M, "gamma": gamma,
+    }
+    write_snapshot(
+        "1", "boss_bodenheimer", d["pos"].astype(np.float64) * u.L,
+        d["vel"].astype(np.float64) * u.V, K=d["K"].astype(np.float64) * u.K_entropy(gamma),
+        constants=consts, root=root,
+    )
+
+
+def block_counts_want(n_buckets: int, grouped: bool = True, steps: int = 4) -> dict:
+    """Launches of `steps` steps (2 evaluations each) on a block config
+    with exact gravity: K1 once a bucket, K5 once (or K6 once a bucket), K3
+    once, per evaluation."""
+    want = {name: 0 for name in MODULES}
+    evals = 2 * steps
+    want.update(phase_a_cells=evals * n_buckets, newton_sweep=evals)
+    if grouped:
+        want["phase_b_grouped"] = evals
+    else:
+        want["phase_b_blocks"] = evals * n_buckets
+    return want
+
+
+def phase_collapse_path(tmp: str, gpu_line: str):
+    """bb_collapsed.npz (N = 100 000, density contrast 395) written as a
+    snapshot and run four steps through the CLI: no tile engine can plan
+    it, so the planner gives the block-compact engine (exact gravity at this
+    N): K1 once a bucket, K5 and K3 once an evaluation, and no fallback."""
+    root = os.path.join(tmp, "collapse")
+    write_collapse_snapshot(root, COLLAPSE)
+    res, counts, checks, drift = drive_cli(root, N_MAIN, generate=False)
+    cfg = res["configs"][0]
+    buckets = list(cfg.blocks[0]) if cfg.blocks is not None else []
+    checks.update({
+        "one config, block-compact": len(res["configs"]) == 1 and cfg.blocks is not None,
+        "exact gravity": cfg.gravity == "exact",
+        "kernel launches": counts == block_counts_want(len(buckets)),
+    })
+    failed = [k for k, v in checks.items() if not v]
+    walls = walls_summary(res, N_MAIN)
+    say(
+        "collapse_path", card=gpu_line,
+        scene=f"bb_collapsed.npz (contrast 395) polytropic N={N_MAIN} Kh={KH_COLLAPSE} float32",
+        plan={"buckets": [list(b) for b in buckets],
+              "octave_grids": list(cfg.blocks[1]) if buckets else None,
+              "fine_grid": cfg.blocks[3] if buckets else None,
+              "pair_slots_a_phase": sum(cb * nb for cb, nb in buckets) * blocks.BQ},
+        steps=res["steps"], fallback_evals=res["fallback_evals"], launches=counts,
+        energy_drift=drift, **walls, snapshot_ids=res["snapshot_ids"],
+        runtime_s=res["runtime_s"], failed=failed,
+    )
+    if failed:
+        raise AssertionError(f"collapse path checks failed: {failed}")
+    return res, cfg, counts
+
+
+def refit_args(res, cfg):
+    """The final state's BlockArgs in cfg's spec, as the run loop's next
+    chunk would refit them."""
+    st = res["state"]
+    pos_h = st.pos.detach().double().cpu().numpy()
+    h_h = res["h_last"].detach().double().cpu().numpy()
+    args = blocks.block_args_for_spec(pos_h, h_h, cfg.blocks, gravity=cfg.gravity)
+    if args is None:
+        raise AssertionError(f"the final state does not refit its spec: {blocks.last_refit_fail()}")
+    return args
+
+
+def block_pairs(qfields, cands, q_index, r_c, batch: int = 64):
+    """(occupied pairs, occupied pairs inside the query's visibility radius
+    max(2 h_q, r_c)) of a phase-B launch: rows of candidates `cands` =
+    (x, y, z, mask), each (rows, width), row i against query block
+    q_index[i] of qfields."""
+    total = inside = 0
+    for r0 in range(0, cands[0].shape[0], batch):
+        sl = slice(r0, r0 + batch)
+        qb = q_index[sl]
+        qx, qy, qz, qm, qh = (qfields[k][qb] for k in (0, 1, 2, 6, 7))
+        cx, cy, cz, cm = (c[sl] for c in cands)
+        d2 = ((qx[:, :, None] - cx[:, None, :]) ** 2 + (qy[:, :, None] - cy[:, None, :]) ** 2
+              + (qz[:, :, None] - cz[:, None, :]) ** 2)
+        reach = torch.clamp_min(2 * qh, float(r_c))[:, :, None]
+        occ = (qm[:, :, None] > 0) & (cm[:, None, :] > 0)
+        total += int(((qm > 0).sum(1) * (cm > 0).sum(1)).sum())
+        inside += int((occ & (d2 <= reach * reach)).sum())
+    return float(total), float(inside)
+
+
+def pairs_ops(total: float, inside: float, p3m: bool) -> float:
+    """Operations of K5's or K6's function: the test on every occupied pair,
+    the body on the pairs inside the visibility radius."""
+    body = K5_OPS_PER_PAIR + (K5_OPS_P3M_EXTRA if p3m else 0)
+    return total * K5_OPS_PAIR_TEST + inside * (body - K5_OPS_PAIR_TEST)
+
+
+def phase_collapse_kernels(res, cfg, counts, gpu_line):
+    """K1 (every bucket), K5 and, on the per-bucket path, K6 against their
+    plain versions on the inputs one force evaluation of the collapse
+    path's final state gives them; errors, times, bounds. The per-bucket
+    path: one step of make_chunk_runner(grouped=False) from that state, its
+    launch counts set to 0 just before and read just after."""
+    bargs = refit_args(res, cfg)
+    dtype = res["state"].pos.dtype
+    peak = PEAK_FLOPS[dtype]
+    ev_g = {}
+    calls = capture_eval_inputs(res, cfg, blocks, ("phase_a_cells", "phase_b_grouped"),
+                                mlargs=bargs, out=ev_g)
+
+    # K1, one launch a bucket
+    ms = plain_ms = flops = byts = err = 0.0
+    ties = 0
+    widths = []
+    for args, kw in calls["phase_a_cells"]:
+        queries, reach2, cands, m = args
+        out_k = cuda_strip_knn.phase_a_cells(*args, **kw)
+        out_p = cuda_strip_knn.phase_a_cells_plain(*args, **kw)
+        e, t_rows = check_phase_a(*out_k, *out_p, queries, reach2, cands, 2e-5)
+        err, ties = max(err, e), ties + t_rows
+        ms += time_ms(lambda: cuda_strip_knn.phase_a_cells(*args, **kw), iters=3)
+        plain_ms += time_ms(lambda: cuda_strip_knn.phase_a_cells_plain(*args, **kw),
+                            iters=1, warmup=0)
+        flops += phase_a_ops(queries[3], cands[3], kw["kh"], kw["n_bisect"])
+        byts += slot_bytes(queries[3], 4) + slot_bytes(cands[3], 3) + nbytes(*out_k)
+        widths.append(cands[0].shape[1])
+    k1 = {"launches": counts["phase_a_cells"], "max_abs_err": err, "ms": ms,
+          "plain_ms": plain_ms, **bound(flops, byts, peak), "tie_rows": ties,
+          "c_b_of_launches": widths, "n_bisect": calls["phase_a_cells"][0][1]["n_bisect"]}
+
+    # K5, one launch
+    (args, kw), = calls["phase_b_grouped"]
+    qfields, cstack = args[0], args[1]
+    qo_k, co_k = cuda_grouped_pairs.phase_b_grouped(*args, **kw)
+    qo_p, co_p = cuda_grouped_pairs.phase_b_grouped_plain(*args, **kw)
+    rq = check_phase_b(qo_k, qo_p, dtype, kernel="phase_b_grouped")[0]
+    rc, rtol, atol = check_phase_b(co_k.transpose(0, 1), co_p.transpose(0, 1), dtype,
+                                   names=C_NAMES, kernel="phase_b_grouped")
+    err = max(max(float((a - b).abs().max()) for a, b in zip(qo_k, qo_p) if a.numel()),
+              float((co_k - co_p).abs().max()))
+    ms = time_ms(lambda: cuda_grouped_pairs.phase_b_grouped(*args, **kw), iters=3)
+    plain_ms = time_ms(lambda: cuda_grouped_pairs.phase_b_grouped_plain(*args, **kw),
+                       iters=1, warmup=0)
+    qblk = torch.as_tensor(kw["qblk"], device=DEVICE)
+    total, inside = block_pairs(qfields, tuple(cstack[:, k] for k in (0, 1, 2, 9)), qblk,
+                                args[6])
+    byts = (slot_bytes(qfields[6], 10) + slot_bytes(cstack[:, 9], 9)
+            + nbytes(*qo_k, co_k))
+    k5 = kernel_entry("phase_b_grouped", counts, err, ms, plain_ms,
+                      pairs_ops(total, inside, kw["p3m"]), byts, peak,
+                      max_err_over_scale=max(rq, rc),
+                      tolerance={"rtol": rtol, "atol_of_scale": atol},
+                      chunks=int(cstack.shape[0]), query_blocks=int(qfields[0].shape[0]),
+                      occupied_pairs=total, pairs_in_visibility=inside,
+                      chunks_a_block_min_max=[min(cb for cb, _ in cfg.blocks[0]) // 512,
+                                              max(cb for cb, _ in cfg.blocks[0]) // 512])
+
+    # the per-bucket path: K6 once a bucket an evaluation
+    st, p = res["state"], res["params"]
+    reset_counts()
+    out_pb = make_chunk_runner(cfg, device=DEVICE, grouped=False)(
+        st, p, res["h_last"], 1, bargs)
+    sync()
+    counts_pb = {name: mod.launches for name, mod in MODULES.items()}
+    checks = {"0 fallback evals": int(out_pb[5].sum()) == 0,
+              "kernel launches": counts_pb == block_counts_want(len(cfg.blocks[0]), False, 1)}
+    ev_b = {}
+    calls_b = capture_eval_inputs(res, cfg, blocks, ("phase_b_blocks",), mlargs=bargs,
+                                  grouped=False, out=ev_b)
+    ms = plain_ms = flops = byts = err = rel = 0.0
+    for args, kw in calls_b["phase_b_blocks"]:
+        qfields, cfields = args[0], args[1]
+        qo_k, co_k = cuda_block_pairs.phase_b_blocks(*args, **kw)
+        qo_p, co_p = cuda_block_pairs.phase_b_blocks_plain(*args, **kw)
+        rel = max(rel, check_phase_b(qo_k, qo_p, dtype, kernel="phase_b_blocks")[0],
+                  check_phase_b(co_k, co_p, dtype, names=C_NAMES, kernel="phase_b_blocks")[0])
+        err = max(err, *(float((a - b).abs().max()) for a, b in zip(qo_k + co_k, qo_p + co_p)))
+        ms += time_ms(lambda: cuda_block_pairs.phase_b_blocks(*args, **kw), iters=3)
+        plain_ms += time_ms(lambda: cuda_block_pairs.phase_b_blocks_plain(*args, **kw),
+                            iters=1, warmup=0)
+        rows = torch.arange(cfields[0].shape[0], device=DEVICE)
+        tot, ins = block_pairs(qfields, (cfields[0], cfields[1], cfields[2], cfields[6]),
+                               rows, args[6])
+        flops += pairs_ops(tot, ins, kw["p3m"])
+        byts += slot_bytes(qfields[6], 10) + slot_bytes(cfields[6], 9) + nbytes(*qo_k, *co_k)
+    k6 = kernel_entry("phase_b_blocks", counts_pb, err, ms, plain_ms, flops, byts, peak,
+                      max_err_over_scale=rel, launches_path="collapse_per_bucket")
+    # the two phase-B forms give one evaluation to f32 reassociation
+    worst = check_phase_b(
+        (ev_b["acc"][:, 0], ev_b["red"].visc_dk, ev_b["phi"]),
+        (ev_g["acc"][:, 0], ev_g["red"].visc_dk, ev_g["phi"]), dtype,
+        names=("acc_x", "visc_dk", "phi"), kernel="per-bucket vs grouped evaluation")[0]
+    failed = [k for k, v in checks.items() if not v]
+    say("collapse_per_bucket", card=gpu_line, launches=counts_pb,
+        fallback_evals=int(out_pb[5].sum()), eval_err_over_scale=worst, failed=failed)
+    if failed:
+        raise AssertionError(f"per-bucket path checks failed: {failed}")
+    return k1, k5, k6, counts_pb, bargs
+
+
+def bound(flops, byts, peak):
+    """The least time the card could take: operations over the peak rate or
+    bytes over the memory rate, whichever is larger (ms, and which)."""
     t_ops = flops / peak * 1e3
     t_bytes = byts / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_collapse_vs_gather(res, cfg, bargs, gpu_line):
+    """One block-engine evaluation of the collapse path's final state
+    against the gather engine's on the card: h, rho, the hydro acceleration
+    and g (Newtonian sweep + the block corrections against the softened
+    all-pairs sum)."""
+    from sphtpu_torch.engine.step import _gather_reduced
+    from sphtpu_torch.physics import gravity_allpairs
+
+    st, p, h = res["state"], res["params"], res["h_last"]
+    red_b, gcorr, ok = blocks.block_sph_forces(
+        st.pos, st.vel, p.m, st.K, h, bargs, eos=cfg.eos, gamma=p.gamma, cs0=p.cs0,
+        alpha=p.alpha, beta=p.beta, kh=cfg.kh, spec=cfg.blocks,
+    )
+    g_b = gravity_newton_allpairs(st.pos, p.m, device=DEVICE)[0] + torch.stack(gcorr[:3], 1)
+    t0 = time.time()
+    red_g = _gather_reduced(dataclasses.replace(cfg, blocks=None), p, st.pos, st.vel, st.K)
+    g_g = gravity_allpairs(st.pos, red_g.h, p.m)[0]
+    sync()
+    gather_s = time.time() - t0
+    eps = torch.finfo(st.pos.dtype).eps
+    h_rel = float(((red_b.h - red_g.h).abs() / red_g.h).max())
+    rho_rel = float(((red_b.rho - red_g.rho).abs() / red_g.rho).max())
+    worst, rtol, atol = check_phase_b(
+        (red_b.acc[:, 0], red_b.acc[:, 1], red_b.acc[:, 2], g_b[:, 0], g_b[:, 1], g_b[:, 2]),
+        (red_g.acc[:, 0], red_g.acc[:, 1], red_g.acc[:, 2], g_g[:, 0], g_g[:, 1], g_g[:, 2]),
+        st.pos.dtype, names=("acc_x", "acc_y", "acc_z", "g_x", "g_y", "g_z"),
+        kernel="block vs gather")
+    checks = {"certified": bool(ok), "h within 4 ulp": h_rel <= 4 * float(eps),
+              "rho within 1e-5": rho_rel <= 1e-5}
+    failed = [k for k, v in checks.items() if not v]
+    say("collapse_vs_gather", card=gpu_line, h_max_rel_err=h_rel, rho_max_rel_err=rho_rel,
+        acc_g_max_err_over_scale=worst, tolerance={"rtol": rtol, "atol_of_scale": atol},
+        gather_eval_s=gather_s, failed=failed)
+    if failed:
+        raise AssertionError(f"block vs gather checks failed: {failed}")
+
+
+def phase_deep_state(gpu_line):
+    """bb_collapsed_deep.npz (contrast 1001): the block plan and one
+    evaluation in each gravity mode must certify; the P3M force error
+    against the exact sweep within the bars of tests/test_mesh_gravity.py."""
+    from sphtpu_torch.engine import params_from_numpy
+
+    d = np.load(COLLAPSE_DEEP)
+    pos_h, h_h = d["pos"].astype(np.float64), d["h"].astype(np.float64)
+    st = state_from_numpy(pos_h, d["vel"], d["K"], float(d["t"]), device=DEVICE)
+    p = params_from_numpy(m=float(d["m"]), gamma=5 / 3, cs0=0.0, alpha=1.0, beta=2.0, U0=0.0,
+                          t_end=1e30, device=DEVICE)
+    h = dev(h_h, torch.float32)
+    g, phi, plans, ms = {}, {}, {}, {}
+    for grav in ("exact", "p3m"):
+        plan = blocks.plan_blocks(pos_h, h_h, KH_COLLAPSE, gravity=grav)
+        if plan is None:
+            raise AssertionError(f"the deep state does not plan under {grav} gravity")
+        spec, bargs = plan
+        cfg = EngineConfig(n=pos_h.shape[0], kh=KH_COLLAPSE, eos="polytropic", dtype="float32",
+                           blocks=spec, gravity=grav)
+        bargs = blocks.block_args_to_device(bargs, torch.float32, DEVICE)
+        tables = blocks.build_cand_tables(bargs, spec, cfg.n)
+
+        def evaluate():
+            return blocks.block_sph_forces(
+                st.pos, st.vel, p.m, st.K, h, bargs, eos="polytropic", gamma=p.gamma,
+                cs0=p.cs0, alpha=p.alpha, beta=p.beta, kh=KH_COLLAPSE, spec=spec,
+                gravity=grav, mesh_factor=cfg.mesh_factor, sigma_cells=cfg.sigma_cells,
+                idx_tables=tables,
+            )
+
+        red, gcorr, ok = evaluate()
+        if not bool(ok):
+            raise AssertionError(f"the deep state's {grav} evaluation does not certify")
+        ms[grav] = time_ms(evaluate, iters=3)
+        if grav == "p3m":
+            ghat = greens_hat(cfg.mesh_pad, cfg.sigma_cells, torch.float32, DEVICE)
+            gfar, phifar = p3m_mesh_force(st.pos, p.m, ghat, gm=cfg.mesh_gm, pad=cfg.mesh_pad)
+        else:
+            gfar, phifar = gravity_newton_allpairs(st.pos, p.m, device=DEVICE)
+        g[grav] = (gfar + torch.stack(gcorr[:3], 1)).double()
+        phi[grav] = (phifar + gcorr[3]).double()
+        plans[grav] = {"buckets": [list(b) for b in spec[0]], "octave_grids": list(spec[1]),
+                       "pair_slots_a_phase": sum(cb * nb for cb, nb in spec[0]) * blocks.BQ}
+
+    def rms(v):
+        return float(torch.sqrt(torch.mean(torch.sum(v * v, dim=1))))
+
+    dg = g["p3m"] - g["exact"]
+    rms_g = rms(g["exact"])
+    err = rms(dg) / rms_g
+    phi_rel = float(torch.sqrt(torch.mean(((phi["p3m"] - phi["exact"]) / phi["exact"]) ** 2)))
+    mom = float((float(p.m) * dg.sum(0)).abs().max()) / rms_g
+    checks = {"g error RMS < 2e-3 of |g|": err < 2e-3, "phi relative RMS < 1e-3": phi_rel < 1e-3,
+              "momentum < 1e-5 of |g|": mom < 1e-5}
+    failed = [k for k, v in checks.items() if not v]
+    say("deep_state", card=gpu_line, scene="bb_collapsed_deep.npz (contrast 1001) N=100000 "
+        "Kh=50 float32", plans=plans, block_eval_ms=ms, certified=True,
+        g_err_rms_over_rms_g=err, phi_rel_rms=phi_rel, momentum_over_rms_g=mom, failed=failed)
+    if failed:
+        raise AssertionError(f"deep-state checks failed: {failed}")
+
+
+def kernel_entry(name, counts, err, ms, plain_ms, flops, byts, peak, **extra):
     source, replaces = KERNEL_INFO[name]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": counts[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, **extra,
+        **bound(flops, byts, peak), "library_ms": None, **extra,
     }
 
 
@@ -957,15 +1445,23 @@ def main() -> int:
         del res
         torch.cuda.empty_cache()
         phase_fallback(tmp)
+        res, cfg, by_path["collapse_n1e5"] = phase_collapse_path(tmp, gpu_line)
+        k1_blk, k5, k6, by_path["collapse_per_bucket"], bargs = phase_collapse_kernels(
+            res, cfg, by_path["collapse_n1e5"], gpu_line)
+        phase_collapse_vs_gather(res, cfg, bargs, gpu_line)
+        del res, bargs
+        torch.cuda.empty_cache()
+        phase_deep_state(gpu_line)
+    entries[0]["on_collapse_path"] = k1_blk
     entries[1]["on_exact_path"] = k2_exact
     entries[1]["on_p3m_path"] = k2_p3m
     k4["on_exact_path"] = {k: k4_exact[k] for k in (
         "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "tie_rows",
         "rows", "cap")}
-    entries += [k4, tail]
+    entries += [k4, tail, k5, k6]
     for e in entries:
         e["launches_by_path"] = {path: c[e["name"]] for path, c in by_path.items()}
-    side = (k2_exact, k2_p3m, k4["on_exact_path"])
+    side = (k2_exact, k2_p3m, k4["on_exact_path"], k1_blk)
     if any(e["launches"] <= 0 for e in entries + list(side)):
         raise AssertionError("a kernel of a main path was never launched")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -12,7 +12,8 @@ step (t >= tEnd) always snapshots. keepSnaps=false suppresses all but the
 final snapshot; showPlots additionally renders PNG figures.
 
 A chunk runs to the next snapshot boundary: there is no cap on the steps
-of one dispatch.
+of one dispatch, except on the block-compact engine, whose chunks are
+ML_SUBCHUNK steps long (its plan is refreshed between them).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from scipy.spatial import cKDTree
 
 from ..device import resolve_device
 from ..io import StatsFile, read_snapshot, snapshot_path, write_snapshot
+from ..physics.blocks import BQ, block_args_for_spec, plan_blocks
 from ..physics.ctiles import choose_tile_classes, ctile_classes_still_ok
 from ..physics.tiles import choose_tile_params, tile_params_still_ok
 from ..profiling import StageTimer
@@ -44,23 +46,28 @@ P3M_MIN_N = 150_000
 
 # planner rungs of the reference package that the port does not have yet;
 # states they would serve run on the gather engine
-RUNGS_NOT_PORTED = (
-    "block-compact engine", "multi-level engine", "outlier-lane tiles",
-)
+RUNGS_NOT_PORTED = ("multi-level engine", "outlier-lane tiles")
+
+# Block-compact chunks are this many steps long: the plan's boxes carry
+# drift margins for ML_SUBCHUNK steps, and refreshing them between short
+# chunks (`block_args_for_spec`) is a host pass that keeps the spec.
+ML_SUBCHUNK = 2
 
 
 def plan_engine(pos_host, h_host, *, n: int, kh: int, eos: str, dtype: str,
-                gravity: str) -> Optional[EngineConfig]:
+                gravity: str):
     """A fresh plan for the next chunk, the reference's ladder over the
     ported rungs (code-unit host arrays; gravity "exact" or "p3m"):
 
     1. exact gravity only: the class-compacted tile engine, when its
        planner fits the state (1.5x occupancy headroom, cap <= 128);
     2. the mono-tile engine (cap <= 256), under either gravity;
-    3. None: no ported rung can plan; the caller runs the gather engine.
+    3. the block-compact engine (`plan_blocks`), under either gravity;
+    4. None: no ported rung can plan; the caller runs the gather engine.
 
-    p3m skips the class engine: it needs a one-cell tail stencil, which the
-    default mesh_factor does not give."""
+    Returns (EngineConfig, BlockArgs or None) or None. p3m skips the class
+    engine: it needs a one-cell tail stencil, which the default mesh_factor
+    does not give."""
     if gravity == "exact":
         tp_cls = choose_tile_classes(pos_host, h_host, kh, headroom=1.5)
         if tp_cls is not None:
@@ -68,13 +75,29 @@ def plan_engine(pos_host, h_host, *, n: int, kh: int, eos: str, dtype: str,
             return EngineConfig(
                 n=n, kh=kh, eos=eos, dtype=dtype, tile=(grid, cap),
                 tile_classes=classes, gravity=gravity,
-            )
+            ), None
     tp_mono = choose_tile_params(pos_host, h_host, kh, headroom=1.5)
     if tp_mono is not None:
         return EngineConfig(
             n=n, kh=kh, eos=eos, dtype=dtype, tile=tp_mono, gravity=gravity
-        )
+        ), None
+    blk = plan_blocks(pos_host, h_host, kh, gravity=gravity)
+    if blk is not None:
+        spec, bargs = blk
+        return EngineConfig(
+            n=n, kh=kh, eos=eos, dtype=dtype, blocks=spec, gravity=gravity
+        ), bargs
     return None
+
+
+def engine_name(cfg: EngineConfig) -> str:
+    """"classes", "mono", "blocks" or "gather": the engine a config runs
+    (a chunk whose certificate failed ran the gather engine too)."""
+    if cfg.blocks is not None:
+        return "blocks"
+    if cfg.tile is not None:
+        return "classes" if cfg.tile_classes is not None else "mono"
+    return "gather"
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -116,10 +139,10 @@ def run_simulation(
     """Run from snapshot `snap_id` until tEnd (or max_steps). Returns a
     summary dict (steps run, final time, last stats row, snapshot ids).
 
-    engine: "auto" uses a cell-tile fast path with certified fallback
-    (grid re-sized per chunk from the evolving h): the class-compacted
-    engine (exact gravity only), else the mono-tile engine; "gather"
-    forces the neighbor-list engine.
+    engine: "auto" uses a certified fast path with fallback, re-planned per
+    chunk from the evolving h (`plan_engine`): the class-compacted engine
+    (exact gravity only), else the mono-tile engine, else the
+    block-compact engine; "gather" forces the neighbor-list engine.
     gravity: "exact" runs the exact Newtonian sweep + near-field
     correction on the tile path; "p3m" the FFT mesh + the tiles' tail
     correction; "auto" is p3m at N >= P3M_MIN_N, else exact. The gather
@@ -175,8 +198,8 @@ def run_simulation(
         device=dev,
     )
 
-    # chunk runners cached per EngineConfig (the tile tuple changes as h
-    # evolves)
+    # chunk runners cached per EngineConfig (the tile tuple or block spec
+    # changes as h evolves)
     _runner_cache = {}
 
     def get_chunk(cfg):
@@ -194,49 +217,56 @@ def run_simulation(
                 ) * 27.0 * float(c.tile[1])
             # mono tile: every cell's full capacity sweeps pair tiles
             return c.tile[0] ** 3 * float(c.tile[1]) ** 2 * 27.0
+        if c.blocks is not None:
+            # pair slots x the reference's per-slot factor, which puts the
+            # block engine on the strip engines' scale
+            return 13.0 * sum(cb * nb * BQ for cb, nb in c.blocks[0])
         return float("inf")
 
     said_rungs = []
 
     def pick_cfg(h_host: np.ndarray, pos_host: np.ndarray):
-        """EngineConfig for the next chunk.
+        """(EngineConfig, BlockArgs or None) for the next chunk.
 
         Hysteresis: prefer ANY already-used config whose host-side
         forecast still certifies (cheapest by the slot-work model) over
-        planning a fresh one; the in-engine certificate stays the safety
-        net."""
+        planning a fresh one — for a block config, a refit of its spec to
+        the current state (`block_args_for_spec`); the in-engine
+        certificate stays the safety net."""
         if engine != "auto":
-            return base_cfg
-        cached = [
-            c
-            for c in _runner_cache
-            if c.tile is not None
-            and tile_params_still_ok(
-                pos_host, h_host, c.tile[0], c.tile[1], c.outlier_budget
-            )
-            and (
-                c.tile_classes is None
-                or ctile_classes_still_ok(
-                    pos_host, h_host, c.tile[0], c.tile[1], c.tile_classes
-                )
-            )
-        ]
+            return base_cfg, None
+        cached = []
+        for c in _runner_cache:
+            if c.tile is not None:
+                if tile_params_still_ok(
+                    pos_host, h_host, c.tile[0], c.tile[1], c.outlier_budget
+                ) and (
+                    c.tile_classes is None
+                    or ctile_classes_still_ok(
+                        pos_host, h_host, c.tile[0], c.tile[1], c.tile_classes
+                    )
+                ):
+                    cached.append((c, None))
+            elif c.blocks is not None:
+                args = block_args_for_spec(pos_host, h_host, c.blocks, gravity=c.gravity)
+                if args is not None:
+                    cached.append((c, args))
         if cached:
-            return min(cached, key=_cfg_cost)
-        cfg = plan_engine(
+            return min(cached, key=lambda ca: _cfg_cost(ca[0]))
+        plan = plan_engine(
             pos_host, h_host, n=n, kh=kh, eos=eos, dtype=dtype, gravity=grav
         )
-        if cfg is not None:
-            return cfg
+        if plan is not None:
+            return plan
         if verbose and not said_rungs:
             said_rungs.append(True)
             print(
-                "[engine] the tile engines cannot plan this state; the "
-                "rungs not ported yet ("
+                "[engine] no ported engine can plan this state; the rungs "
+                "not ported yet ("
                 + ", ".join(RUNGS_NOT_PORTED)
                 + ") are skipped and the gather engine runs"
             )
-        return base_cfg
+        return base_cfg, None
 
     # bootstrap h for grid sizing (host KD-tree, code units)
     if engine == "auto":
@@ -377,6 +407,8 @@ def run_simulation(
     total_fallbacks = 0
     picked = []  # distinct configs in the order they were first used
     chunk_walls = []  # (steps run, wall seconds, fallback evals) per chunk
+    pick_walls = []  # host planning (plan or refit) wall seconds before each chunk
+    chunk_engines = []  # the engine that ran each chunk (`engine_name`)
     while float(state.t) < t_end_code:
         if max_steps is not None and total_steps >= max_steps:
             break
@@ -390,14 +422,20 @@ def run_simulation(
             n_steps = min(n_steps, max_steps - total_steps)
 
         with timer("pick_grid"):
-            cfg = pick_cfg(h_host, _host(state.pos))
+            t_pick = time.perf_counter()
+            cfg, mlargs = pick_cfg(h_host, _host(state.pos))
             chunk = get_chunk(cfg)
             if cfg not in picked:
                 picked.append(cfg)
+            pick_walls.append(time.perf_counter() - t_pick)
+        if cfg.blocks is not None:
+            # the plan's boxes drift with the state: short chunks keep them
+            # fresh (a host refit, same spec)
+            n_steps = min(n_steps, ML_SUBCHUNK)
         with timer("chunk_steps"):
             t_chunk = time.perf_counter()
             state, stats_code, valid, h_dev, rho_dev, nfb = chunk(
-                state, params, h_dev, n_steps
+                state, params, h_dev, n_steps, mlargs
             )
             h_host = _host(h_dev)  # device -> host: the chunk has finished
             rho_host = _host(rho_dev)
@@ -415,6 +453,7 @@ def run_simulation(
         valid = valid.cpu().numpy()
         n_valid = int(valid.sum())
         chunk_walls.append((n_valid, t_chunk, n_fb))
+        chunk_engines.append(engine_name(cfg))
         if n_valid == 0:
             break
         stats_cgs = _stats_to_cgs(stats_code[:n_valid], u)
@@ -468,6 +507,8 @@ def run_simulation(
         "sharded_chunks": 0,
         "configs": picked,
         "chunk_walls": chunk_walls,
+        "pick_walls": pick_walls,
+        "chunk_engines": chunk_engines,
         "params": params,
         "h_last": h_dev,
         "t_cgs": float(state.t) * u.T,

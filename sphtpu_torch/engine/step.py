@@ -8,9 +8,12 @@ boundaries.
 
 Neighbor engines: when cfg.tile is set, a tile engine runs first — the
 class-compacted one (sphtpu_torch.physics.ctiles) when cfg.tile_classes is
-set, else the mono-tile one (sphtpu_torch.physics.tiles) — and its
-per-evaluation exactness certificate gates the fallback to the gather
-engine: a stale grid costs speed, never correctness. Gravity on a tile
+set, else the mono-tile one (sphtpu_torch.physics.tiles); when cfg.blocks
+is set, the block-compact engine (sphtpu_torch.physics.blocks) with the
+chunk's BlockArgs (`mlargs`) and candidate tables (`aux`, built once a
+chunk). The engine's per-evaluation exactness certificate gates the
+fallback to the gather engine: a stale plan costs speed, never
+correctness. Gravity on a tile
 path is the exact Newtonian sweep or, under p3m, the FFT mesh; either way
 plus the tiles' near-field corrections. Reading that certificate is the one
 host synchronisation of a force evaluation. The smoothing lengths ride the
@@ -34,6 +37,7 @@ from ..physics import (
     gravity_newton_allpairs,
     sph_forces,
 )
+from ..physics.blocks import block_args_to_device, block_sph_forces, build_cand_tables
 from ..physics.ctiles import ctile_sph_forces
 from ..physics.mesh_gravity import greens_hat, p3m_mesh_force
 from ..physics.tiles import ReducedForces, tile_sph_forces
@@ -60,8 +64,6 @@ def _gather_reduced(cfg: EngineConfig, p: Params, pos, vel, K) -> ReducedForces:
 
 
 def _not_ported(cfg: EngineConfig):
-    if cfg.blocks is not None:
-        return "blocks (the block-compact engine arrives with slice 3 of the port)"
     if cfg.mlevel is not None:
         return "mlevel (the multi-level engine arrives with slice 4 of the port)"
     if cfg.outlier_budget:
@@ -70,24 +72,41 @@ def _not_ported(cfg: EngineConfig):
 
 
 def force_eval(
-    cfg: EngineConfig, p: Params, pos, vel, K, h_hint, ghat=None, *, device=None
+    cfg: EngineConfig, p: Params, pos, vel, K, h_hint, ghat=None, mlargs=None,
+    aux=None, *, device=None, grouped=True,
 ):
     """Hydro + gravity acceleration (getAcc, polytrope_sim.jl:17-51).
 
     ghat: the Green's function of cfg's mesh, `greens_hat(cfg.mesh_pad,
     cfg.sigma_cells, dtype, device)`; required when the config is p3m (the
-    chunk runner computes it once). Returns (acc, reduced, phi,
-    fell_back); fell_back is a python bool (the certificate is read back
-    here). device=None means the card."""
+    chunk runner computes it once). mlargs: the plan's BlockArgs when
+    cfg.blocks is set (required then); aux: its candidate tables
+    (`build_cand_tables`; None rebuilds them in the call); grouped=False
+    runs the block engine's phase B per bucket (kernel K6) instead of in one
+    launch (K5), as the reference's SPHTPU_BLOCKS_GROUPED=0 does. Returns
+    (acc, reduced, phi, fell_back); fell_back is a python bool (the
+    certificate is read back here). device=None means the card."""
     dev = resolve_device(device)
     require_on(dev, pos, vel, K)
     missing = _not_ported(cfg)
     if missing is not None:
         raise NotImplementedError(f"EngineConfig with {missing}")
+    if cfg.blocks is not None and mlargs is None:
+        raise ValueError("cfg.blocks requires BlockArgs via mlargs")
     if cfg.gravity == "p3m" and ghat is None:
         raise ValueError(
             "a p3m config needs ghat = greens_hat(cfg.mesh_pad, cfg.sigma_cells, ...)"
         )
+
+    if cfg.blocks is not None:
+        with stage("hydro_blocks"):
+            tf, gcorr, ok = block_sph_forces(
+                pos, vel, p.m, K, h_hint, mlargs, eos=cfg.eos, gamma=p.gamma,
+                cs0=p.cs0, alpha=p.alpha, beta=p.beta, kh=cfg.kh, spec=cfg.blocks,
+                gravity=cfg.gravity, mesh_factor=cfg.mesh_factor,
+                sigma_cells=cfg.sigma_cells, grouped=grouped, idx_tables=aux,
+            )
+        return _certified_or_gather(cfg, p, pos, vel, K, tf, gcorr, ok, ghat, dev)
 
     if cfg.tile is not None:
         grid, cap = cfg.tile
@@ -118,29 +137,7 @@ def force_eval(
             # capacity; under p3m its phase C adds the (2W+1)^3 tail
             with stage("hydro_tiles"):
                 tf, gcorr, ok = tile_sph_forces(pos, vel, p.m, K, h_hint, **kw)
-        ok = bool(ok)  # the one host synchronisation of this evaluation
-        if ok or cfg.fallback == "none":
-            # failed certs under fallback="none" are discarded by
-            # make_step; the gather branch never runs
-            with stage("gravity"):
-                if p3m:
-                    # FFT mesh far field + the tiles' (softened - mesh
-                    # shape) corrections
-                    gfar, phifar = p3m_mesh_force(
-                        pos, p.m, ghat, gm=cfg.mesh_gm, pad=cfg.mesh_pad
-                    )
-                else:
-                    # pure-Newtonian global sweep + the tiles' near-field
-                    # softening correction == the reference's softened
-                    # gravity, exactly
-                    gfar, phifar = gravity_newton_allpairs(pos, p.m, device=dev)
-            g = gfar + torch.stack(gcorr[:3], dim=1)
-            return tf.acc - g, tf, phifar + gcorr[3], not ok
-        with stage("hydro_gather"):
-            red = _gather_reduced(cfg, p, pos, vel, K)
-        with stage("gravity"):
-            g, phi = gravity_allpairs(pos, red.h, p.m)
-        return red.acc - g, red, phi, True
+        return _certified_or_gather(cfg, p, pos, vel, K, tf, gcorr, ok, ghat, dev)
 
     with stage("hydro_gather"):
         red = _gather_reduced(cfg, p, pos, vel, K)
@@ -148,6 +145,33 @@ def force_eval(
         g, phi = gravity_allpairs(pos, red.h, p.m)
     acc = red.acc - g  # G = 1 in code units (the caller applies -G*g)
     return acc, red, phi, False
+
+
+def _certified_or_gather(cfg, p, pos, vel, K, tf, gcorr, ok, ghat, dev):
+    """The far field and the result of an engine's evaluation whose
+    certificate is `ok`, or the gather engine's evaluation where it failed
+    (under fallback="none" the failed evaluation is returned as it is, for
+    make_step to discard)."""
+    ok = bool(ok)  # the one host synchronisation of this evaluation
+    if ok or cfg.fallback == "none":
+        with stage("gravity"):
+            if cfg.gravity == "p3m":
+                # FFT mesh far field + the engine's (softened - mesh shape)
+                # corrections
+                gfar, phifar = p3m_mesh_force(
+                    pos, p.m, ghat, gm=cfg.mesh_gm, pad=cfg.mesh_pad
+                )
+            else:
+                # pure-Newtonian global sweep + the engine's near-field
+                # softening correction == the reference's softened gravity
+                gfar, phifar = gravity_newton_allpairs(pos, p.m, device=dev)
+        g = gfar + torch.stack(gcorr[:3], dim=1)
+        return tf.acc - g, tf, phifar + gcorr[3], not ok
+    with stage("hydro_gather"):
+        red = _gather_reduced(cfg, p, pos, vel, K)
+    with stage("gravity"):
+        g, phi = gravity_allpairs(pos, red.h, p.m)
+    return red.acc - g, red, phi, True
 
 
 def _adaptive_dt(p: Params, sf: ReducedForces, acc, vel):
@@ -185,16 +209,17 @@ def _diagnostics(cfg: EngineConfig, p: Params, state: State, sf, phi, vel_r2):
     )
 
 
-def make_step(cfg: EngineConfig, *, device=None):
-    """Returns step(state, params, h_hint, ghat=None) ->
-    (state', stats_row, h_new, rho_new, n_fallbacks). n_fallbacks is a
-    python int; ghat is force_eval's. device=None means the card."""
+def make_step(cfg: EngineConfig, *, device=None, grouped=True):
+    """Returns step(state, params, h_hint, ghat=None, mlargs=None, aux=None)
+    -> (state', stats_row, h_new, rho_new, n_fallbacks). n_fallbacks is a
+    python int; ghat, mlargs, aux and grouped are force_eval's. device=None
+    means the card."""
     dev = resolve_device(device)
 
-    def step(state: State, p: Params, h_hint, ghat=None) -> Tuple:
+    def step(state: State, p: Params, h_hint, ghat=None, mlargs=None, aux=None) -> Tuple:
         pos, vel, K = state.pos, state.vel, state.K
         acc, sf, phi, fb1 = force_eval(
-            cfg, p, pos, vel, K, h_hint, ghat, device=dev
+            cfg, p, pos, vel, K, h_hint, ghat, mlargs, aux, device=dev, grouped=grouped
         )
         dt = _adaptive_dt(p, sf, acc, vel)
         vel_r2 = torch.sum(vel * vel, dim=1)
@@ -206,7 +231,8 @@ def make_step(cfg: EngineConfig, *, device=None):
         if cfg.eos == "polytropic":
             K = evolve_K(K, sf.visc_dk, p.gamma, sf.rho, dt)
         acc2, sf2, _, fb2 = force_eval(
-            cfg, p, pos_half, vel_half, K, sf.h, ghat, device=dev
+            cfg, p, pos_half, vel_half, K, sf.h, ghat, mlargs, aux, device=dev,
+            grouped=grouped,
         )
         if cfg.eos == "polytropic":
             K = evolve_K(K, sf2.visc_dk, p.gamma, sf2.rho, dt)
@@ -235,9 +261,9 @@ def make_step(cfg: EngineConfig, *, device=None):
     return step
 
 
-def make_chunk_runner(cfg: EngineConfig, *, device=None):
-    """Returns chunk(state, params, h0, n_steps, *, scan_length=None): runs
-    up to n_steps steps, freezing once t >= t_end. Outputs (state,
+def make_chunk_runner(cfg: EngineConfig, *, device=None, grouped=True):
+    """Returns chunk(state, params, h0, n_steps, mlargs=None, *,
+    scan_length=None): runs up to n_steps steps, freezing once t >= t_end. Outputs (state,
     stats (S,10), valid (S,), h_last, rho_last, fallbacks (S,)); rho_last
     is the last half-step density, which run_simulation threads into the
     snapshot figures (the reference colors its star scatter by rho,
@@ -248,18 +274,24 @@ def make_chunk_runner(cfg: EngineConfig, *, device=None):
     valid=False with a zero stats row. One host read of `t < t_end` per
     step and one of the certificate per force evaluation are the only
     synchronisations. Under p3m the mesh's Green's function is computed
-    once, with the runner, not per evaluation. device=None means the
-    card."""
+    once, with the runner, not per evaluation. mlargs: the BlockArgs of a
+    cfg.blocks config (required then); they go to the device and their
+    candidate tables are built once a chunk; grouped is force_eval's.
+    device=None means the card."""
     dev = resolve_device(device)
-    step = make_step(cfg, device=dev)
+    step = make_step(cfg, device=dev, grouped=grouped)
     ghat = (
         greens_hat(cfg.mesh_pad, cfg.sigma_cells, cfg.torch_dtype, dev)
         if cfg.gravity == "p3m"
         else None
     )
 
-    def chunk(state: State, p: Params, h0, n_steps, *, scan_length=None):
+    def chunk(state: State, p: Params, h0, n_steps, mlargs=None, *, scan_length=None):
         require_on(dev, *state, h0)
+        aux = None
+        if cfg.blocks is not None and mlargs is not None:
+            mlargs = block_args_to_device(mlargs, cfg.torch_dtype, dev)
+            aux = build_cand_tables(mlargs, cfg.blocks, cfg.n)
         n_steps = int(n_steps)
         if scan_length is None:
             scan_length = n_steps
@@ -273,7 +305,7 @@ def make_chunk_runner(cfg: EngineConfig, *, device=None):
         for i in range(n_steps):
             if not bool(state.t < p.t_end):
                 break
-            state, stats_i, h, rho, n_fb = step(state, p, h, ghat)
+            state, stats_i, h, rho, n_fb = step(state, p, h, ghat, mlargs, aux)
             stats[i] = stats_i
             valid[i] = True
             nfb[i] = n_fb

@@ -27,7 +27,7 @@ import threading
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("phase_a_cells", "phase_b_tiles", "newton_sweep", "p3m_tail")
+SOURCES = ("phase_a_cells", "phase_b_tiles", "newton_sweep", "p3m_tail", "phase_b_grouped")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(CSRC)), "..", "build", "sphtpu_torch_kernels"
 )
@@ -66,11 +66,13 @@ def _declare(libs) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pp = ctypes.POINTER(ctypes.c_void_p)
     entries = (
-        ("phase_a_cells", "sph_phase_a_cells", [pp, ci, ci, ci, ci, ci, ci, vp]),
+        ("phase_a_cells", "sph_phase_a_cells", [pp, ci, ci, ci, ci, ci, ci, ci, vp]),
         ("phase_a_cells", "sph_phase_a_tile", [pp, ci, ci, ci, ci, ci, vp]),
         ("phase_b_tiles", "sph_phase_b_tiles", [pp, pp, vp, pp, ci, ci, ci, ci, ci, ci, vp]),
         ("newton_sweep", "sph_newton_sweep", [vp, vp, vp, vp, ci, ci, vp]),
         ("p3m_tail", "sph_p3m_tail", [pp, vp, pp, ci, ci, ci, ci, vp]),
+        ("phase_b_grouped", "sph_phase_b_grouped", [pp, vp, vp, vp, pp, vp, ci, ci, ci, ci, vp]),
+        ("phase_b_grouped", "sph_phase_b_blocks", [pp, pp, vp, pp, pp, ci, ci, ci, ci, ci, vp]),
     )
     for lib, entry, argtypes in entries:
         fnc = getattr(libs[lib], entry)

@@ -53,6 +53,7 @@ struct PhaseAArgs {
   int cw;
   int kh;
   int n_bisect;
+  int chunk;  // raw candidate slots staged at a time (>= cw: the row stays resident)
 };
 
 template <typename T, bool MONO>
@@ -60,8 +61,8 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int wcount[TILE_WARPS];
   T* sx = reinterpret_cast<T*>(smem_raw);
-  T* sy = sx + a.cw;
-  T* sz = sy + a.cw;
+  T* sy = sx + a.chunk;
+  T* sz = sy + a.chunk;
 
   const long row = blockIdx.x;
   const int tid = threadIdx.x;
@@ -85,40 +86,51 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
     return;
   }
 
-  int ncand = 0;
-  for (int t0 = 0; t0 < a.cw; t0 += TILE_THREADS) {
-    const int j = t0 + tid;
-    const bool keep = j < a.cw && cm[j] > T(0);
-    const int p = compact_slot(keep, ncand, wcount);
-    if (keep) {
-      sx[p] = cx[j];
-      sy[p] = cy[j];
-      sz[p] = cz[j];
+  // stage raw slots [c0, c0 + chunk) of the row, occupied ones compacted in
+  // order; returns how many were kept. Every thread of the block calls it.
+  auto stage = [&](int c0) {
+    const int c1 = (c0 + a.chunk < a.cw) ? c0 + a.chunk : a.cw;
+    int kept = 0;
+    for (int t0 = c0; t0 < c1; t0 += TILE_THREADS) {
+      const int j = t0 + tid;
+      const bool keep = j < c1 && cm[j] > T(0);
+      const int p = compact_slot(keep, kept, wcount);
+      if (keep) {
+        sx[p] = cx[j];
+        sy[p] = cy[j];
+        sz[p] = cz[j];
+      }
     }
-  }
-  __syncthreads();
+    __syncthreads();
+    return kept;
+  };
+  const bool resident = a.chunk >= a.cw;
+  const int n_resident = resident ? stage(0) : 0;
 
-  if (q >= a.cap) return;
-  if (!qvalid) {
-    // off-mask rows: h = rho = 0, ok = 1 (all lanes of the group agree)
-    if (sub == 0) {
-      a.h[qi] = T(0);
-      a.rho[qi] = T(0);
-      a.ok[qi] = T(1);
-    }
-    return;
-  }
-  // from here on all LANES_PER_QUERY lanes of the group are active together
+  // Every thread stays to the end (streaming stages the row again on each
+  // pass); only the lanes of an occupied query slot compute.
+  const T qx = qvalid ? (MONO ? cx[centre + q] : a.qx[qi]) : T(0);
+  const T qy = qvalid ? (MONO ? cy[centre + q] : a.qy[qi]) : T(0);
+  const T qz = qvalid ? (MONO ? cz[centre + q] : a.qz[qi]) : T(0);
+  const T r2 = qvalid ? (MONO ? a.reach2[0] : a.reach2[qi]) : T(0);
 
-  const T qx = MONO ? cx[centre + q] : a.qx[qi];
-  const T qy = MONO ? cy[centre + q] : a.qy[qi];
-  const T qz = MONO ? cz[centre + q] : a.qz[qi];
-  const T r2 = MONO ? a.reach2[0] : a.reach2[qi];
-
-#define SPH_FOR_EACH_CAND(...)                                 \
-  for (int j = sub; j < ncand; j += LANES_PER_QUERY) {           \
-    const T d2 = dist2<T>(qx - sx[j], qy - sy[j], qz - sz[j]);   \
-    __VA_ARGS__                                                  \
+  // One pass over the row's occupied candidates. Lane `sub` of a query takes
+  // the candidates whose index in the compacted row is sub mod 8, in order,
+  // whether the row is resident or streamed in pieces: every lane sums the
+  // same terms in the same order either way, so the results do not depend on
+  // the mode.
+#define SPH_FOR_EACH_CAND(...)                                                   \
+  for (int c0 = 0, base = 0; c0 < a.cw; c0 += a.chunk) {                        \
+    const int kept = resident ? n_resident : stage(c0);                         \
+    if (qvalid) {                                                               \
+      for (int j = (sub - base % LANES_PER_QUERY + LANES_PER_QUERY) % LANES_PER_QUERY; \
+           j < kept; j += LANES_PER_QUERY) {                                    \
+        const T d2 = dist2<T>(qx - sx[j], qy - sy[j], qz - sz[j]);              \
+        __VA_ARGS__                                                             \
+      }                                                                         \
+    }                                                                           \
+    base += kept;                                                               \
+    if (!resident) __syncthreads();                                            \
   }
 
   T lo = T(0);
@@ -127,15 +139,17 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
     const T mid = T(0.5) * (lo + hi);
     int cnt = 0;
     SPH_FOR_EACH_CAND(cnt += (d2 <= mid) ? 1 : 0;)
-    cnt = group_sum<int>(cnt);
-    const bool ge = cnt >= a.kh;  // k-th distance <= mid: shrink to [lo, mid]
-    lo = ge ? lo : mid;
-    hi = ge ? mid : hi;
+    if (qvalid) {
+      cnt = group_sum<int>(cnt);
+      const bool ge = cnt >= a.kh;  // k-th distance <= mid: shrink to [lo, mid]
+      lo = ge ? lo : mid;
+      hi = ge ? mid : hi;
+    }
   }
 
   T rk2 = T(0);
   SPH_FOR_EACH_CAND(if (d2 <= hi && d2 > rk2) rk2 = d2;)
-  rk2 = group_max<T>(rk2);
+  if (qvalid) rk2 = group_max<T>(rk2);
 
   const T h_t = Num<T>::sqrt(rk2) / T(2);
   const T h_safe = h_t > T(0) ? h_t : T(1);
@@ -152,9 +166,19 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
                         : (qq <= T(2) ? T(0.25) * (two_m * two_m * two_m) : T(0));
         wsum += ct * w;
       })
+#undef SPH_FOR_EACH_CAND
+  if (q >= a.cap) return;
+  if (!qvalid) {
+    // off-mask rows: h = rho = 0, ok = 1 (all lanes of the group agree)
+    if (sub == 0) {
+      a.h[qi] = T(0);
+      a.rho[qi] = T(0);
+      a.ok[qi] = T(1);
+    }
+    return;
+  }
   nfound = group_sum<int>(nfound);
   wsum = group_sum<T>(wsum);
-#undef SPH_FOR_EACH_CAND
 
   if (sub == 0) {
     a.h[qi] = h_t;
@@ -163,11 +187,31 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
   }
 }
 
+// Raw candidate slots a block stages at a time: the whole row when its
+// three planes fit the shared memory a block may opt into, else the most
+// that fit, a multiple of the block's threads (or `max_chunk`, when it is
+// positive and smaller: a test forces streaming with it).
+template <typename T>
+int stage_chunk(int cw, int max_chunk, int* chunk) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return int(e);
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return int(e);
+  const int fit = (optin - 1024) / int(3 * sizeof(T)) / TILE_THREADS * TILE_THREADS;
+  int c = cw < fit ? cw : fit;
+  if (max_chunk > 0 && max_chunk < c) c = max_chunk;
+  *chunk = c > 0 ? c : 1;
+  return 0;
+}
+
 template <typename T, bool MONO>
-int launch_phase_a(PhaseAArgs<T> a, int n_cells, cudaStream_t stream) {
+int launch_phase_a(PhaseAArgs<T> a, int n_cells, int max_chunk, cudaStream_t stream) {
   if (n_cells <= 0) return 0;
+  int err = stage_chunk<T>(a.cw, max_chunk, &a.chunk);
+  if (err) return err;
   const dim3 grid(n_cells, (a.cap + QUERIES_PER_BLOCK - 1) / QUERIES_PER_BLOCK);
-  const size_t smem = size_t(3) * a.cw * sizeof(T);
+  const size_t smem = size_t(3) * a.chunk * sizeof(T);
   cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<T, MONO>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
@@ -181,7 +225,7 @@ namespace sph {
 
 template <typename T>
 int phase_a_from_ptrs(void* const* p, int n_cells, int cap, int cw, int kh, int n_bisect,
-                      cudaStream_t stream) {
+                      int max_chunk, cudaStream_t stream) {
   PhaseAArgs<T> a;
   a.qx = static_cast<const T*>(p[0]);
   a.qy = static_cast<const T*>(p[1]);
@@ -200,7 +244,7 @@ int phase_a_from_ptrs(void* const* p, int n_cells, int cap, int cw, int kh, int 
   a.cw = cw;
   a.kh = kh;
   a.n_bisect = n_bisect;
-  return launch_phase_a<T, false>(a, n_cells, stream);
+  return launch_phase_a<T, false>(a, n_cells, max_chunk, stream);
 }
 
 template <typename T>
@@ -220,18 +264,20 @@ int phase_a_tile_from_ptrs(void* const* p, int n_cells, int cap, int kh, int n_b
   a.cw = 27 * cap;
   a.kh = kh;
   a.n_bisect = n_bisect;
-  return launch_phase_a<T, true>(a, n_cells, stream);
+  return launch_phase_a<T, true>(a, n_cells, 0, stream);
 }
 
 }  // namespace sph
 
 // ptrs: qx qy qz qm reach2 cx cy cz cm m h rho ok (13 device pointers, m one
-// element). 3 * cw elements must fit a block's opt-in shared memory.
+// element). Rows wider than a block's shared memory holds are streamed;
+// max_chunk > 0 caps the slots staged at a time (0: as many as fit).
 extern "C" int sph_phase_a_cells(void* const* ptrs, int n_cells, int cap, int cw, int kh,
-                                 int n_bisect, int is_double, void* stream) {
+                                 int n_bisect, int max_chunk, int is_double, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? sph::phase_a_from_ptrs<double>(ptrs, n_cells, cap, cw, kh, n_bisect, s)
-                   : sph::phase_a_from_ptrs<float>(ptrs, n_cells, cap, cw, kh, n_bisect, s);
+  return is_double
+             ? sph::phase_a_from_ptrs<double>(ptrs, n_cells, cap, cw, kh, n_bisect, max_chunk, s)
+             : sph::phase_a_from_ptrs<float>(ptrs, n_cells, cap, cw, kh, n_bisect, max_chunk, s);
 }
 
 // ptrs: s2 cx cy cz cm m h rho ok (9 device pointers; s2 and m one element

@@ -1,0 +1,328 @@
+"""phase_b_grouped: the block engine's phase B for every bucket in one launch.
+
+Counterpart of the reference's TPU kernel
+sphtpu/kernels/pallas_grouped_pairs.py::phase_b_grouped. Tensors on a CUDA
+device go to the hand-written kernel csrc/phase_b_grouped.cu (entry
+`sph_phase_b_grouped`); tensors on the CPU go to `phase_b_grouped_plain`.
+The choice is made on the input's device only.
+
+Layout: every bucket's (nb, C_b) candidate table flattened into ONE list
+of chunks of CW = 512 slots; chunk i is a (BQ, CW) pair tile of the
+gathered candidate stack `cstack (n_chunks, 10, CW)` (x y z vx vy vz h rho
+P/rho^2 mask) against packed-query block qblk[i]. Every menu capacity is a
+multiple of CW, so a block's chunks are consecutive: the query-side
+reductions accumulate over them (mu_max by max), and the candidate-side
+sums come out per chunk as (n_chunks, 8, CW) (sax say saz svisc sgx sgy sgz
+sgp) for the caller's single scatter-add into particle rows.
+
+Pair semantics (`pair_sums_plain`, and `pair_terms` of the CUDA source):
+owner-sweep terms — the reference's reverse term equals the ball owner's
+forward term, so the owner emits both endpoints' contributions — on the
+division-diet algebra (inv_r = rsqrt(d2), polynomials in q), gravity
+corrections with two-sided ownership weights (reach max(2h, r_c) on each
+side), and in p3m mode the Newtonian-minus-mesh tail (`newton_minus_mesh`).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ..physics.mesh_gravity import newton_minus_mesh
+from . import build
+
+# flat candidate chunk width: divides every capacity of the block planner's
+# menu (physics/blocks.C_MENU)
+CW = 512
+# query rows a block, as the CUDA kernel is built (its shared-memory and
+# register budget is checked for this many; the planner's BQ)
+BQ_KERNEL = 128
+# code the CUDA entry returns when that budget does not fit one CTA
+ERR_BUDGET = 900
+# pairs a batch of the plain versions holds (bounds their temporaries)
+PLAIN_PAIRS = 1 << 20
+
+launches = 0  # kernel launches made by phase_b_grouped (CUDA tensors only)
+
+
+def pair_sums_plain(q, c, m, alpha, beta, sigma, r_c_now, *, eos: str, p3m: bool):
+    """The pair terms of the block engine on broadcast tiles: q = 11 query
+    fields (x y z vx vy vz mask h rho P/rho^2 cs), each (..., Q, 1); c = 10
+    candidate fields (x y z vx vy vz h rho P/rho^2 mask), each (..., 1, C).
+    Returns (10 query-side reductions over C, each (..., Q): ax ay az div
+    mu_max visc gx gy gz gphi; 8 candidate-side sums over Q, each (..., C):
+    sax say saz svisc sgx sgy sgz sgp) — the Pallas kernels' body, op for
+    op."""
+    qx, qy, qz, qvx, qvy, qvz, qm, qh, qrho, qpor2, qcs = q
+    cx, cy, cz, cvx, cvy, cvz, ch, crho, cpor2, cm = c
+    dtype = qx.dtype
+    big = torch.finfo(dtype).max
+    zero = torch.zeros((), dtype=dtype, device=qx.device)
+    one = torch.ones((), dtype=dtype, device=qx.device)
+
+    dx = qx - cx
+    dy = qy - cy
+    dz = qz - cz
+    d2 = dx * dx + dy * dy + dz * dz
+    inv_r = torch.rsqrt(torch.where(d2 > 0, d2, one))
+    inv_r = torch.where(d2 > 0, inv_r, zero)  # self-pairs: 1/r -> 0
+    r = d2 * inv_r
+    valid = (cm > 0) & (qm > 0)
+
+    qrk2 = (2.0 * qh) * (2.0 * qh)
+    fwd = valid & (d2 <= qrk2)
+
+    h_q = torch.where(qh > 0, qh, one)
+    h_c = torch.where(ch > 0, ch, one)
+    h_avg = 0.5 * (h_q + h_c)
+    inv_h = 1.0 / h_avg
+    rho_avg = torch.where(valid, 0.5 * (qrho + crho), one)
+
+    dvx = qvx - cvx
+    dvy = qvy - cvy
+    dvz = qvz - cvz
+    v_dot_r = dvx * dx + dvy * dy + dvz * dz
+    mu = torch.clamp_max(h_avg * v_dot_r * (1.0 / (d2 + 0.01 * h_avg * h_avg)), 0.0)
+    pi_own = (-alpha * qcs * mu + beta * mu * mu) * (1.0 / rho_avg)
+
+    inv_hq = 1.0 / h_q
+    inv_hq2 = inv_hq * inv_hq
+    ct_w = (1.0 / math.pi) * inv_hq2 * inv_hq2
+    q_w = r * inv_hq
+    g1 = ct_w * (2.25 * r * inv_hq2 - 3.0 * inv_hq)
+    g2 = ct_w * (-0.75 * (2.0 - q_w) ** 2) * inv_r
+    dwdr_q = torch.where(q_w <= 1.0, g1, torch.where(q_w <= 2.0, g2, zero))
+
+    if eos == "polytropic":
+        ct_own = m * (qpor2 + cpor2 + pi_own) / 2.0
+    else:
+        # isothermal asymmetric: the owner's P/rho^2 serves both endpoints
+        ct_own = m * (qpor2 + pi_own / 2.0)
+
+    coeff = torch.where(fwd, ct_own * dwdr_q, zero)
+    cdx = coeff * dx
+    cdy = coeff * dy
+    cdz = coeff * dz
+    v_dot_dw_q = v_dot_r * dwdr_q
+    visc_pair = torch.where(fwd, m * pi_own * v_dot_dw_q / 2.0, zero)
+    q_side = [
+        -torch.sum(cdx, dim=-1),
+        -torch.sum(cdy, dim=-1),
+        -torch.sum(cdz, dim=-1),
+        m * torch.sum(torch.where(fwd, v_dot_dw_q, zero), dim=-1),
+        torch.max(torch.where(fwd, mu, torch.full_like(mu, -big)), dim=-1).values,
+        torch.sum(visc_pair, dim=-1),
+    ]
+    c_side = [
+        torch.sum(cdx, dim=-2),
+        torch.sum(cdy, dim=-2),
+        torch.sum(cdz, dim=-2),
+        torch.sum(visc_pair, dim=-2),
+    ]
+
+    # gravity corrections with two-sided ownership weights
+    newt_g = inv_r * inv_r * inv_r
+    newt_p = -inv_r
+    q_g = r * inv_h
+    q2_g = q_g * q_g
+    q3_g = q2_g * q_g
+    inv_h2 = inv_h * inv_h
+    inv_q = h_avg * inv_r  # 1/q, 0 at self-pairs
+    soft_g = torch.where(
+        q_g <= 1.0,
+        inv_h2 * inv_h * (4.0 / 3.0 - 1.2 * q2_g + 0.5 * q3_g),
+        torch.where(
+            q_g <= 2.0,
+            inv_h2
+            * (
+                8.0 / 3.0 * q_g
+                - 3.0 * q2_g
+                + 1.2 * q3_g
+                - q2_g * q2_g / 6.0
+                - (1.0 / 15.0) * inv_q * inv_q
+            )
+            * inv_r,
+            newt_g,
+        ),
+    )
+    soft_p = torch.where(
+        q_g <= 1.0,
+        inv_h * (2.0 / 3.0 * q2_g - 0.3 * q2_g * q2_g + 0.1 * q2_g * q3_g - 1.4),
+        torch.where(
+            q_g <= 2.0,
+            inv_h
+            * (
+                4.0 / 3.0 * q2_g
+                - q3_g
+                + 0.3 * q2_g * q2_g
+                - q2_g * q3_g / 30.0
+                - 1.6
+                + (1.0 / 15.0) * inv_q
+            ),
+            newt_p,
+        ),
+    )
+    gmask = valid & (r <= 2.0 * h_avg)
+    cgp = torch.where(gmask, soft_g - newt_g, zero)
+    cpp = torch.where(gmask, soft_p - newt_p, zero)
+    if p3m:
+        tg, tp = newton_minus_mesh(d2, inv_r, sigma)
+        cgp = cgp + torch.where(valid, tg, zero)
+        cpp = cpp + torch.where(valid, tp, zero)
+    r_c = torch.as_tensor(r_c_now, dtype=dtype, device=qx.device)
+    vq_r = torch.maximum(2.0 * qh, r_c)
+    vc_r = torch.maximum(2.0 * ch, r_c)
+    half = torch.full((), 0.5, dtype=dtype, device=qx.device)
+    w = torch.where(r <= vq_r, torch.where(r <= vc_r, half, one), zero)
+    cgw = w * cgp
+    cpw = w * cpp
+    gwx = cgw * dx
+    gwy = cgw * dy
+    gwz = cgw * dz
+    q_side += [
+        m * torch.sum(gwx, dim=-1),
+        m * torch.sum(gwy, dim=-1),
+        m * torch.sum(gwz, dim=-1),
+        m * torch.sum(cpw, dim=-1),
+    ]
+    c_side += [
+        -m * torch.sum(gwx, dim=-2),
+        -m * torch.sum(gwy, dim=-2),
+        -m * torch.sum(gwz, dim=-2),
+        m * torch.sum(cpw, dim=-2),
+    ]
+    return q_side, c_side
+
+
+def _check_args(eos, p3m, sigma):
+    if eos not in ("polytropic", "isothermal"):
+        raise ValueError(f"unknown EOS {eos!r}")
+    if p3m and sigma is None:
+        raise ValueError("p3m=True needs sigma")
+
+
+@functools.lru_cache(maxsize=64)
+def chunk_starts(qblk: tuple, first: tuple, nb: int) -> np.ndarray:
+    """(nb + 1,) int32: block b owns chunks [starts[b], starts[b + 1]).
+    Raises unless qblk is non-decreasing, every block's chunks are
+    consecutive and `first` flags exactly each block's first chunk."""
+    qb = np.asarray(qblk, np.int64)
+    fr = np.asarray(first, np.int64)
+    if qb.shape != fr.shape or qb.ndim != 1:
+        raise ValueError("qblk and first must be flat and of one length")
+    if qb.size and (qb.min() < 0 or qb.max() >= nb or np.any(np.diff(qb) < 0)):
+        raise ValueError("qblk must be non-decreasing block ids < NB")
+    want_first = np.ones_like(qb)
+    want_first[1:] = (np.diff(qb) != 0).astype(np.int64)
+    if not np.array_equal(fr, want_first):
+        raise ValueError("first must flag exactly each block's first chunk")
+    return np.searchsorted(qb, np.arange(nb + 1), side="left").astype(np.int32)
+
+
+def phase_b_grouped_plain(
+    qfields, cstack, m, alpha, beta, sigma, r_c_now, *, eos: str, p3m: bool,
+    cap: int, qblk: tuple, first: tuple,
+):
+    """Plain PyTorch version: batches of chunks, each chunk's (cap, CW)
+    tile broadcast against its query block; the query sums of a block's
+    chunks added (mu_max by max) in chunk order."""
+    _check_args(eos, p3m, sigma)
+    nb = qfields[0].shape[0]
+    n_chunks = cstack.shape[0]
+    dtype, device = cstack.dtype, cstack.device
+    chunk_starts(tuple(qblk), tuple(first), nb)
+    qb = torch.as_tensor(np.asarray(qblk, np.int64), device=device)
+    q_out = [torch.zeros((nb, cap), dtype=dtype, device=device) for _ in range(10)]
+    q_out[4].fill_(-torch.finfo(dtype).max)
+    c_out = torch.zeros((n_chunks, 8, CW), dtype=dtype, device=device)
+    per = max(1, PLAIN_PAIRS // (cap * CW))
+    for k0 in range(0, n_chunks, per):
+        ks = slice(k0, k0 + per)
+        blk = qb[ks]
+        q = tuple(a[blk][:, :, None] for a in qfields)
+        c = tuple(cstack[ks, f][:, None, :] for f in range(10))
+        qs, cs = pair_sums_plain(q, c, m, alpha, beta, sigma, r_c_now, eos=eos, p3m=p3m)
+        for i, v in enumerate(qs):
+            if i == 4:
+                q_out[4].scatter_reduce_(0, blk[:, None].expand_as(v), v, "amax")
+            else:
+                q_out[i].index_add_(0, blk, v)
+        c_out[ks] = torch.stack(cs, dim=1)
+    return tuple(q_out), c_out
+
+
+def phase_b_grouped(
+    qfields,  # 11-tuple of (NB, cap) packed-query tensors
+    cstack,  # (n_chunks, 10, CW) gathered candidate field stack
+    m, alpha, beta, sigma, r_c_now,
+    *,
+    eos: str,
+    p3m: bool,
+    cap: int,
+    qblk: tuple,  # query block id per chunk (non-decreasing)
+    first: tuple,  # 1 at each block's first chunk
+):
+    """Returns (10 query-side (NB, cap) tensors: ax ay az div mu_max visc gx
+    gy gz gphi; the (n_chunks, 8, CW) candidate-side sums). Query field
+    order: x y z vx vy vz mask h rho P/rho^2 cs. sigma may be None when p3m
+    is False; r_c_now is the tail radius (0 under exact gravity)."""
+    _check_args(eos, p3m, sigma)
+    if cstack.device.type != "cuda":
+        return phase_b_grouped_plain(
+            qfields, cstack, m, alpha, beta, sigma, r_c_now, eos=eos, p3m=p3m,
+            cap=cap, qblk=qblk, first=first,
+        )
+    global launches
+    nb = qfields[0].shape[0]
+    n_chunks = cstack.shape[0]
+    dtype, device = cstack.dtype, cstack.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"phase_b_grouped: unsupported dtype {dtype}")
+    if cap != BQ_KERNEL:
+        raise ValueError(
+            f"phase_b_grouped: the kernel is built for {BQ_KERNEL} query rows a "
+            f"block, not cap={cap}"
+        )
+    if len(qfields) != 11:
+        raise ValueError("phase_b_grouped takes 11 query fields")
+    for i, t in enumerate(qfields):
+        build.check_tensor(f"qfields[{i}]", t, (nb, cap), dtype, device)
+    build.check_tensor("cstack", cstack, (n_chunks, 10, CW), dtype, device)
+    starts_np = chunk_starts(tuple(qblk), tuple(first), nb)
+    if int(starts_np[-1]) != n_chunks:
+        raise ValueError("qblk must name a block for every chunk")
+    starts = torch.as_tensor(starts_np).to(device)
+    scal = build.scalar_tensor(
+        [m, alpha, beta, sigma if sigma is not None else 1.0, r_c_now], dtype, device
+    )
+    q_out = torch.empty((10, nb, cap), dtype=dtype, device=device)
+    c_out = torch.empty((n_chunks, 8, CW), dtype=dtype, device=device)
+    outs = tuple(q_out.unbind(0))
+    if nb == 0:
+        return outs, c_out
+    lib = build.load_kernels()["phase_b_grouped"]
+    with torch.cuda.device(device):
+        code = lib.sph_phase_b_grouped(
+            build.pointer_array(list(qfields)), cstack.data_ptr(), starts.data_ptr(),
+            scal.data_ptr(), build.pointer_array(list(outs)), c_out.data_ptr(),
+            nb, int(eos == "isothermal"), int(p3m), int(dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check_code("phase_b_grouped", code)
+    launches += 1
+    return outs, c_out
+
+
+def check_code(name: str, code: int) -> None:
+    """Raise on a non-zero code of the phase-B entries; ERR_BUDGET is F2's
+    guard: the kernel's shared memory or registers for BQ_KERNEL query rows
+    do not fit one CTA of this card."""
+    if code == ERR_BUDGET:
+        raise RuntimeError(
+            f"{name}: {BQ_KERNEL} query rows a block need more shared memory or "
+            "registers than one CTA of this card has"
+        )
+    build.check(name, code)

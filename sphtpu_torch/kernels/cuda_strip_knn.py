@@ -12,6 +12,12 @@ exact k-th distance, rk2 = max{d2 <= hi}, nfound = #{d2 <= rk2},
 h = sqrt(rk2) / 2, rho = m * sum W over d2 <= rk2 (self pair included).
 Ties at the k-th distance are all included (they sit at q = 2 where W
 vanishes). Off-mask query rows return h = rho = 0, ok = 1.
+
+The kernel keeps a row's occupied candidates in shared memory. A row whose
+three planes do not fit (the block engine's C_b >= 24 576 in float32,
+>= 12 288 in float64) is streamed through shared memory in pieces on every
+pass; integer counts add across pieces and each lane sums the same terms
+in the same order, so the results are those of the resident row.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ N_BISECT = 34
 # shared memory a block may opt into on Hopper (227 KB), less 1 KB for the
 # kernel's static share; the kernel keeps a row's three candidate planes there
 SMEM_LIMIT = 226 * 1024
+# widest candidate row the kernel takes (twice the block engine's largest
+# capacity, C_MENU[-1] = 32 768); wider rows raise
+MAX_CW = 1 << 16
 
 launches = 0  # kernel launches made by phase_a_cells (CUDA tensors only)
 
@@ -89,8 +98,9 @@ def phase_a_cells_plain(
 
 
 def shared_bytes(cw: int, dtype) -> int:
-    """Shared memory the kernel needs for a candidate row of width cw;
-    raises where that is more than a block may have."""
+    """Shared memory a candidate row of width cw needs to stay resident in
+    one block; raises where that is more than a block may have. K4
+    (`cuda_knn.phase_a_tile`) needs its rows resident; K1 streams them."""
     need = 3 * cw * dtype.itemsize
     if need > SMEM_LIMIT:
         raise ValueError(
@@ -109,12 +119,15 @@ def phase_a_cells(
     kh: int,
     cap: int,
     n_bisect: int = N_BISECT,
+    stream_chunk: int = 0,
 ):
     """Returns (h, rho, ok) each (n_cells, cap); ok is 1.0 where the row
     certifies (masked-off, or k found with r_k^2 <= reach2).
 
-    Shape-generic over cap and the candidate width cw, as far as a row's
-    candidates fit a block's shared memory (`shared_bytes`)."""
+    Shape-generic over cap and the candidate width cw <= MAX_CW. On the
+    card, stream_chunk > 0 caps the candidate slots staged at a time (0: as
+    many as shared memory holds); the results do not depend on it, and a
+    check of that forces streaming with it."""
     cx = cands[0]
     if cx.device.type != "cuda":
         return phase_a_cells_plain(
@@ -130,7 +143,8 @@ def phase_a_cells(
     build.check_tensor("reach2", reach2, (n_cells, cap), dtype, device)
     for i, t in enumerate(cands):
         build.check_tensor(f"cands[{i}]", t, (n_cells, cw), dtype, device)
-    shared_bytes(cw, dtype)
+    if cw > MAX_CW:
+        raise ValueError(f"phase_a_cells: cw={cw} is wider than the kernel takes ({MAX_CW})")
     m_dev = build.scalar_tensor([m], dtype, device)
     h = torch.empty((n_cells, cap), dtype=dtype, device=device)
     rho = torch.empty_like(h)
@@ -141,7 +155,7 @@ def phase_a_cells(
     ptrs = build.pointer_array([*queries, reach2, *cands, m_dev, h, rho, ok])
     with torch.cuda.device(device):
         code = lib.sph_phase_a_cells(
-            ptrs, n_cells, cap, cw, kh, n_bisect,
+            ptrs, n_cells, cap, cw, kh, n_bisect, int(stream_chunk),
             int(dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream,
         )

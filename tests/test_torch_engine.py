@@ -204,15 +204,19 @@ def test_chunk_freezes_at_t_end_and_pads_scan_length(scene):
     [
         (dict(tile=(6, 64), outlier_budget=64), "slice 4"),
         (dict(tile=(6, 64), gravity="p3m", outlier_budget=64), "slice 4"),
-        (dict(blocks=((), (), (), 8)), "slice 3"),
+        (dict(blocks=((), (), (), 8)), "mlargs"),
         (dict(mlevel=((), 0, 0, ())), "slice 4"),
     ],
 )
 def test_unported_engines_raise(kw, match):
+    """Engines of later slices raise NotImplementedError naming the slice.
+    The block engine is ported: without its BlockArgs (mlargs) force_eval
+    raises ValueError, as the reference does."""
     cfg = EngineConfig(n=8, kh=4, eos="polytropic", dtype="float64", **kw)
     z = torch.zeros((8, 3), dtype=torch.float64)
     p = params_from_numpy(**PARAMS, dtype="float64", device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    exc = ValueError if cfg.blocks is not None else NotImplementedError
+    with pytest.raises(exc, match=match):
         force_eval(cfg, p, z, z, z[:, 0], z[:, 0], device="cpu")
 
 
@@ -296,17 +300,18 @@ def test_p3m_mono_chunk_matches_reference():
 def test_plan_engine_follows_the_reference_ladder(scene, gravity, kh):
     """run_simulation's fresh plan: the class-compacted engine (exact gravity
     only, the reference's cap <= 128) when its planner fits, else the
-    mono-tile engine (cap <= 256), else None (the gather engine) — the
+    mono-tile engine (cap <= 256), else the block-compact engine — the
     reference's rungs, planned by its own host planners. On this ball kh 12
-    plans classes, kh 24 needs cap 160, kh 40 more than 256."""
+    plans classes, kh 24 needs cap 160, kh 40 more than 256 (blocks)."""
+    from sphtpu.physics.blocks import plan_blocks as blocks_ref
     from sphtpu.physics.ctiles import choose_tile_classes as classes_ref
     from sphtpu_torch.engine.driver import plan_engine
 
     pos = scene[0]
     d, _ = cKDTree(pos).query(pos, k=kh)
     h = d[:, -1] / 2
-    cfg = plan_engine(pos, h, n=N, kh=kh, eos="polytropic", dtype="float64",
-                      gravity=gravity)
+    cfg, bargs = plan_engine(pos, h, n=N, kh=kh, eos="polytropic", dtype="float64",
+                             gravity=gravity)
     cls = classes_ref(pos, h, kh, headroom=1.5) if gravity == "exact" else None
     mono = choose_tile_params(pos, h, kh, headroom=1.5)
     assert (cls is not None) == (kh == 12 and gravity == "exact")
@@ -316,5 +321,8 @@ def test_plan_engine_follows_the_reference_ladder(scene, gravity, kh):
     elif mono is not None:
         assert cfg.tile == mono and cfg.tile_classes is None
     else:
-        assert cfg is None
-    assert cfg is None or cfg.gravity == gravity
+        blk = blocks_ref(pos, h, kh, gravity=gravity)
+        assert cfg.blocks == blk[0] and cfg.tile is None
+        np.testing.assert_array_equal(bargs.order_q, blk[1].order_q)
+    assert (bargs is None) == (cfg.blocks is None)
+    assert cfg.gravity == gravity

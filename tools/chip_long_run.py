@@ -5,9 +5,12 @@
 Generates boss_bodenheimer (polytropic, Kh = 50) at N particles (100 000
 unless given), runs STEPS steps (40 unless given) in float32 with a
 snapshot every 10, and prints one JSON object: steps, fallback
-evaluations, the engine configs the planner used (tile, classes, gravity;
-P3M from N = 150 000 on), (steps, seconds,
-fallback evaluations) of every chunk, and the relative energy drift."""
+evaluations, the engine configs the planner used (tile and classes, or the
+block buckets; gravity, P3M from N = 150 000 on), (steps, seconds,
+fallback evaluations) and the engine of every chunk, the host planning
+seconds before every chunk (plan or block refit), the steps and seconds per
+engine, seconds a step after the first chunk without and with planning, and
+the relative energy drift."""
 
 import json
 import os
@@ -22,6 +25,27 @@ import torch  # noqa: E402
 
 from sphtpu_torch import cli  # noqa: E402
 from sphtpu_torch.io import StatsFile  # noqa: E402
+
+
+def config_summary(c):
+    if c.tile is not None:
+        return {"tile": list(c.tile), "classes": [list(k) for k in c.tile_classes or ()],
+                "gravity": c.gravity}
+    if c.blocks is not None:
+        return {"blocks": [list(b) for b in c.blocks[0]], "gravity": c.gravity}
+    return "gather"
+
+
+def by_engine(res):
+    """(steps, seconds, fallback evaluations) summed per engine; a chunk
+    whose certificate failed counts under its planned engine."""
+    out = {}
+    for eng, (steps, secs, fb) in zip(res["chunk_engines"], res["chunk_walls"]):
+        acc = out.setdefault(eng, [0, 0.0, 0])
+        acc[0] += steps
+        acc[1] += secs
+        acc[2] += fb
+    return out
 
 
 def main() -> int:
@@ -43,15 +67,20 @@ def main() -> int:
         hist = sf.up_to(res["steps"])
         sf.close()
     walls = res["chunk_walls"][1:]
+    plan_s = sum(res["pick_walls"][1:])
     e = hist[:, 4]
     print(json.dumps({
         "card": card, "n": n, "steps": res["steps"],
         "fallback_evals": res["fallback_evals"],
-        "configs": [[list(c.tile), [list(k) for k in c.tile_classes or ()], c.gravity]
-                    if c.tile else "gather" for c in res["configs"]],
+        "configs": [config_summary(c) for c in res["configs"]],
         "chunks_steps_seconds_fallbacks": res["chunk_walls"],
+        "chunk_engines": res["chunk_engines"],
+        "planning_s_by_chunk": res["pick_walls"],
+        "steps_seconds_by_engine": by_engine(res),
         "s_per_step_after_first_chunk": sum(c[1] for c in walls) / sum(c[0] for c in walls),
         "particle_steps_per_s": n * sum(c[0] for c in walls) / sum(c[1] for c in walls),
+        "s_per_step_end_to_end_after_first_chunk":
+            (sum(c[1] for c in walls) + plan_s) / sum(c[0] for c in walls),
         "runtime_s_with_io": res["runtime_s"],
         "energy_drift": float(np.abs(e - e[0]).max() / abs(e[0])),
         "t_cgs": res["t_cgs"],

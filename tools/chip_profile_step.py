@@ -1,13 +1,18 @@
 """Where a step of the main path spends its time on the card.
 
-    python3 tools/chip_profile_step.py [N]
+    python3 tools/chip_profile_step.py [N | collapse | deep]
 
 Builds the headline scene (boss_bodenheimer, polytropic, Kh = 50, float32,
-N = 100 000 unless given), plans the engine as run_simulation does
-(`plan_engine`; P3M gravity from N = 150 000 on), warms up one step, then traces three steps with
-torch.profiler and prints: wall seconds per step, the device's busy and
-idle share (device time of the traced steps over the wall of the same
-steps run untraced), and device time by kernel name."""
+N = 100 000 unless given) — or, with `collapse` / `deep`, loads the
+committed collapse state bench_data/bb_collapsed.npz (contrast 395) /
+bb_collapsed_deep.npz (contrast 1001) with the same parameters — plans the
+engine as run_simulation does (`plan_engine`; P3M gravity from N = 150 000
+on), warms up one chunk, then traces one chunk with torch.profiler and
+prints: wall seconds per step, the device's busy and idle share (device
+time of the traced steps over the wall of the same steps run untraced), and
+device time by kernel name. A chunk is three steps, or ML_SUBCHUNK = 2 on
+the block engine, whose host refit of the plan before each chunk
+(`block_args_for_spec`) is timed apart and not in the step wall."""
 
 import json
 import os
@@ -18,38 +23,74 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from sphtpu_torch.engine import make_chunk_runner  # noqa: E402
-from sphtpu_torch.engine.driver import P3M_MIN_N, plan_engine  # noqa: E402
+from sphtpu_torch.engine import make_chunk_runner, params_from_numpy, state_from_numpy  # noqa: E402
+from sphtpu_torch.engine.driver import ML_SUBCHUNK, P3M_MIN_N, plan_engine  # noqa: E402
+from sphtpu_torch.physics.blocks import block_args_for_spec  # noqa: E402
+
+
+def load_fixture(path):
+    """A committed collapse state in code units on the card: (cfg fields,
+    state, params, pos, h0)."""
+    d = np.load(path)
+    pos, h0 = d["pos"].astype(np.float64), d["h"].astype(np.float64)
+    state = state_from_numpy(pos, d["vel"], d["K"], float(d["t"]))
+    params = params_from_numpy(m=float(d["m"]), gamma=5 / 3, cs0=0.0, alpha=1.0, beta=2.0,
+                               U0=0.0, t_end=1e30)
+    base = dict(n=pos.shape[0], kh=chip_smoke.KH_COLLAPSE, eos="polytropic", dtype="float32")
+    return base, state, params, pos, h0
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
+    arg = sys.argv[1] if len(sys.argv) > 1 else "100000"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    with tempfile.TemporaryDirectory() as tmp:
-        base, state, params, pos, h0 = chip_smoke.load_scene(tmp, "boss_bodenheimer", n)
-    cfg = plan_engine(pos, h0, **base, gravity="p3m" if n >= P3M_MIN_N else "exact")
+    fixtures = {"collapse": chip_smoke.COLLAPSE, "deep": chip_smoke.COLLAPSE_DEEP}
+    if arg in fixtures:
+        base, state, params, pos, h0 = load_fixture(fixtures[arg])
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            base, state, params, pos, h0 = chip_smoke.load_scene(tmp, "boss_bodenheimer",
+                                                                 int(arg))
+    n = base["n"]
+    cfg, _ = plan_engine(pos, h0, **base, gravity="p3m" if n >= P3M_MIN_N else "exact")
     chunk = make_chunk_runner(cfg)
+    steps = ML_SUBCHUNK if cfg.blocks is not None else 3
+    refit_s = []
+
+    def run(state, h, n_steps):
+        args = None
+        if cfg.blocks is not None:
+            t0 = time.perf_counter()
+            args = block_args_for_spec(state.pos.double().cpu().numpy(),
+                                       h.double().cpu().numpy(), cfg.blocks, gravity=cfg.gravity)
+            refit_s.append(time.perf_counter() - t0)
+            if args is None:
+                raise RuntimeError("the state no longer refits its block spec")
+        return chunk(state, params, h, n_steps, args)
+
     h = chip_smoke.dev(h0, torch.float32)
-    state, _, _, h, _, nfb = chunk(state, params, h, 1)  # warm-up, builds the kernels
+    state, _, _, h, _, nfb = run(state, h, steps)  # warm-up, builds the kernels
     torch.cuda.synchronize()
 
-    steps = 3
+    state_w, h_w = state, h
     t0 = time.perf_counter()
-    state, _, _, h, _, nfb1 = chunk(state, params, h, steps)
+    refit0 = sum(refit_s)
+    state, _, _, h, _, nfb1 = run(state, h, steps)
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / steps  # untraced: the profiler slows the host
+    # untraced (the profiler slows the host), the host refit excluded
+    wall = (time.perf_counter() - t0 - (sum(refit_s) - refit0)) / steps
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, _, _, h, _, nfb2 = chunk(state, params, h, steps)
+        state, _, _, h, _, nfb2 = run(state_w, h_w, steps)
         torch.cuda.synchronize()
     # device-side events only: a host op's device time would count its kernels twice
     kernels = sorted(
@@ -60,8 +101,11 @@ def main() -> int:
     busy_ms = sum(r[1] for r in kernels) / steps
     ours = sum(r[1] for r in kernels if "sph::" in r[0]) / steps
     out = {
-        "card": card, "n": n, "tile": list(cfg.tile), "gravity": cfg.gravity,
+        "card": card, "scene": arg, "n": n, "gravity": cfg.gravity,
+        "tile": list(cfg.tile) if cfg.tile else None,
         "tile_classes": [list(c) for c in cfg.tile_classes or ()],
+        "blocks": [list(b) for b in cfg.blocks[0]] if cfg.blocks else None,
+        "host_refit_ms_per_chunk": [1e3 * r for r in refit_s],
         "steps_timed": steps, "steps_traced": steps,
         "fallbacks": int(nfb.sum()) + int(nfb1.sum()) + int(nfb2.sum()),
         "wall_ms_per_step_untraced": wall * 1e3,
