@@ -39,12 +39,21 @@ error against the plain version and its time beside the plain version's
 and the card's bound, all on the inputs that one force evaluation of that
 path's final state gives it (K2 carries the exact and the P3M paths'
 numbers under "on_exact_path" and "on_p3m_path", K4 the exact path's under
-"on_exact_path", K1 the collapse path's under "on_collapse_path": every
-kernel is held against its plain version on the inputs of every path that
-launches it). A bound counts the bytes the
+"on_exact_path", K1 the collapse path's under "on_collapse_path", K3
+the exact path's under "on_exact_path": every kernel is held against its
+plain version on the inputs of every path that launches it). K1 also
+reports the share of valid queries whose in-radius candidates overflowed
+its list, and on every input it is checked with the row forced to stream
+in 1 000-slot pieces (no bit may change) and with its list forced to
+overflow (h and ok bit-identical); K3 reports its plan (R, S, grid) and
+that two launches are bit-identical. A time ("ms") is CUDA events around
+the wrapper, so a short launch's time holds the wrapper's host work
+(tools/chip_k1k3.py gives K1's, K3's and K4's device time alone). A bound
+counts the bytes the
 function needs: the occupancy plane of a padded slot layout whole, its
-other planes at the occupied slots only. Then the card's name and power
-limit as nvidia-smi prints them, then the verdict line.
+other planes at the occupied slots only; phase A's operations count the
+pass work only on the pairs inside 1.001 reach2. Then the card's name and
+power limit as nvidia-smi prints them, then the verdict line.
 """
 
 from __future__ import annotations
@@ -87,6 +96,7 @@ N_P3M = 200_000  # particles of the P3M path's scene (gravity="auto" picks P3M)
 N_SMALL = 5_000  # particles of the fallback phase's scenes
 ROWS_F32, ROWS_F64 = 256, 64  # synthetic cell rows per class in the kernels phase
 N_NEWTON = {torch.float32: 100_000, torch.float64: 20_000}
+N_NEWTON_ONE_SLICE = 1_500  # small enough that K3's plan has one column slice
 # synthetic block rows of the kernels phase: candidate widths C_b and blocks
 # per width (f32 from 24 576 and f64 from 12 288 on, K1 streams its rows)
 BLOCK_ROWS = {torch.float32: ((4096, 24576, 32768), 16),
@@ -97,12 +107,15 @@ BLOCK_ROWS = {torch.float32: ((4096, 24576, 32768), 16),
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
 # Operations the FUNCTIONS need (not what the kernels happen to do), per
-# (query, occupied candidate) pair. Phase A: d2 once, then a compare and a
-# count on each of the n_bisect + 3 passes, and the spline W on the ~kh
-# pairs inside the k-th distance. Phase B: d2, 1/r, the three mask radii
-# and their compares on every pair; the full body (140, counted on
-# phase_b_tiles, the test included) only on pairs inside a mask.
+# (query, occupied candidate) pair. Phase A: d2 and one compare against
+# hi0 = 1.001 reach2 once; a compare and a count on each of the
+# n_bisect + 3 passes only for the pairs with d2 <= hi0 (no other pair can
+# change a count, rk2 or rho); the spline W on the ~kh pairs inside the
+# k-th distance. Phase B: d2, 1/r, the three mask radii and their compares
+# on every pair; the full body (140, counted on phase_b_tiles, the test
+# included) only on pairs inside a mask.
 K1_OPS_D2 = 8  # 3 sub, 3 mul, 2 add
+K1_OPS_PAIR_TEST = K1_OPS_D2 + 1
 K1_OPS_PER_PASS = 2
 K1_OPS_W = 12
 K2_OPS_MASK_TEST = 20
@@ -264,6 +277,35 @@ def check_phase_a(h_k, rho_k, ok_k, h_p, rho_p, ok_p, queries, reach2, cands, rh
     return float(err.max()) if err.numel() else 0.0, tie_rows
 
 
+FORCED_LIST = 32  # L of the forced-overflow check: below kh, so every query overflows
+FORCED_STAGE = 1000  # raw slots a piece of the forced-streaming check
+
+
+def k1_variants(args, kw, out_k, out_p, rho_rtol):
+    """K1's launch `out_k` on `args` against its own variants: the share of
+    the valid queries whose in-radius candidates overflowed L; the rows
+    forced to stream in FORCED_STAGE-slot pieces, which must not change a
+    bit; L forced to FORCED_LIST, which sends the queries to the full-row
+    sweep: h and ok bit-identical to out_k, rho within the bar against the
+    plain version."""
+    queries, reach2, cands = args[0], args[1], args[2]
+    cuda_strip_knn.phase_a_cells(*args, **kw)
+    valid = int((queries[3] > 0).sum())
+    over = int(cuda_strip_knn.last_overflow.item())
+    out_s = cuda_strip_knn.phase_a_cells(*args, stream_chunk=FORCED_STAGE, **kw)
+    if not all(bool(torch.equal(a, b)) for a, b in zip(out_k, out_s)):
+        raise AssertionError("phase_a_cells: rows streamed in pieces differ")
+    out_f = cuda_strip_knn.phase_a_cells(*args, list_cap=FORCED_LIST, **kw)
+    forced = int(cuda_strip_knn.last_overflow.item())
+    if not (bool(torch.equal(out_f[0], out_k[0])) and bool(torch.equal(out_f[2], out_k[2]))):
+        raise AssertionError("phase_a_cells: forced overflow changes h or ok")
+    check_phase_a(*out_f, *out_p, queries, reach2, cands, rho_rtol)
+    return {"valid_queries": valid, "overflowed": over,
+            "overflow_share": over / max(valid, 1),
+            "forced_overflow_share": forced / max(valid, 1),
+            "forced_overflow_h_ok_equal": True, "streamed_equal": True}
+
+
 def check_phase_b(outs_k, outs_p, dtype, names=B_OUTPUTS, kernel="phase_b_tiles"):
     """Kernel vs plain for a pair-sum kernel (phase B, the P3M tail):
     |a - b| <= rtol |b| + atol * (largest |b| of that output). The outputs
@@ -314,7 +356,10 @@ def phase_kernels(seed: int = 0) -> None:
             err, ties = check_phase_a(
                 h_k, rho_k, ok_k, *res_p, queries, reach2, cands, rho_rtol
             )
-            case["a"] = {"rho_max_abs_err": err, "rho_rtol": rho_rtol, "tie_rows": ties}
+            variants = k1_variants((queries, reach2, cands, m), dict(kh=kh, cap=cap_k),
+                                   (h_k, rho_k, ok_k), res_p, rho_rtol)
+            case["a"] = {"rho_max_abs_err": err, "rho_rtol": rho_rtol, "tie_rows": ties,
+                         **variants}
             if not (bool((ok_k[2][queries[3][2] > 0] == 0).all()) and bool((ok_k[1] == 1).all())):
                 raise AssertionError("phase_a_cells: certificate rows wrong")
 
@@ -344,27 +389,48 @@ def phase_kernels(seed: int = 0) -> None:
                     }
             report["cases"].append(case)
 
-    # K3: N = 100 000 in f32, a smaller N in f64
-    for dtype, n in N_NEWTON.items():
+    # K3: N = 100 000 in f32, a smaller N in f64, and an N whose plan has
+    # one column slice
+    for dtype, n in (*N_NEWTON.items(), (torch.float32, N_NEWTON_ONE_SLICE)):
         pos = dev(rng.standard_normal((n, 3)), dtype)
-        mm = 1.0 / n
-        g_k, p_k = cuda_gravity.newton_sweep(pos, mm)
-        sync()
-        g_p, p_p = cuda_gravity.newton_sweep_plain(pos, mm)
-        rtol = 2e-4 if dtype == torch.float32 else 1e-10
-        g_err = float((g_k - g_p).abs().max())
-        p_err = float(((p_k - p_p).abs() / p_p.abs()).max())
-        if g_err > rtol * float(g_p.abs().max()) or p_err > rtol:
-            raise AssertionError(f"newton_sweep {dtype}: g err {g_err}, phi rel err {p_err}")
-        report["cases"].append(
-            {"dtype": str(dtype)[6:], "newton_n": n, "g_max_abs_err": g_err,
-             "phi_max_rel_err": p_err, "rtol_of_max": rtol}
-        )
+        case = check_newton(pos, 1.0 / n)
+        if n == N_NEWTON_ONE_SLICE and case["plan"]["S"] != 1:
+            raise AssertionError(f"newton_sweep: N = {n} plans {case['plan']['S']} slices")
+        report["cases"].append({"dtype": str(dtype)[6:], "newton_n": n, **case})
     report["cases"] += kernels_k4(rng, kh, m) + kernels_tail(rng, m) + kernels_blocks(rng, m)
     report["tie_rows_total"] = sum(
         c[k]["tie_rows"] for c in report["cases"] for k in ("a", "k4") if k in c
     )
     say("kernels", **report, kernels=list(MODULES))
+
+
+def newton_plan(n, dtype):
+    """K3's plan on this card: R, threads, S, the slice width and the grid."""
+    rows, threads, n_slices = cuda_gravity.split_plan(
+        n, build.device_limits(DEVICE)[0], dtype)
+    return {"R": rows, "threads": threads, "S": n_slices,
+            "slice_cols": cuda_gravity.column_slices(n, n_slices, threads),
+            "grid": [-(-n // (threads * rows)), n_slices]}
+
+
+def check_newton(pos, m):
+    """K3 against its plain version: g within 2e-4 (f32) / 1e-10 (f64) of
+    the largest |g|, phi within the same relative bar, and two launches
+    bit-identical (the partial sums are added in a fixed order)."""
+    g_k, p_k = cuda_gravity.newton_sweep(pos, m)
+    g_k2, p_k2 = cuda_gravity.newton_sweep(pos, m)
+    sync()
+    g_p, p_p = cuda_gravity.newton_sweep_plain(pos, m)
+    rtol = 2e-4 if pos.dtype == torch.float32 else 1e-10
+    g_err = float((g_k - g_p).abs().max())
+    p_err = float(((p_k - p_p).abs() / p_p.abs()).max())
+    if g_err > rtol * float(g_p.abs().max()) or p_err > rtol:
+        raise AssertionError(f"newton_sweep {pos.dtype}: g err {g_err}, phi rel err {p_err}")
+    if not (bool(torch.equal(g_k, g_k2)) and bool(torch.equal(p_k, p_k2))):
+        raise AssertionError("newton_sweep: two launches on the same input differ")
+    return {"g_max_abs_err": g_err, "phi_max_rel_err": p_err, "rtol_of_max": rtol,
+            "max_abs_err": max(g_err, float((p_k - p_p).abs().max())),
+            "runs_bit_identical": True, "plan": newton_plan(pos.shape[0], pos.dtype)}
 
 
 def kernels_k4(rng, kh, m):
@@ -508,21 +574,18 @@ def kernels_blocks(rng, m):
             queries, reach2, cands, qf, cf = synthetic_blocks(rng, nb, cw, dtype, kh)
             kw = dict(kh=kh, cap=blocks.BQ, n_bisect=n_bisect)
             out_k = cuda_strip_knn.phase_a_cells(queries, reach2, cands, m, **kw)
-            out_s = cuda_strip_knn.phase_a_cells(queries, reach2, cands, m, stream_chunk=1000,
-                                                 **kw)
             sync()
             out_p = cuda_strip_knn.phase_a_cells_plain(queries, reach2, cands, m, **kw)
             rho_rtol = 2e-5 if dtype == torch.float32 else 1e-12
             err, ties = check_phase_a(*out_k, *out_p, queries, reach2, cands, rho_rtol)
-            if not all(bool(torch.equal(a, b)) for a, b in zip(out_k, out_s)):
-                raise AssertionError(f"phase_a_cells cw={cw}: streamed rows differ")
+            variants = k1_variants((queries, reach2, cands, m), kw, out_k, out_p, rho_rtol)
             ok = out_k[2]
             if not (bool((ok[1, :8] == 0).all()) and bool((ok[0, 3] == 1).all())):
                 raise AssertionError(f"phase_a_cells cw={cw}: certificate rows wrong")
             case = {"dtype": str(dtype)[6:], "blocks": nb, "c_b": cw, "n_bisect": n_bisect,
                     "k1_block": {"rho_max_abs_err": err, "rho_rtol": rho_rtol,
-                                 "tie_rows": ties, "streamed_equal": True,
-                                 "rows_certified": int((ok > 0).sum())}}
+                                 "tie_rows": ties, "rows_certified": int((ok > 0).sum()),
+                                 **variants}}
             for p3m in (False, True):
                 sigma, r_c = (0.05, 0.22) if p3m else (None, 0.0)
                 args = (m, 1.0, 2.0, sigma, r_c)
@@ -544,7 +607,7 @@ def kernels_blocks(rng, m):
                     "k6_query_err_over_scale": wq, "k6_cand_err_over_scale": wc,
                     "k5_query_err_over_scale": gq, "k5_cand_err_over_scale": gcw}
             cases.append(case)
-            del queries, cands, qf, cf, out_k, out_s, out_p
+            del queries, cands, qf, cf, out_k, out_p
             torch.cuda.empty_cache()
     return cases
 
@@ -720,52 +783,100 @@ def phase_kernel_times(res, cfg, counts):
     peak = PEAK_FLOPS[dtype]
     entries = []
 
-    # K1
-    ms = plain_ms = flops = byts = 0.0
-    err = 0.0
-    ties = 0
-    for args, kw in calls["phase_a_cells"]:
+    k1 = k1_numbers(calls["phase_a_cells"])
+    entries.append(kernel_entry("phase_a_cells", counts, k1.pop("err"), k1.pop("ms"),
+                                k1.pop("plain_ms"), k1.pop("flops"), k1.pop("bytes"), peak,
+                                **k1))
+    entries.append(k2_entry(calls["phase_b_tiles"], counts, dtype))
+    entries.append(k3_entry(res, counts, peak))
+    return entries
+
+
+def k1_numbers(calls, iters: int = 5):
+    """K1 against its plain version over the captured launches `calls` of
+    one evaluation (h and ok bit-equal, rho within 2e-5, the variants of
+    `k1_variants`): error, the launches' time and the plain version's, the
+    operations and bytes the function needs, the overflow shares."""
+    out = dict(err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, tie_rows=0,
+               occupied_pairs=0.0, pairs_in_radius=0.0)
+    valid = over = forced = 0
+    for args, kw in calls:
         queries, reach2, cands, m = args
         out_k = cuda_strip_knn.phase_a_cells(*args, **kw)
         out_p = cuda_strip_knn.phase_a_cells_plain(*args, **kw)
         e, t_rows = check_phase_a(*out_k, *out_p, queries, reach2, cands, 2e-5)
-        err, ties = max(err, e), ties + t_rows
-        ms += time_ms(lambda: cuda_strip_knn.phase_a_cells(*args, **kw))
-        plain_ms += time_ms(
+        v = k1_variants(args, kw, out_k, out_p, 2e-5)
+        valid += v["valid_queries"]
+        over += v["overflowed"]
+        forced += v["forced_overflow_share"] * v["valid_queries"]
+        out["err"] = max(out["err"], e)
+        out["tie_rows"] += t_rows
+        out["ms"] += time_ms(lambda: cuda_strip_knn.phase_a_cells(*args, **kw), iters=iters)
+        out["plain_ms"] += time_ms(
             lambda: cuda_strip_knn.phase_a_cells_plain(*args, **kw), iters=1, warmup=0
         )
-        flops += phase_a_ops(queries[3], cands[3], kw["kh"],
-                             kw.get("n_bisect", cuda_strip_knn.N_BISECT))
+        ops, pairs, inside = phase_a_ops(queries, reach2, cands, kw["kh"],
+                                         kw.get("n_bisect", cuda_strip_knn.N_BISECT))
+        out["flops"] += ops
+        out["occupied_pairs"] += pairs
+        out["pairs_in_radius"] += inside
         # query x, y, z and reach2 at occupied slots; candidate x, y, z likewise
-        byts += slot_bytes(queries[3], 4) + slot_bytes(cands[3], 3) + nbytes(*out_k)
-    entries.append(kernel_entry("phase_a_cells", counts, err, ms, plain_ms, flops, byts, peak,
-                                tie_rows=ties))
-    entries.append(k2_entry(calls["phase_b_tiles"], counts, dtype))
+        out["bytes"] += slot_bytes(queries[3], 4) + slot_bytes(cands[3], 3) + nbytes(*out_k)
+    out.update(overflow_share=over / max(valid, 1), overflowed_queries=over,
+               valid_queries=valid, forced_overflow_share=forced / max(valid, 1),
+               forced_overflow_h_ok_equal=True, streamed_equal=True,
+               list_len_stage_of_launches=[
+                   cuda_strip_knn.list_budget(kw["cap"], args[2][0].shape[1], args[2][0].dtype,
+                                              build.device_limits(DEVICE)[1])
+                   for args, kw in calls])
+    return out
 
-    # K3
+
+def k3_entry(res, counts, peak):
+    """K3 on a path's final state (N = 1e5): `check_newton`'s checks, its
+    time beside the plain version's and the bound."""
     pos, m = res["state"].pos, res["params"].m
-    g_k, p_k = cuda_gravity.newton_sweep(pos, m)
-    g_p, p_p = cuda_gravity.newton_sweep_plain(pos, m)
-    err = max(float((g_k - g_p).abs().max()), float((p_k - p_p).abs().max()))
-    if err > 2e-4 * max(float(g_p.abs().max()), float(p_p.abs().max())):
-        raise AssertionError(f"newton_sweep on the main path's state: max abs err {err}")
+    checks = check_newton(pos, m)
     n = pos.shape[0]
     ms = time_ms(lambda: cuda_gravity.newton_sweep(pos, m))
     plain_ms = time_ms(lambda: cuda_gravity.newton_sweep_plain(pos, m), iters=1, warmup=0)
-    entries.append(
-        kernel_entry("newton_sweep", counts, err, ms, plain_ms,
-                     float(n) * n * K3_FLOPS_PER_PAIR, nbytes(pos, g_k, p_k), peak)
-    )
-    return entries
+    return kernel_entry("newton_sweep", counts, checks.pop("max_abs_err"), ms, plain_ms,
+                        float(n) * n * K3_FLOPS_PER_PAIR, 7 * n * pos.element_size(), peak,
+                        **checks)  # pos in, g and phi out
 
 
-def phase_a_ops(qmask, cmask, kh: int, n_bisect: int) -> float:
-    """Operations a phase-A function needs on these rows: d2 once per
-    (occupied query, occupied candidate) pair, a compare and a count per
-    pass, and the spline W on the kh pairs inside the k-th distance."""
+def pairs_in_radius(queries, reach2, cands, chunk_elems: int = 1 << 26) -> float:
+    """(valid query, occupied candidate) pairs of a phase-A launch with
+    d2 <= 1.001 reach2 — the only ones a pass, rk2 or rho can use —
+    counted on the card in row chunks with the kernel's arithmetic."""
+    qx, qy, qz, qm = queries
+    cx, cy, cz, cm = cands
+    n_rows, cap = qx.shape
+    rows = max(1, chunk_elems // (cap * cx.shape[1]))
+    total = 0
+    for r0 in range(0, n_rows, rows):
+        sl = slice(r0, r0 + rows)
+        dx = qx[sl, :, None] - cx[sl, None, :]
+        dy = qy[sl, :, None] - cy[sl, None, :]
+        dz = qz[sl, :, None] - cz[sl, None, :]
+        d2 = dx * dx + dy * dy + dz * dz
+        hi0 = 1.001 * reach2[sl]
+        inside = (d2 <= hi0[:, :, None]) & (qm[sl, :, None] > 0) & (cm[sl, None, :] > 0)
+        total += int(inside.sum())
+    return float(total)
+
+
+def phase_a_ops(queries, reach2, cands, kh: int, n_bisect: int):
+    """(operations, occupied pairs, pairs in radius) a phase-A function
+    needs on these rows: d2 and a compare against hi0 per (valid query,
+    occupied candidate) pair, a compare and a count per pass per pair with
+    d2 <= hi0, and the spline W on the kh pairs inside the k-th distance."""
+    qmask, cmask = queries[3], cands[3]
     pairs = float(((qmask > 0).sum(1) * (cmask > 0).sum(1)).sum())
-    return (pairs * (K1_OPS_D2 + K1_OPS_PER_PASS * (n_bisect + 3))
-            + float((qmask > 0).sum()) * kh * K1_OPS_W)
+    inside = pairs_in_radius(queries, reach2, cands)
+    ops = (pairs * K1_OPS_PAIR_TEST + inside * K1_OPS_PER_PASS * (n_bisect + 3)
+           + float((qmask > 0).sum()) * kh * K1_OPS_W)
+    return ops, pairs, inside
 
 
 def k2_entry(calls, counts, dtype):
@@ -877,12 +988,14 @@ def phase_mono_kernel_times(res, cfg, counts):
     err, ties = check_phase_a(*out_k, *out_p, queries, reach2, cands, 2e-5)
     ms = time_ms(lambda: cuda_knn.phase_a_tile(*args, **kw))
     plain_ms = time_ms(lambda: cuda_knn.phase_a_tile_plain(*args, **kw), iters=1, warmup=0)
-    flops = phase_a_ops(queries[3], cands[3], kw["kh"], kw.get("n_bisect", cuda_knn.N_BISECT))
+    flops, pairs, inside = phase_a_ops(queries, reach2, cands, kw["kh"],
+                                       kw.get("n_bisect", cuda_knn.N_BISECT))
     # the queries are the candidate planes' centre cells: x, y, z of the
     # occupied candidate slots and the mask cover both
     k4 = kernel_entry("phase_a_tile", counts, err, ms, plain_ms, flops,
                       slot_bytes(cands[3], 3) + nbytes(*out_k), peak, tie_rows=ties,
-                      rows=cands[0].shape[0], cap=cap)
+                      rows=cands[0].shape[0], cap=cap, occupied_pairs=pairs,
+                      pairs_in_radius=inside)
 
     # the tail: one launch over every cell row
     tail = None
@@ -1120,24 +1233,11 @@ def phase_collapse_kernels(res, cfg, counts, gpu_line):
                                 mlargs=bargs, out=ev_g)
 
     # K1, one launch a bucket
-    ms = plain_ms = flops = byts = err = 0.0
-    ties = 0
-    widths = []
-    for args, kw in calls["phase_a_cells"]:
-        queries, reach2, cands, m = args
-        out_k = cuda_strip_knn.phase_a_cells(*args, **kw)
-        out_p = cuda_strip_knn.phase_a_cells_plain(*args, **kw)
-        e, t_rows = check_phase_a(*out_k, *out_p, queries, reach2, cands, 2e-5)
-        err, ties = max(err, e), ties + t_rows
-        ms += time_ms(lambda: cuda_strip_knn.phase_a_cells(*args, **kw), iters=3)
-        plain_ms += time_ms(lambda: cuda_strip_knn.phase_a_cells_plain(*args, **kw),
-                            iters=1, warmup=0)
-        flops += phase_a_ops(queries[3], cands[3], kw["kh"], kw["n_bisect"])
-        byts += slot_bytes(queries[3], 4) + slot_bytes(cands[3], 3) + nbytes(*out_k)
-        widths.append(cands[0].shape[1])
-    k1 = {"launches": counts["phase_a_cells"], "max_abs_err": err, "ms": ms,
-          "plain_ms": plain_ms, **bound(flops, byts, peak), "tie_rows": ties,
-          "c_b_of_launches": widths, "n_bisect": calls["phase_a_cells"][0][1]["n_bisect"]}
+    k1 = k1_numbers(calls["phase_a_cells"], iters=3)
+    k1 = {"launches": counts["phase_a_cells"], "max_abs_err": k1.pop("err"), "ms": k1.pop("ms"),
+          "plain_ms": k1.pop("plain_ms"), **bound(k1.pop("flops"), k1.pop("bytes"), peak),
+          **k1, "c_b_of_launches": [args[2][0].shape[1] for args, _ in calls["phase_a_cells"]],
+          "n_bisect": calls["phase_a_cells"][0][1]["n_bisect"]}
 
     # K5, one launch
     (args, kw), = calls["phase_b_grouped"]
@@ -1437,6 +1537,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         res, cfg, by_path["exact_n1e5"] = phase_exact_path(tmp, gpu_line, 50)
         k4_exact, k2_exact, _ = phase_mono_kernel_times(res, cfg, by_path["exact_n1e5"])
+        k3_exact = k3_entry(res, by_path["exact_n1e5"], PEAK_FLOPS[torch.float32])
         del res
         torch.cuda.empty_cache()
         res, cfg, by_path["p3m_n2e5"], s_per_step = phase_p3m_path(tmp, gpu_line)
@@ -1455,13 +1556,16 @@ def main() -> int:
     entries[0]["on_collapse_path"] = k1_blk
     entries[1]["on_exact_path"] = k2_exact
     entries[1]["on_p3m_path"] = k2_p3m
+    entries[2]["on_exact_path"] = {k: k3_exact[k] for k in (
+        "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "runs_bit_identical", "plan")}
     k4["on_exact_path"] = {k: k4_exact[k] for k in (
         "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "tie_rows",
-        "rows", "cap")}
+        "rows", "cap", "occupied_pairs", "pairs_in_radius")}
     entries += [k4, tail, k5, k6]
     for e in entries:
         e["launches_by_path"] = {path: c[e["name"]] for path, c in by_path.items()}
-    side = (k2_exact, k2_p3m, k4["on_exact_path"], k1_blk)
+    side = (k2_exact, k2_p3m, k4["on_exact_path"], k1_blk, entries[2]["on_exact_path"])
     if any(e["launches"] <= 0 for e in entries + list(side)):
         raise AssertionError("a kernel of a main path was never launched")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -8,7 +8,8 @@ to ``<repo>/build/sphtpu_torch_kernels`` (git-ignored), keyed by a hash of
 the sources, so a later process reuses them.
 
 The wrappers' argument helpers (`check_tensor`, `scalar_tensor`,
-`pointer_array`) and the plain versions' `occupied_columns` live here too.
+`pointer_array`, `device_limits`) and the plain versions'
+`occupied_columns` live here too.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``. A build or load failure raises — there is no
@@ -66,10 +67,10 @@ def _declare(libs) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pp = ctypes.POINTER(ctypes.c_void_p)
     entries = (
-        ("phase_a_cells", "sph_phase_a_cells", [pp, ci, ci, ci, ci, ci, ci, ci, vp]),
+        ("phase_a_cells", "sph_phase_a_cells", [pp, ci, ci, ci, ci, ci, ci, ci, ci, vp]),
         ("phase_a_cells", "sph_phase_a_tile", [pp, ci, ci, ci, ci, ci, vp]),
         ("phase_b_tiles", "sph_phase_b_tiles", [pp, pp, vp, pp, ci, ci, ci, ci, ci, ci, vp]),
-        ("newton_sweep", "sph_newton_sweep", [vp, vp, vp, vp, ci, ci, vp]),
+        ("newton_sweep", "sph_newton_sweep", [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]),
         ("p3m_tail", "sph_p3m_tail", [pp, vp, pp, ci, ci, ci, ci, vp]),
         ("phase_b_grouped", "sph_phase_b_grouped", [pp, vp, vp, vp, pp, vp, ci, ci, ci, ci, vp]),
         ("phase_b_grouped", "sph_phase_b_blocks", [pp, pp, vp, pp, pp, ci, ci, ci, ci, ci, vp]),
@@ -81,6 +82,8 @@ def _declare(libs) -> None:
     for lib in libs.values():
         lib.sph_error_string.argtypes = [ci]
         lib.sph_error_string.restype = ctypes.c_char_p
+        lib.sph_device_limits.argtypes = [ctypes.POINTER(ci)]
+        lib.sph_device_limits.restype = ci
 
 
 def load_kernels():
@@ -121,8 +124,26 @@ def load_kernels():
         return _libs
 
 
+_limits = {}
+
+
+def device_limits(device) -> tuple[int, int]:
+    """(streaming multiprocessors, shared memory a block may opt into in
+    bytes) of a CUDA device, read once per device through the kernels'
+    library."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _limits:
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(index):
+            check("phase_a_cells", load_kernels()["phase_a_cells"].sph_device_limits(out))
+        _limits[index] = (out[0], out[1])
+    return _limits[index]
+
+
 def check(lib_name: str, code: int) -> None:
-    """Raise on a non-zero code returned by a kernel's entry point."""
+    """Raise on a non-zero code returned by a kernel's entry point
+    (ERR_BUDGET: F2's guard refused a kernel that does not fit one CTA)."""
     if code != 0:
         msg = load_kernels()[lib_name].sph_error_string(code)
         raise RuntimeError(

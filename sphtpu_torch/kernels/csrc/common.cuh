@@ -9,6 +9,7 @@
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <mutex>
 
 #ifndef SPH_LAUNCH
 #define SPH_LAUNCH(kernel, grid, block, smem, stream, ...) \
@@ -114,9 +115,71 @@ __device__ __forceinline__ int compact_slot(bool keep, int& base, int* wcount) {
   return pos;
 }
 
+// Code an entry point returns, instead of launching, when a kernel's
+// registers or shared memory do not fit one CTA of this card (F2's guard).
+constexpr int ERR_BUDGET = 900;
+
+// F2: 0 when `threads` threads of `kernel` with `dyn_smem` bytes of dynamic
+// shared memory (besides its static share) fit one CTA of the current
+// device, ERR_BUDGET when they do not, or the CUDA error of a query. Where
+// they fit, the kernel may then take `dyn_smem` bytes of dynamic shared
+// memory. The kernel's attributes, the device's opt-in limit and the
+// dynamic share granted are read or set once per (kernel, device) and kept.
+template <typename K>
+int fits_one_cta(K kernel, int threads, size_t dyn_smem) {
+  struct Entry {
+    const void* fn;
+    int dev, max_threads, optin;
+    size_t static_smem, granted;
+  };
+  static Entry cache[64];
+  static int n_cached = 0;
+  static std::mutex lock;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return int(e);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> guard(lock);
+  Entry* hit = nullptr;
+  for (int i = 0; i < n_cached; ++i)
+    if (cache[i].fn == fn && cache[i].dev == dev) hit = &cache[i];
+  Entry fresh = {fn, dev, 0, 0, 0, 0};
+  if (hit == nullptr) {
+    cudaFuncAttributes attr;
+    e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return int(e);
+    e = cudaDeviceGetAttribute(&fresh.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return int(e);
+    fresh.max_threads = attr.maxThreadsPerBlock;
+    fresh.static_smem = attr.sharedSizeBytes;
+    hit = n_cached < 64 ? &(cache[n_cached++] = fresh) : &fresh;
+  }
+  if (hit->max_threads < threads || hit->static_smem + dyn_smem > size_t(hit->optin))
+    return ERR_BUDGET;
+  if (dyn_smem > hit->granted) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(dyn_smem));
+    if (e != cudaSuccess) return int(e);
+    hit->granted = dyn_smem;
+  }
+  return 0;
+}
+
 }  // namespace sph
 
 // Text of a code returned by an entry point of this library.
 extern "C" const char* sph_error_string(int code) {
+  if (code == sph::ERR_BUDGET) return "the kernel does not fit one CTA of this card";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The current device's streaming multiprocessors and the shared memory a
+// block may opt into: out[0], out[1]. The wrappers size their launches
+// from them.
+extern "C" int sph_device_limits(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return int(e);
 }

@@ -8,83 +8,188 @@
 //
 // Bound on this card: operations — N^2 pairs of about 20 flops (one
 // reciprocal square root among them) against 16 N bytes in and 16 N out.
-// Design: the classic shared-memory-tiled N-body kernel. One thread per
-// row particle keeps its position and four accumulators in registers; the
-// block walks the columns in tiles of NB_THREADS positions staged in
-// shared memory, every thread reading the same column at a time (a
-// broadcast, no bank conflicts). No padding columns exist: the last tile
-// is cut at n.
+// The issue slots limit it: 12 FP32 instructions, the compare and select
+// of the pair rule and one MUFU rsqrt a pair. In float32 the rsqrt is the
+// MUFU instruction itself (`rsqrt_mufu`): rsqrtf adds a denormal rescaling
+// (a compare, two multiplies, predicate moves) that took about 6 more
+// issue slots a pair; the two agree bit for bit on every normal r^2.
+// Design: the shared-memory-tiled N-body sweep, shaped to fill the card.
+// - Each thread accumulates R rows (rows t, t + threads, ... of its CTA's
+//   threads * R rows) in registers, so one staged column serves R pairs.
+// - A column is staged as one 16-byte vector (x, y, z, 0), read by every
+//   thread of the CTA at once: one broadcast load a column (two 16-byte
+//   loads in float64).
+// - The columns are split into S slices of `slice_cols` each, the grid is
+//   (ceil(N / (threads * R)), S), so several waves of CTAs cover 132 SMs
+//   at N = 1e5. Each slice writes its partial sums to a scratch (S, N, 4);
+//   a second kernel adds them in the fixed order s = 0 .. S - 1 and
+//   applies m. No atomics: the outputs repeat from run to run. With S = 1
+//   the sweep writes g and phi itself.
+// No padding columns exist: the last tile of a slice is cut at its end.
 #include "common.cuh"
 
 namespace sph {
 
-constexpr int NB_THREADS = 256;
+constexpr int NB_MAX_THREADS = 256;
 
 template <typename T>
-__global__ void __launch_bounds__(NB_THREADS)
+struct __align__(16) Col4 {
+  T x, y, z, w;
+};
+
+// 1 / sqrt(r2) for the pair rule: MUFU.RSQ in float32 (rsqrtf's value on
+// every normal r2; a denormal r2, |x_i - x_j| < 1.1e-19, gives +inf where
+// rsqrtf gives ~1e19, and inv^3 overflows to inf under both), ::rsqrt in
+// float64.
+__device__ __forceinline__ float rsqrt_mufu(float r2) {
+  float inv;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(inv) : "f"(r2));
+  return inv;
+}
+__device__ __forceinline__ double rsqrt_mufu(double r2) { return ::rsqrt(r2); }
+
+template <typename T, int R, bool SPLIT>
+__global__ void __launch_bounds__(NB_MAX_THREADS)
     newton_sweep_kernel(const T* __restrict__ pos, const T* __restrict__ m_ptr,
-                        T* __restrict__ g, T* __restrict__ phi, int n) {
-  __shared__ T sx[NB_THREADS];
-  __shared__ T sy[NB_THREADS];
-  __shared__ T sz[NB_THREADS];
+                        T* __restrict__ g, T* __restrict__ phi, Col4<T>* __restrict__ part,
+                        int n, int slice_cols) {
+  __shared__ Col4<T> sc[NB_MAX_THREADS];
+  const int nt = blockDim.x;
+  const int row0 = blockIdx.x * nt * R + threadIdx.x;
 
-  const int i = blockIdx.x * NB_THREADS + threadIdx.x;
-  const bool live = i < n;
-  const long i3 = 3L * (live ? i : 0);
-  const T xi = pos[i3], yi = pos[i3 + 1], zi = pos[i3 + 2];
-  T ax = T(0), ay = T(0), az = T(0), ap = T(0);
+  T xi[R], yi[R], zi[R], ax[R], ay[R], az[R], ap[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = row0 + r * nt;
+    const long i3 = 3L * (i < n ? i : 0);
+    xi[r] = pos[i3];
+    yi[r] = pos[i3 + 1];
+    zi[r] = pos[i3 + 2];
+    ax[r] = ay[r] = az[r] = ap[r] = T(0);
+  }
 
-  for (int j0 = 0; j0 < n; j0 += NB_THREADS) {
+  const int c_begin = blockIdx.y * slice_cols;
+  const int c_end = (c_begin + slice_cols < n) ? c_begin + slice_cols : n;
+  for (int j0 = c_begin; j0 < c_end; j0 += nt) {
     const int j = j0 + threadIdx.x;
-    if (j < n) {
-      sx[threadIdx.x] = pos[3L * j];
-      sy[threadIdx.x] = pos[3L * j + 1];
-      sz[threadIdx.x] = pos[3L * j + 2];
-    }
+    if (j < c_end) sc[threadIdx.x] = Col4<T>{pos[3L * j], pos[3L * j + 1], pos[3L * j + 2], T(0)};
     __syncthreads();
-    const int nt = (n - j0 < NB_THREADS) ? n - j0 : NB_THREADS;
-#pragma unroll 8
-    for (int k = 0; k < nt; ++k) {
-      const T dx = xi - sx[k];
-      const T dy = yi - sy[k];
-      const T dz = zi - sz[k];
-      const T r2 = dx * dx + dy * dy + dz * dz;
-      const T inv = r2 > T(0) ? Num<T>::rsqrt(r2) : T(0);
-      const T inv3 = inv * inv * inv;
-      ax += inv3 * dx;
-      ay += inv3 * dy;
-      az += inv3 * dz;
-      ap -= inv;
+    const int len = (c_end - j0 < nt) ? c_end - j0 : nt;
+#pragma unroll 4
+    for (int k = 0; k < len; ++k) {
+      const Col4<T> c = sc[k];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const T dx = xi[r] - c.x;
+        const T dy = yi[r] - c.y;
+        const T dz = zi[r] - c.z;
+        const T r2 = dx * dx + dy * dy + dz * dz;
+        const T inv_all = rsqrt_mufu(r2);
+        const T inv = r2 > T(0) ? inv_all : T(0);
+        const T inv3 = inv * inv * inv;
+        ax[r] += inv3 * dx;
+        ay[r] += inv3 * dy;
+        az[r] += inv3 * dz;
+        ap[r] -= inv;
+      }
     }
     __syncthreads();
   }
 
-  if (live) {
-    const T m = m_ptr[0];
-    g[i3] = m * ax;
-    g[i3 + 1] = m * ay;
-    g[i3 + 2] = m * az;
-    phi[i] = m * ap;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = row0 + r * nt;
+    if (i >= n) continue;
+    if (SPLIT) {
+      part[long(blockIdx.y) * n + i] = Col4<T>{ax[r], ay[r], az[r], ap[r]};
+    } else {
+      const T m = m_ptr[0];
+      g[3L * i] = m * ax[r];
+      g[3L * i + 1] = m * ay[r];
+      g[3L * i + 2] = m * az[r];
+      phi[i] = m * ap[r];
+    }
   }
 }
 
+// g = m * (sum over s of the partial sums), phi likewise, s in order.
 template <typename T>
-int launch_newton(const void* pos, const void* m, void* g, void* phi, int n,
-                  cudaStream_t stream) {
-  if (n <= 0) return 0;
-  const int grid = (n + NB_THREADS - 1) / NB_THREADS;
-  SPH_LAUNCH((newton_sweep_kernel<T>), grid, NB_THREADS, 0, stream,
-             static_cast<const T*>(pos), static_cast<const T*>(m), static_cast<T*>(g),
-             static_cast<T*>(phi), n);
+__global__ void newton_reduce_kernel(const Col4<T>* __restrict__ part,
+                                     const T* __restrict__ m_ptr, T* __restrict__ g,
+                                     T* __restrict__ phi, int n, int n_slices) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Col4<T> acc = part[i];
+  for (int s = 1; s < n_slices; ++s) {
+    const Col4<T> p = part[long(s) * n + i];
+    acc.x += p.x;
+    acc.y += p.y;
+    acc.z += p.z;
+    acc.w += p.w;
+  }
+  const T m = m_ptr[0];
+  g[3L * i] = m * acc.x;
+  g[3L * i + 1] = m * acc.y;
+  g[3L * i + 2] = m * acc.z;
+  phi[i] = m * acc.w;
+}
+
+template <typename T, int R>
+int launch_sweep(const T* pos, const T* m, T* g, T* phi, Col4<T>* part, int n, int threads,
+                 int n_slices, int slice_cols, cudaStream_t stream) {
+  const dim3 grid((n + threads * R - 1) / (threads * R), n_slices);
+  if (n_slices == 1) {
+    const int err = fits_one_cta(newton_sweep_kernel<T, R, false>, threads, 0);
+    if (err) return err;
+    SPH_LAUNCH((newton_sweep_kernel<T, R, false>), grid, threads, 0, stream, pos, m, g, phi,
+               part, n, slice_cols);
+    return int(cudaGetLastError());
+  }
+  const int err = fits_one_cta(newton_sweep_kernel<T, R, true>, threads, 0);
+  if (err) return err;
+  SPH_LAUNCH((newton_sweep_kernel<T, R, true>), grid, threads, 0, stream, pos, m, g, phi, part,
+             n, slice_cols);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  SPH_LAUNCH((newton_reduce_kernel<T>), (n + 255) / 256, 256, 0, stream, part, m, g, phi, n,
+             n_slices);
   return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_newton(const void* pos, const void* m, void* g, void* phi, void* part, int n, int rows,
+                  int threads, int n_slices, int slice_cols, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  // the plan must cover every column once, with a scratch where S > 1
+  if (threads <= 0 || threads > NB_MAX_THREADS || threads % 32 != 0 || n_slices < 1 ||
+      slice_cols < 1 || long(n_slices) * slice_cols < n ||
+      long(n_slices - 1) * slice_cols >= n || (n_slices > 1 && part == nullptr))
+    return int(cudaErrorInvalidValue);
+  const T* p = static_cast<const T*>(pos);
+  const T* mm = static_cast<const T*>(m);
+  T* gg = static_cast<T*>(g);
+  T* ph = static_cast<T*>(phi);
+  Col4<T>* pt = static_cast<Col4<T>*>(part);
+  switch (rows) {
+    case 1: return launch_sweep<T, 1>(p, mm, gg, ph, pt, n, threads, n_slices, slice_cols, stream);
+    case 2: return launch_sweep<T, 2>(p, mm, gg, ph, pt, n, threads, n_slices, slice_cols, stream);
+    case 4: return launch_sweep<T, 4>(p, mm, gg, ph, pt, n, threads, n_slices, slice_cols, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace sph
 
-// pos (n, 3) row-major, m one element, g (n, 3), phi (n): device pointers.
-extern "C" int sph_newton_sweep(const void* pos, const void* m, void* g, void* phi, int n,
+// pos (n, 3) row-major, m one element, g (n, 3), phi (n), part (n_slices,
+// n, 4) scratch (unused, may be null, when n_slices == 1): device pointers.
+// The plan (rows a thread, threads a CTA, column slices and their width)
+// comes from the wrapper's split_plan.
+extern "C" int sph_newton_sweep(const void* pos, const void* m, void* g, void* phi, void* part,
+                                int n, int rows, int threads, int n_slices, int slice_cols,
                                 int is_double, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? sph::launch_newton<double>(pos, m, g, phi, n, s)
-                   : sph::launch_newton<float>(pos, m, g, phi, n, s);
+  return is_double ? sph::launch_newton<double>(pos, m, g, phi, part, n, rows, threads, n_slices,
+                                                slice_cols, s)
+                   : sph::launch_newton<float>(pos, m, g, phi, part, n, rows, threads, n_slices,
+                                               slice_cols, s);
 }

@@ -3,33 +3,47 @@
 //
 // Replaces two TPU kernels that compute the same thing on different
 // layouts: sphtpu/kernels/pallas_strip_knn.py::phase_a_cells (_kernel; the
-// class-compacted engine: explicit query planes and a per-query reach2)
-// and sphtpu/kernels/pallas_knn.py::phase_a_pallas (_phase_a_kernel; the
-// mono-tile engine: the queries are the centre cell of the 27-cell
-// candidate row, slots 13*cap .. 14*cap, the occupancy plane is the query
-// mask, and the threshold is one uniform s2 = (cell edge)^2). One kernel
-// template serves both (MONO selects the layout). Per query slot of a cell
-// row: squared distances to the row's
-// candidates, n_bisect count bisections on [0, 1.001 * reach2] for the
-// exact k-th distance, rk2 = max{d2 <= hi}, nfound = #{d2 <= rk2},
-// h = sqrt(rk2) / 2, rho = m * sum W over d2 <= rk2 (self pair included),
+// class-compacted and block engines: explicit query planes and a per-query
+// reach2) and sphtpu/kernels/pallas_knn.py::phase_a_pallas
+// (_phase_a_kernel; the mono-tile engine: the queries are the centre cell
+// of the 27-cell candidate row, slots 13*cap .. 14*cap, the occupancy plane
+// is the query mask, and the threshold is one uniform s2 = (cell edge)^2).
+// One kernel template serves both (MONO selects the layout). Per query slot
+// of a cell row: squared distances to the row's candidates, n_bisect count
+// bisections on [0, 1.001 * reach2] for the exact k-th distance,
+// rk2 = max{d2 <= hi}, nfound = #{d2 <= rk2}, h = sqrt(rk2) / 2,
+// rho = m * sum W over d2 <= rk2 (self pair included),
 // ok = masked-off | (nfound >= kh & rk2 <= reach2).
 //
-// Bound on this card: operations (d2 once per (query, occupied candidate)
-// pair, then a compare and a count per pass) while the row's candidates are
-// read from device memory once. This kernel does more than that bound
-// counts: it keeps no d2 per pair and re-evaluates it on every one of the
-// n_bisect + 3 passes.
-// Design: a block owns 32 queries of one cell row, 8 lanes per query. The
-// row's OCCUPIED candidates (mask > 0; most stencil slots are padding) are
-// compacted, order kept, into shared memory once; every pass recomputes d2
-// from shared memory and reduces an INTEGER count by warp shuffle, so the
-// bisection fixed point does not depend on reduction order — only rho
-// reassociates. The three candidate planes of a row (3 * cw elements) must
-// fit the shared memory a block may opt into; the wrapper refuses wider rows.
+// Bound on this card: operations — d2 and one compare against
+// hi0 = 1.001 * reach2 once per (query, occupied candidate) pair, then a
+// compare and a count per pass only on the pairs with d2 <= hi0: every
+// bisection midpoint, rk2 and the density's radius lie at or below hi0,
+// so no other candidate can change a count, the max or the sum.
+//
+// Design, shared by both entries: a block owns 32 queries of one cell row,
+// 8 lanes per query. The row's OCCUPIED candidates (mask > 0; most stencil
+// slots are padding) are compacted, order kept, into shared memory — the
+// whole row when it fits (`chunk` >= cw), else in pieces of `chunk` raw
+// slots. Counts are INTEGERS reduced by warp shuffle, so the bisection
+// fixed point does not depend on reduction order — only rho reassociates.
 // A block whose 32 query slots are all masked off (the padding of a cell
 // with fewer particles than the capacity) writes its outputs and leaves
 // before it stages anything.
+//
+// K1 (phase_a_cells) reads the row ONCE: each query's lanes take rounds of
+// 8 consecutive candidates, and a ballot gives every d2 <= hi0 its slot in
+// the query's list in shared memory, in candidate order. The n_bisect
+// passes, rk2, nfound and rho then run over that list only (lane sub takes
+// entries sub mod 8). The counts are integers, so h and ok equal the
+// full-row sweep's bit for bit. A query with more than `list_len` such
+// candidates overflows: it takes the full-row sweep below (the row staged
+// again on every pass where it is streamed), and the kernel counts it in
+// *n_over. Staging issues its loads a few steps ahead, and the collect
+// loop computes 4 rounds before their votes, so neither waits out one
+// load latency at a time.
+// K4 (phase_a_tile) has no list: it runs the full-row sweep for every
+// query, recomputing d2 from shared memory on every pass.
 #include "common.cuh"
 
 namespace sph {
@@ -54,7 +68,121 @@ struct PhaseAArgs {
   int kh;
   int n_bisect;
   int chunk;  // raw candidate slots staged at a time (>= cw: the row stays resident)
+  int list_len;  // K1: in-radius candidates a query's list holds (L)
+  int* n_over;   // K1: queries whose in-radius candidates overflowed L
 };
+
+// Rounds of 8 candidates K1's collect loop computes before it votes.
+constexpr int COLLECT_ROUNDS = 4;
+
+// Entries a query's list occupies in shared memory: L rounded up to 32,
+// plus 8, so the 4 lists a warp reads at a time start on distinct banks.
+__host__ __device__ inline int list_stride(int list_len) { return (list_len + 31) / 32 * 32 + 8; }
+
+// The cubic spline W(q) without its 1 / (pi h^3) factor.
+template <typename T>
+__device__ __forceinline__ T spline_w(T qq) {
+  const T two_m = T(2) - qq;
+  return qq <= T(1) ? T(1) - T(1.5) * (qq * qq) + T(0.75) * (qq * qq * qq)
+                    : (qq <= T(2) ? T(0.25) * (two_m * two_m * two_m) : T(0));
+}
+
+// K1's list path for the calling thread's query slot. Every thread of the
+// block calls it (the row is staged inside). Returns true where the query
+// overflowed its list; a listed query has written its h, rho and ok, a
+// masked-off slot its defaults.
+template <typename T, typename Stage>
+__device__ __forceinline__ bool collect_and_bisect(const PhaseAArgs<T>& a, const T* sx,
+                                                   const T* sy, T* sz, Stage& stage,
+                                                   bool resident, int n_resident, bool qvalid,
+                                                   int q, long qi, int sub, T qx, T qy, T qz,
+                                                   T r2) {
+  const int tid = threadIdx.x;
+  T* lst = sz + a.chunk + (tid / LANES_PER_QUERY) * list_stride(a.list_len);
+  const unsigned gmask = group_mask();
+  const int gshift = (tid & 31) & ~(LANES_PER_QUERY - 1);
+  const unsigned below = (1u << sub) - 1u;
+  const T hi0 = T(1.001) * r2;
+
+  // collect: one pass over the row, the in-radius d2 in candidate order.
+  // Every lane of the warp walks the piece (a masked-off slot votes false),
+  // so the ballot is warp-wide; a lane past the piece's end reads its last
+  // candidate and votes false. COLLECT_ROUNDS rounds of 8 candidates load
+  // and compute before their votes and list stores, so their shared loads
+  // do not wait behind the stores.
+  int n_in = 0;  // the query's in-radius candidates so far (the same in its 8 lanes)
+  for (int c0 = 0; c0 < a.cw; c0 += a.chunk) {
+    const int kept = resident ? n_resident : stage(c0);
+    for (int j0 = 0; j0 < kept; j0 += COLLECT_ROUNDS * LANES_PER_QUERY) {
+      T d2[COLLECT_ROUNDS];
+      bool in[COLLECT_ROUNDS];
+#pragma unroll
+      for (int u = 0; u < COLLECT_ROUNDS; ++u) {
+        const int jr = j0 + u * LANES_PER_QUERY + sub;
+        const int j = min(jr, kept - 1);
+        d2[u] = dist2<T>(qx - sx[j], qy - sy[j], qz - sz[j]);
+        in[u] = qvalid && jr < kept && d2[u] <= hi0;
+      }
+#pragma unroll
+      for (int u = 0; u < COLLECT_ROUNDS; ++u) {
+        const unsigned b = (__ballot_sync(0xffffffffu, in[u]) >> gshift) & 0xffu;
+        const int slot = n_in + __popc(b & below);
+        if (in[u] && slot < a.list_len) lst[slot] = d2[u];
+        n_in += __popc(b);
+      }
+    }
+    if (!resident) __syncthreads();
+  }
+  if (!qvalid) {
+    if (q < a.cap && sub == 0) {
+      a.h[qi] = T(0);
+      a.rho[qi] = T(0);
+      a.ok[qi] = T(1);
+    }
+    return false;
+  }
+  if (n_in > a.list_len) return true;
+  __syncwarp(gmask);
+
+  // bisect, rk2, nfound and rho over the list
+  T lo = T(0);
+  T hi = hi0;
+  for (int it = 0; it < a.n_bisect; ++it) {
+    const T mid = T(0.5) * (lo + hi);
+    int cnt = 0;
+    for (int i = sub; i < n_in; i += LANES_PER_QUERY) cnt += (lst[i] <= mid) ? 1 : 0;
+    cnt = group_sum<int>(cnt);
+    const bool ge = cnt >= a.kh;  // k-th distance <= mid: shrink to [lo, mid]
+    lo = ge ? lo : mid;
+    hi = ge ? mid : hi;
+  }
+  T rk2 = T(0);
+  for (int i = sub; i < n_in; i += LANES_PER_QUERY) {
+    const T d2 = lst[i];
+    if (d2 <= hi && d2 > rk2) rk2 = d2;
+  }
+  rk2 = group_max<T>(rk2);
+  const T h_t = Num<T>::sqrt(rk2) / T(2);
+  const T h_safe = h_t > T(0) ? h_t : T(1);
+  const T ct = T(1) / (T(3.14159265358979323846) * (h_safe * h_safe * h_safe));
+  int nfound = 0;
+  T wsum = T(0);
+  for (int i = sub; i < n_in; i += LANES_PER_QUERY) {
+    const T d2 = lst[i];
+    if (d2 <= rk2) {
+      nfound += 1;
+      wsum += ct * spline_w<T>(Num<T>::sqrt(d2) / h_safe);
+    }
+  }
+  nfound = group_sum<int>(nfound);
+  wsum = group_sum<T>(wsum);
+  if (sub == 0) {
+    a.h[qi] = h_t;
+    a.rho[qi] = a.m[0] * wsum;
+    a.ok[qi] = (nfound >= a.kh && rk2 <= r2) ? T(1) : T(0);
+  }
+  return false;
+}
 
 template <typename T, bool MONO>
 __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) {
@@ -104,15 +232,63 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
     __syncthreads();
     return kept;
   };
+  // K1's staging: the same compaction, with the loads of AHEAD steps of
+  // 256 slots issued before their compaction steps, so one memory latency
+  // serves them all (AHEAD * 256 covers K1's staging width, 2048 slots in
+  // float32 and 1024 in float64)
+  auto stage_ahead = [&](int c0) {
+    constexpr int AHEAD = sizeof(T) == 4 ? 8 : 4;
+    const int c1 = (c0 + a.chunk < a.cw) ? c0 + a.chunk : a.cw;
+    int kept = 0;
+    for (int s0 = c0; s0 < c1; s0 += AHEAD * TILE_THREADS) {
+      bool keep[AHEAD];
+      T x[AHEAD], y[AHEAD], z[AHEAD];
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) {
+        const int j = s0 + u * TILE_THREADS + tid;
+        keep[u] = j < c1 && cm[j] > T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) {
+        const int j = s0 + u * TILE_THREADS + tid;
+        x[u] = keep[u] ? cx[j] : T(0);
+        y[u] = keep[u] ? cy[j] : T(0);
+        z[u] = keep[u] ? cz[j] : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) {
+        if (s0 + u * TILE_THREADS >= c1) break;  // the same for the whole block
+        const int p = compact_slot(keep[u], kept, wcount);
+        if (keep[u]) {
+          sx[p] = x[u];
+          sy[p] = y[u];
+          sz[p] = z[u];
+        }
+      }
+    }
+    __syncthreads();
+    return kept;
+  };
   const bool resident = a.chunk >= a.cw;
-  const int n_resident = resident ? stage(0) : 0;
+  const int n_resident = resident ? (MONO ? stage(0) : stage_ahead(0)) : 0;
 
   // Every thread stays to the end (streaming stages the row again on each
-  // pass); only the lanes of an occupied query slot compute.
+  // pass); only the lanes of a query slot that a pass is for compute.
   const T qx = qvalid ? (MONO ? cx[centre + q] : a.qx[qi]) : T(0);
   const T qy = qvalid ? (MONO ? cy[centre + q] : a.qy[qi]) : T(0);
   const T qz = qvalid ? (MONO ? cz[centre + q] : a.qz[qi]) : T(0);
   const T r2 = qvalid ? (MONO ? a.reach2[0] : a.reach2[qi]) : T(0);
+
+  // queries the full-row sweep below computes for: every occupied one in
+  // K4, only the overflowed ones in K1
+  bool sweep = qvalid;
+  if constexpr (!MONO) {
+    const bool over = collect_and_bisect(a, sx, sy, sz, stage_ahead, resident, n_resident,
+                                         qvalid, q, qi, sub, qx, qy, qz, r2);
+    if (over && sub == 0) atomicAdd(a.n_over, 1);
+    sweep = over;
+    if (!__syncthreads_or(over)) return;
+  }
 
   // One pass over the row's occupied candidates. Lane `sub` of a query takes
   // the candidates whose index in the compacted row is sub mod 8, in order,
@@ -122,7 +298,7 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
 #define SPH_FOR_EACH_CAND(...)                                                   \
   for (int c0 = 0, base = 0; c0 < a.cw; c0 += a.chunk) {                        \
     const int kept = resident ? n_resident : stage(c0);                         \
-    if (qvalid) {                                                               \
+    if (sweep) {                                                                \
       for (int j = (sub - base % LANES_PER_QUERY + LANES_PER_QUERY) % LANES_PER_QUERY; \
            j < kept; j += LANES_PER_QUERY) {                                    \
         const T d2 = dist2<T>(qx - sx[j], qy - sy[j], qz - sz[j]);              \
@@ -139,7 +315,7 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
     const T mid = T(0.5) * (lo + hi);
     int cnt = 0;
     SPH_FOR_EACH_CAND(cnt += (d2 <= mid) ? 1 : 0;)
-    if (qvalid) {
+    if (sweep) {
       cnt = group_sum<int>(cnt);
       const bool ge = cnt >= a.kh;  // k-th distance <= mid: shrink to [lo, mid]
       lo = ge ? lo : mid;
@@ -149,7 +325,7 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
 
   T rk2 = T(0);
   SPH_FOR_EACH_CAND(if (d2 <= hi && d2 > rk2) rk2 = d2;)
-  if (qvalid) rk2 = group_max<T>(rk2);
+  if (sweep) rk2 = group_max<T>(rk2);
 
   const T h_t = Num<T>::sqrt(rk2) / T(2);
   const T h_safe = h_t > T(0) ? h_t : T(1);
@@ -168,9 +344,10 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
       })
 #undef SPH_FOR_EACH_CAND
   if (q >= a.cap) return;
-  if (!qvalid) {
-    // off-mask rows: h = rho = 0, ok = 1 (all lanes of the group agree)
-    if (sub == 0) {
+  if (!sweep) {
+    // off-mask rows: h = rho = 0, ok = 1 (all lanes of the group agree);
+    // K1's listed queries have written theirs
+    if (!qvalid && sub == 0) {
       a.h[qi] = T(0);
       a.rho[qi] = T(0);
       a.ok[qi] = T(1);
@@ -187,34 +364,47 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
   }
 }
 
-// Raw candidate slots a block stages at a time: the whole row when its
-// three planes fit the shared memory a block may opt into, else the most
-// that fit, a multiple of the block's threads (or `max_chunk`, when it is
-// positive and smaller: a test forces streaming with it).
+// K4's raw candidate slots a block stages at a time: the whole row when its
+// three planes fit the shared memory a block may opt into (the wrapper
+// refuses wider rows), else the most that fit, a multiple of the block's
+// threads.
 template <typename T>
-int stage_chunk(int cw, int max_chunk, int* chunk) {
+int stage_chunk(int cw, int* chunk) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return int(e);
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return int(e);
   const int fit = (optin - 1024) / int(3 * sizeof(T)) / TILE_THREADS * TILE_THREADS;
-  int c = cw < fit ? cw : fit;
-  if (max_chunk > 0 && max_chunk < c) c = max_chunk;
+  const int c = cw < fit ? cw : fit;
   *chunk = c > 0 ? c : 1;
   return 0;
 }
 
+// Dynamic shared memory of a launch: the staged planes, and for K1 the
+// lists of the block's query slots (min(cap, 32) of them).
 template <typename T, bool MONO>
-int launch_phase_a(PhaseAArgs<T> a, int n_cells, int max_chunk, cudaStream_t stream) {
+size_t phase_a_smem(const PhaseAArgs<T>& a) {
+  const int slots = a.cap < QUERIES_PER_BLOCK ? a.cap : QUERIES_PER_BLOCK;
+  const size_t lists = MONO ? 0 : size_t(slots) * list_stride(a.list_len);
+  return (size_t(3) * a.chunk + lists) * sizeof(T);
+}
+
+template <typename T, bool MONO>
+int launch_phase_a(PhaseAArgs<T> a, int n_cells, cudaStream_t stream) {
   if (n_cells <= 0) return 0;
-  int err = stage_chunk<T>(a.cw, max_chunk, &a.chunk);
-  if (err) return err;
   const dim3 grid(n_cells, (a.cap + QUERIES_PER_BLOCK - 1) / QUERIES_PER_BLOCK);
-  const size_t smem = size_t(3) * a.chunk * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<T, MONO>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
+  const size_t smem = phase_a_smem<T, MONO>(a);
+  if (MONO) {
+    cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<T, MONO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+  } else {
+    const int err = fits_one_cta(phase_a_kernel<T, MONO>, TILE_THREADS, smem);
+    if (err) return err;
+    cudaError_t e = cudaMemsetAsync(a.n_over, 0, sizeof(int), stream);
+    if (e != cudaSuccess) return int(e);
+  }
   SPH_LAUNCH((phase_a_kernel<T, MONO>), grid, TILE_THREADS, smem, stream, a);
   return int(cudaGetLastError());
 }
@@ -225,7 +415,8 @@ namespace sph {
 
 template <typename T>
 int phase_a_from_ptrs(void* const* p, int n_cells, int cap, int cw, int kh, int n_bisect,
-                      int max_chunk, cudaStream_t stream) {
+                      int stage, int list_len, cudaStream_t stream) {
+  if (stage <= 0 || list_len <= 0) return int(cudaErrorInvalidValue);
   PhaseAArgs<T> a;
   a.qx = static_cast<const T*>(p[0]);
   a.qy = static_cast<const T*>(p[1]);
@@ -240,11 +431,14 @@ int phase_a_from_ptrs(void* const* p, int n_cells, int cap, int cw, int kh, int 
   a.h = static_cast<T*>(p[10]);
   a.rho = static_cast<T*>(p[11]);
   a.ok = static_cast<T*>(p[12]);
+  a.n_over = static_cast<int*>(p[13]);
   a.cap = cap;
   a.cw = cw;
   a.kh = kh;
   a.n_bisect = n_bisect;
-  return launch_phase_a<T, false>(a, n_cells, max_chunk, stream);
+  a.chunk = stage < cw ? stage : cw;
+  a.list_len = list_len;
+  return launch_phase_a<T, false>(a, n_cells, stream);
 }
 
 template <typename T>
@@ -264,20 +458,26 @@ int phase_a_tile_from_ptrs(void* const* p, int n_cells, int cap, int kh, int n_b
   a.cw = 27 * cap;
   a.kh = kh;
   a.n_bisect = n_bisect;
-  return launch_phase_a<T, true>(a, n_cells, 0, stream);
+  const int err = stage_chunk<T>(a.cw, &a.chunk);
+  if (err) return err;
+  return launch_phase_a<T, true>(a, n_cells, stream);
 }
 
 }  // namespace sph
 
-// ptrs: qx qy qz qm reach2 cx cy cz cm m h rho ok (13 device pointers, m one
-// element). Rows wider than a block's shared memory holds are streamed;
-// max_chunk > 0 caps the slots staged at a time (0: as many as fit).
+// ptrs: qx qy qz qm reach2 cx cy cz cm m h rho ok n_over (14 device
+// pointers; m one element, n_over one int that the entry zeroes and the
+// kernel adds its overflowed queries to). `stage` raw candidate slots are staged at a time
+// (>= cw: the row stays resident), `list_len` is L, the in-radius
+// candidates a query's list holds; the wrapper sizes both.
 extern "C" int sph_phase_a_cells(void* const* ptrs, int n_cells, int cap, int cw, int kh,
-                                 int n_bisect, int max_chunk, int is_double, void* stream) {
+                                 int n_bisect, int stage, int list_len, int is_double,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double
-             ? sph::phase_a_from_ptrs<double>(ptrs, n_cells, cap, cw, kh, n_bisect, max_chunk, s)
-             : sph::phase_a_from_ptrs<float>(ptrs, n_cells, cap, cw, kh, n_bisect, max_chunk, s);
+  return is_double ? sph::phase_a_from_ptrs<double>(ptrs, n_cells, cap, cw, kh, n_bisect, stage,
+                                                    list_len, s)
+                   : sph::phase_a_from_ptrs<float>(ptrs, n_cells, cap, cw, kh, n_bisect, stage,
+                                                   list_len, s);
 }
 
 // ptrs: s2 cx cy cz cm m h rho ok (9 device pointers; s2 and m one element

@@ -45,7 +45,6 @@ constexpr int GQ = 128;                                  // query rows a block (
 constexpr int GCW = 512;                                 // slots a chunk of the grouped layout
 constexpr int GSUB = TILE_THREADS;                       // candidate slots staged at a time
 constexpr int GROUNDS = GQ / QUERIES_PER_BLOCK;          // query-major rounds a piece
-constexpr int ERR_BUDGET = 900;                          // code: the kernel does not fit a CTA
 
 template <typename T>
 struct PairParams {

@@ -5,6 +5,11 @@ sphtpu/kernels/pallas_gravity.py::newton_sweep_pallas. Tensors on a CUDA
 device go to the hand-written kernel csrc/newton_sweep.cu; tensors on the
 CPU go to `newton_sweep_plain`. physics/gravity.py::gravity_newton_allpairs
 is a thin entry point over `newton_sweep`.
+
+On the card each thread sums R rows, a CTA `threads * R` of them, and the
+columns are split into S slices whose partial sums a second kernel adds in
+the order s = 0 .. S - 1 (`split_plan`, `column_slices`): the grid fills
+the card and the outputs repeat from run to run.
 """
 
 from __future__ import annotations
@@ -14,6 +19,36 @@ import torch
 from . import build
 
 launches = 0  # kernel launches made by newton_sweep (CUDA tensors only)
+
+# The sweep's plan: rows a thread (register blocking) by dtype, threads a
+# CTA, the CTAs to aim for (WAVES times what 2048 resident threads an SM
+# hold), and the fewest columns a slice may have (below that a slice's
+# partial sums cost more than its pairs save). R and WAVES were chosen by
+# `tools/chip_k1k3.py --sweep` on an H100 (PERF.md).
+ROWS_PER_THREAD = {torch.float32: 4, torch.float64: 2}
+THREADS = 256
+WAVES = 4
+MIN_SLICE_COLS = 4 * THREADS
+
+
+def column_slices(n: int, n_slices: int, threads: int = THREADS) -> int:
+    """Columns of each of the n_slices slices (the last one is cut at n):
+    ceil(n / n_slices) rounded up to whole staged tiles of `threads`."""
+    per_slice = -(-n // n_slices)
+    return -(-per_slice // threads) * threads
+
+
+def split_plan(n: int, n_sms: int, dtype) -> tuple[int, int, int]:
+    """(R, threads, S) for N = n on a card of n_sms SMs: enough column
+    slices that the grid holds about WAVES full waves of CTAs, no slice
+    narrower than MIN_SLICE_COLS, none empty. S = 1 where the rows alone
+    fill the card or n is small."""
+    rows = ROWS_PER_THREAD[dtype]
+    row_ctas = -(-n // (THREADS * rows))
+    target = WAVES * n_sms * (2048 // THREADS)
+    s = max(1, min(-(-target // row_ctas), n // MIN_SLICE_COLS))
+    s = -(-n // column_slices(n, s))  # drop slices the rounding left empty
+    return rows, THREADS, s
 
 
 def newton_sweep_plain(
@@ -54,8 +89,10 @@ def newton_sweep_plain(
     return g, phi
 
 
-def newton_sweep(pos: torch.Tensor, m):
-    """(g (N, 3), phi (N,)): Newtonian all-pairs, self excluded by r = 0."""
+def newton_sweep(pos: torch.Tensor, m, *, plan=None):
+    """(g (N, 3), phi (N,)): Newtonian all-pairs, self excluded by r = 0.
+    On the card `plan` = (R, threads, S) overrides `split_plan`'s (a
+    measurement compares plans with it)."""
     if pos.device.type != "cuda":
         return newton_sweep_plain(pos, m)
     global launches
@@ -69,11 +106,16 @@ def newton_sweep(pos: torch.Tensor, m):
     phi = torch.empty((n,), dtype=dtype, device=device)
     if n == 0:
         return g, phi
+    rows, threads, n_slices = plan or split_plan(n, build.device_limits(device)[0], dtype)
+    cols = column_slices(n, n_slices, threads)
+    part = (torch.empty((n_slices, n, 4), dtype=dtype, device=device)
+            if n_slices > 1 else None)
     lib = build.load_kernels()["newton_sweep"]
     with torch.cuda.device(device):
         code = lib.sph_newton_sweep(
             pos.data_ptr(), m_dev.data_ptr(), g.data_ptr(), phi.data_ptr(),
-            n, int(dtype == torch.float64),
+            part.data_ptr() if part is not None else None,
+            n, rows, threads, n_slices, cols, int(dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check("newton_sweep", code)

@@ -13,11 +13,15 @@ h = sqrt(rk2) / 2, rho = m * sum W over d2 <= rk2 (self pair included).
 Ties at the k-th distance are all included (they sit at q = 2 where W
 vanishes). Off-mask query rows return h = rho = 0, ok = 1.
 
-The kernel keeps a row's occupied candidates in shared memory. A row whose
-three planes do not fit (the block engine's C_b >= 24 576 in float32,
->= 12 288 in float64) is streamed through shared memory in pieces on every
-pass; integer counts add across pieces and each lane sums the same terms
-in the same order, so the results are those of the resident row.
+The kernel reads a row's occupied candidates once, through shared memory
+in pieces of `stage` slots, and keeps each query's in-radius squared
+distances (d2 <= 1.001 * reach2, in candidate order) in a list of up to L
+entries in shared memory; the bisection passes, rk2, nfound and rho run
+over that list. Only those candidates can change any of them, so h and ok
+are those of the full-row form bit for bit (the counts are integers) and
+rho reassociates. A query with more than L in-radius candidates overflows
+and takes the full-row sweep on the card (`last_overflow` counts such
+queries). `list_budget` sizes L and `stage` for the card.
 """
 
 from __future__ import annotations
@@ -30,13 +34,26 @@ from .cubic_spline import W
 N_BISECT = 34
 
 # shared memory a block may opt into on Hopper (227 KB), less 1 KB for the
-# kernel's static share; the kernel keeps a row's three candidate planes there
+# kernel's static share; K4 (`cuda_knn`) keeps a row's three candidate
+# planes there
 SMEM_LIMIT = 226 * 1024
 # widest candidate row the kernel takes (twice the block engine's largest
 # capacity, C_MENU[-1] = 32 768); wider rows raise
 MAX_CW = 1 << 16
 
+# K1's geometry: a CTA owns 32 query slots; its shared memory holds the
+# three staged candidate planes (STAGE_BYTES of them) and one list per
+# query slot, sized so that CTAS_PER_SM CTAs share an SM (each CTA also
+# costs the SM 1 KB of reserved shared memory and 32 B of static share)
+QUERIES_PER_CTA = 32
+STAGE_BYTES = 24 * 1024
+CTAS_PER_SM = 2
+CTA_RESERVED = 1024 + 64
+
 launches = 0  # kernel launches made by phase_a_cells (CUDA tensors only)
+# queries of the last launch whose in-radius candidates overflowed L: an
+# int32 tensor on the card, read only by measurements (never on the step path)
+last_overflow = None
 
 
 def phase_a_cells_plain(
@@ -110,6 +127,38 @@ def shared_bytes(cw: int, dtype) -> int:
     return need
 
 
+def list_stride(list_len: int) -> int:
+    """Entries one query's list takes in shared memory: L rounded up to 32,
+    plus 8, so the lists a warp reads at a time start on distinct banks
+    (the kernel's `list_stride`)."""
+    return -(-list_len // 32) * 32 + 8
+
+
+def k1_shared_bytes(cap: int, list_len: int, stage: int, dtype) -> int:
+    """Dynamic shared memory of one K1 CTA: the staged planes and the lists
+    of its min(cap, 32) query slots (the kernel's `phase_a_smem`)."""
+    slots = min(cap, QUERIES_PER_CTA)
+    return (3 * stage + slots * list_stride(list_len)) * dtype.itemsize
+
+
+def list_budget(cap: int, cw: int, dtype, smem_optin: int) -> tuple[int, int]:
+    """(L, stage) of a K1 launch on a card whose blocks may opt into
+    `smem_optin` bytes of shared memory: the staged raw candidate slots (the
+    whole row where it is narrower than STAGE_BYTES of planes) and the
+    largest multiple of 32 for L that leaves CTAS_PER_SM CTAs room on one
+    SM. Raises where no list fits."""
+    item = dtype.itemsize
+    stage = min(cw, STAGE_BYTES // (3 * item))
+    per_cta = min((smem_optin + 1024) // CTAS_PER_SM, smem_optin) - CTA_RESERVED
+    slots = min(cap, QUERIES_PER_CTA)
+    list_len = ((per_cta - 3 * stage * item) // (slots * item) - 8) // 32 * 32
+    if list_len < 32:
+        raise ValueError(
+            f"phase_a_cells: no list fits {smem_optin} B of shared memory (cap {cap}, {dtype})"
+        )
+    return list_len, stage
+
+
 def phase_a_cells(
     queries,  # (qx, qy, qz, qm): each (n_cells, cap); qm = query mask
     reach2,  # (n_cells, cap) per-query certification radius^2
@@ -120,20 +169,21 @@ def phase_a_cells(
     cap: int,
     n_bisect: int = N_BISECT,
     stream_chunk: int = 0,
+    list_cap: int = 0,
 ):
     """Returns (h, rho, ok) each (n_cells, cap); ok is 1.0 where the row
     certifies (masked-off, or k found with r_k^2 <= reach2).
 
     Shape-generic over cap and the candidate width cw <= MAX_CW. On the
-    card, stream_chunk > 0 caps the candidate slots staged at a time (0: as
-    many as shared memory holds); the results do not depend on it, and a
-    check of that forces streaming with it."""
+    card, stream_chunk > 0 caps the candidate slots staged at a time and
+    list_cap > 0 caps L (0: `list_budget`'s); h and ok do not depend on
+    either, and checks of that force streaming and overflow with them."""
     cx = cands[0]
     if cx.device.type != "cuda":
         return phase_a_cells_plain(
             queries, reach2, cands, m, kh=kh, cap=cap, n_bisect=n_bisect
         )
-    global launches
+    global launches, last_overflow
     n_cells, cw = cx.shape
     dtype, device = cx.dtype, cx.device
     if dtype not in (torch.float32, torch.float64):
@@ -151,14 +201,21 @@ def phase_a_cells(
     ok = torch.empty_like(h)
     if n_cells == 0:
         return h, rho, ok
+    list_len, stage = list_budget(cap, cw, dtype, build.device_limits(device)[1])
+    if stream_chunk > 0:
+        stage = min(stage, stream_chunk)
+    if list_cap > 0:
+        list_len = min(list_len, list_cap)
+    n_over = torch.empty((1,), dtype=torch.int32, device=device)  # zeroed by the entry
     lib = build.load_kernels()["phase_a_cells"]
-    ptrs = build.pointer_array([*queries, reach2, *cands, m_dev, h, rho, ok])
+    ptrs = build.pointer_array([*queries, reach2, *cands, m_dev, h, rho, ok, n_over])
     with torch.cuda.device(device):
         code = lib.sph_phase_a_cells(
-            ptrs, n_cells, cap, cw, kh, n_bisect, int(stream_chunk),
+            ptrs, n_cells, cap, cw, kh, n_bisect, stage, list_len,
             int(dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check("phase_a_cells", code)
     launches += 1
+    last_overflow = n_over
     return h, rho, ok

@@ -41,6 +41,8 @@ torch.set_num_threads(2)
 
 
 NP = {"float64": np.float64, "float32": np.float32}
+H100_SMEM_OPTIN = 227 * 1024  # shared memory a block may opt into on an H100
+H100_SMS = 132
 
 
 def t(a):
@@ -131,6 +133,196 @@ def test_phase_a_cells_shared_memory_covers_every_plannable_row():
     assert cuda_strip_knn.shared_bytes(cw, torch.float64) == 24 * cw
     with pytest.raises(ValueError, match="shared memory"):
         cuda_strip_knn.shared_bytes(27 * 512, torch.float64)
+
+
+def _phase_a_list_form(queries, reach2, cands, m, *, kh, cap, n_bisect, list_len):
+    """K1's algorithm on the card, in torch: each query's in-radius squared
+    distances (d2 <= 1.001 * reach2) in candidate order form its list of at
+    most list_len entries; the bisection, rk2, nfound and rho run over the
+    list; a query with more in-radius candidates takes the full-row form.
+    Returns (h, rho, ok, overflowed)."""
+    qx, qy, qz, qm = queries
+    cx, cy, cz, cm = cands
+    dtype = cx.dtype
+    big = torch.finfo(dtype).max
+    dx = qx[:, :, None] - cx[:, None, :]
+    dy = qy[:, :, None] - cy[:, None, :]
+    dz = qz[:, :, None] - cz[:, None, :]
+    d2 = dx * dx + dy * dy + dz * dz
+    valid_q = qm > 0
+    hi0 = 1.001 * reach2
+    inr = (cm[:, None, :] > 0) & valid_q[:, :, None] & (d2 <= hi0[:, :, None])
+    over = inr.sum(-1) > list_len
+    # in-radius entries first, candidate order kept; +max pads the list
+    order = torch.argsort((~inr).to(torch.int8), dim=-1, stable=True)
+    lst = torch.gather(torch.where(inr, d2, torch.full_like(d2, big)), -1, order)
+    lst = lst[..., :list_len]
+    lo, hi = torch.zeros_like(hi0), hi0
+    for _ in range(n_bisect):
+        mid = 0.5 * (lo + hi)
+        ge = (lst <= mid[..., None]).sum(-1) >= kh
+        lo, hi = torch.where(ge, lo, mid), torch.where(ge, mid, hi)
+    zero = torch.zeros((), dtype=dtype)
+    rk2 = torch.where(lst <= hi[..., None], lst, zero).max(-1).values
+    within = lst <= rk2[..., None]
+    nfound = within.sum(-1)
+    h = torch.sqrt(rk2) / 2.0
+    h_safe = torch.where(h > 0, h, torch.ones((), dtype=dtype))[..., None]
+    w = W(torch.sqrt(torch.where(within, lst, zero)) / h_safe, h_safe)
+    rho = m * torch.where(within, w, zero).sum(-1)
+    ok = (~valid_q | ((nfound >= kh) & (rk2 <= reach2))).to(dtype)
+    h, rho = torch.where(valid_q, h, zero), torch.where(valid_q, rho, zero)
+    if bool(over.any()):
+        full = cuda_strip_knn.phase_a_cells_plain(
+            queries, reach2, cands, m, kh=kh, cap=cap, n_bisect=n_bisect
+        )
+        h, rho, ok = (torch.where(over, f, x) for f, x in zip(full, (h, rho, ok)))
+    return h, rho, ok, over
+
+
+def _block_like_rows(dtype, nb=2, cap=128, cw=2048, kh=32, seed=5):
+    """Rows shaped like the block engine's: nb blocks of cap queries in the
+    unit cube against cw candidate slots over [-0.25, 1.25]^3, 85 %
+    occupied, each query also a candidate; reach2 = (1.5 r_k)^2 for the
+    candidates' mean density, as the h-hint cap gives, and 8 rows whose
+    reach cannot hold kh neighbours; one query slot masked off."""
+    rng = np.random.default_rng(seed)
+    n_occ = int(0.85 * cw)
+    q = [rng.random((nb, cap)).astype(dtype) for _ in range(3)]
+    c = [(rng.random((nb, cw)) * 1.5 - 0.25).astype(dtype) for _ in range(3)]
+    for a in range(3):
+        c[a][:, :cap] = q[a]
+    cm = np.broadcast_to((np.arange(cw) < n_occ).astype(dtype), (nb, cw)).copy()
+    qm = np.ones((nb, cap), dtype)
+    qm[0, 3] = 0.0
+    r_k = (3.0 * kh * 1.5**3 / (4.0 * np.pi * n_occ)) ** (1 / 3)
+    reach2 = np.full((nb, cap), (1.5 * r_k) ** 2, dtype)
+    reach2[1, :8] = (0.3 * r_k) ** 2
+    return q + [qm], reach2, c + [cm], kh
+
+
+@pytest.mark.parametrize("rows", ["class", "block", "overflow"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_phase_a_only_in_radius_candidates_matter(dtype, rows):
+    """K1's list form (bisection over each query's in-radius candidates,
+    the full row where they overflow L) gives the full-row form's h and ok
+    bit for bit and the reference's within its tolerances: on class-like
+    rows (cw = 27 cap, uniform reach), block-like rows (C_b = 2048, a
+    hint-capped reach) and rows where some queries overflow a small L."""
+    td = getattr(torch, dtype)
+    if rows == "block":
+        queries, reach2, cands, kh = _block_like_rows(NP[dtype])
+        cap = queries[0].shape[1]
+        n_bisect = 28 if dtype == "float32" else 68
+    else:
+        queries, reach2, cands, _ = _cell_rows(NP[dtype])
+        cap, kh, n_bisect = 32, 16, cuda_strip_knn.N_BISECT
+    cw = cands[0].shape[1]
+    list_len = (64 if rows == "overflow"
+                else cuda_strip_knn.list_budget(cap, cw, td, H100_SMEM_OPTIN)[0])
+    m = 1.0 / 4000
+    args = (tuple(t(a) for a in queries), t(reach2), tuple(t(a) for a in cands), m)
+    kw = dict(kh=kh, cap=cap, n_bisect=n_bisect)
+    h, rho, ok, over = _phase_a_list_form(*args, **kw, list_len=list_len)
+    h_p, rho_p, ok_p = cuda_strip_knn.phase_a_cells_plain(*args, **kw)
+    assert torch.equal(h, h_p) and torch.equal(ok, ok_p)
+    rho_tol = 1e-12 if dtype == "float64" else 2e-5
+    np.testing.assert_allclose(rho.numpy(), rho_p.numpy(), rtol=rho_tol)
+    valid = queries[3] > 0
+    if rows == "overflow":
+        assert over.numpy()[valid].any() and (~over.numpy())[valid].any()
+    else:
+        assert not over.any()
+    h_r, rho_r, ok_r = phase_a_ref(
+        tuple(jnp.asarray(a) for a in queries), jnp.asarray(reach2),
+        tuple(jnp.asarray(a) for a in cands), m, **kw, interpret=True,
+    )
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_r))
+    h_tol = 1e-12 if dtype == "float64" else 1e-6
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_r), rtol=h_tol)
+    np.testing.assert_allclose(rho.numpy(), np.asarray(rho_r), rtol=rho_tol)
+    assert (ok.numpy()[valid] == 0).any() and (ok.numpy()[valid] == 1).any()
+
+
+@pytest.mark.parametrize("engine", ["class", "block"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_list_budget_fits_every_plannable_row(dtype, engine):
+    """At every (cap, cw) the class and block planners emit, K1's staged
+    planes and lists fit the H100's 227 KB with room for two CTAs an SM
+    (228 KB), and L holds at least 4 kh at kh = 50."""
+    from sphtpu_torch.physics.blocks import BQ, C_MENU
+    from sphtpu_torch.physics.ctiles import CLASS_MENU
+
+    td = getattr(torch, dtype)
+    if engine == "class":  # the class planner's ceiling is cap 128
+        shapes = [(cap_k, 27 * cap) for cap in CLASS_MENU for cap_k in CLASS_MENU
+                  if cap_k <= cap]
+    else:
+        shapes = [(BQ, cw) for cw in C_MENU]
+    for cap, cw in shapes:
+        list_len, stage = cuda_strip_knn.list_budget(cap, cw, td, H100_SMEM_OPTIN)
+        need = cuda_strip_knn.k1_shared_bytes(cap, list_len, stage, td)
+        assert need + cuda_strip_knn.CTA_RESERVED <= H100_SMEM_OPTIN
+        assert 2 * (need + cuda_strip_knn.CTA_RESERVED) <= 228 * 1024
+        assert list_len >= 4 * 50 and list_len % 32 == 0
+        assert 0 < stage <= cw
+        assert cuda_strip_knn.list_stride(list_len) % 32 == 8
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n", [1, 700, 2047, 4100, 20_000, 100_000, 1_000_003])
+def test_split_plan_covers_every_column_once(n, dtype):
+    """K3's column slices tile [0, n) exactly: S slices of whole staged
+    tiles, the last cut at n and none empty; S = 1 at small n."""
+    td = getattr(torch, dtype)
+    rows, threads, n_slices = cuda_gravity.split_plan(n, H100_SMS, td)
+    cols = cuda_gravity.column_slices(n, n_slices, threads)
+    assert rows in (1, 2, 4) and threads % 32 == 0 and threads <= 256
+    assert cols % threads == 0
+    bounds = [(s * cols, min(n, (s + 1) * cols)) for s in range(n_slices)]
+    covered = np.zeros(n, int)
+    for c0, c1 in bounds:
+        assert c1 > c0
+        covered[c0:c1] += 1
+    assert (covered == 1).all()
+    if n < 2 * cuda_gravity.MIN_SLICE_COLS:
+        assert n_slices == 1
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_split_plan_fills_the_card(dtype):
+    """At the headline's N = 1e5 on 132 SMs the sweep's grid holds at least
+    2 CTAs an SM."""
+    td = getattr(torch, dtype)
+    n = 100_000
+    rows, threads, n_slices = cuda_gravity.split_plan(n, H100_SMS, td)
+    ctas = -(-n // (threads * rows)) * n_slices
+    assert n_slices > 1 and ctas >= 2 * H100_SMS
+
+
+def test_split_plan_partials_in_order_match_plain():
+    """The sweep's form: per column slice a partial sum, the S partials
+    added in the order s = 0 .. S - 1, then m applied, matches
+    newton_sweep_plain to 1e-13 of the largest |g| (float64)."""
+    rng = np.random.default_rng(4)
+    n = 2100
+    pos = t(rng.standard_normal((n, 3)))
+    m = 1.0 / n
+    rows, threads, n_slices = cuda_gravity.split_plan(n, H100_SMS, torch.float64)
+    cols = cuda_gravity.column_slices(n, n_slices, threads)
+    assert n_slices > 1
+    acc = torch.zeros((n, 4), dtype=torch.float64)
+    for s in range(n_slices):
+        c = pos[s * cols : (s + 1) * cols]
+        d = pos[:, None, :] - c[None, :, :]
+        r2 = (d * d).sum(-1)
+        inv = torch.where(r2 > 0, torch.rsqrt(torch.where(r2 > 0, r2, 1.0)), 0.0)
+        part = torch.cat([((inv**3)[..., None] * d).sum(1), -inv.sum(1, keepdim=True)], 1)
+        acc = acc + part
+    g_p, p_p = cuda_gravity.newton_sweep_plain(pos, m)
+    scale = float(g_p.abs().max())
+    assert float((m * acc[:, :3] - g_p).abs().max()) <= 1e-13 * scale
+    assert float((m * acc[:, 3] - p_p).abs().max()) <= 1e-13 * float(p_p.abs().max())
 
 
 # ---------------------------------------------------------------- (b) K2

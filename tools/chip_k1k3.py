@@ -1,0 +1,201 @@
+"""K1, K3 and K4 on the main paths' inputs, timed on one NVIDIA GPU for
+one source tree of the port, so that two trees can be compared in one run.
+
+    python3 tools/chip_k1k3.py capture FILE
+    python3 tools/chip_k1k3.py time TREE FILE [--sweep]
+
+`capture` builds the inputs of one force evaluation on each path and saves
+them to FILE: K1's 12 launches on the collapse path
+(bench_data/bb_collapsed.npz, contrast 395, block engine) and its launches
+on the class path (boss_bodenheimer N = 100 000, Kh = 32), K4's launch on
+the exact path (the same scene at Kh = 50, mono-tile engine) and K3's
+positions (that scene, N = 100 000), all float32.
+
+`time` imports `sphtpu_torch` from TREE (a checkout of the port, such as a
+parent commit unpacked with `git archive`), builds its kernels there and
+prints one JSON line: each kernel's CUDA-event median time on those inputs
+(the sum over a path's launches; it holds the wrappers' host work, which a
+short launch waits for) and its device time from torch.profiler (the
+kernels alone, per evaluation; K1's per launch too), with the card's name
+and power limit.
+With --sweep (a tree whose wrappers take `list_cap` and `plan`) it also
+times K1 at smaller list budgets, with each budget's overflow share, and
+K3 at other plans (rows a thread R, column slices S).
+
+Run the trees in turns within one call (parent, change, change, parent):
+two calls may land on two cards.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def to_cpu(x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_cpu(v) for v in x)
+    return x.cpu() if hasattr(x, "cpu") else x
+
+
+def capture(path: str) -> None:
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from sphtpu_torch.engine import params_from_numpy, state_from_numpy
+    from sphtpu_torch.engine.driver import plan_engine
+    from sphtpu_torch.physics import blocks, ctiles, tiles
+
+    def eval_calls(cfg, state, params, h, module, names, bargs=None):
+        res = {"state": state, "params": params, "h_last": h}
+        calls = cs.capture_eval_inputs(res, cfg, module, names, mlargs=bargs)
+        return [[(to_cpu(a), kw) for a, kw in calls[name]] for name in names]
+
+    out = {}
+    d = np.load(cs.COLLAPSE)
+    pos, h0 = d["pos"].astype(np.float64), d["h"].astype(np.float64)
+    state = state_from_numpy(pos, d["vel"], d["K"], float(d["t"]), device=cs.DEVICE)
+    params = params_from_numpy(m=float(d["m"]), gamma=5 / 3, cs0=0.0, alpha=1.0, beta=2.0,
+                               U0=0.0, t_end=1e30, device=cs.DEVICE)
+    base = dict(n=pos.shape[0], kh=cs.KH_COLLAPSE, eos="polytropic", dtype="float32")
+    cfg, bargs = plan_engine(pos, h0, **base, gravity="exact")
+    out["k1_collapse"], = eval_calls(cfg, state, params, cs.dev(h0, torch.float32), blocks,
+                                     ("phase_a_cells",), bargs)
+    with tempfile.TemporaryDirectory() as tmp:
+        for kh, key, module, name in ((cs.KH_CLASS, "k1_class", ctiles, "phase_a_cells"),
+                                      (50, "k4_exact", tiles, "phase_a_tile")):
+            base, state, params, pos, h0 = cs.load_scene(
+                os.path.join(tmp, key), "boss_bodenheimer", cs.N_MAIN, kh)
+            cfg, _ = plan_engine(pos, h0, **base, gravity="exact")
+            out[key], = eval_calls(cfg, state, params, cs.dev(h0, torch.float32), module,
+                                   (name,))
+    out["k3_pos"] = to_cpu(state.pos)
+    torch.save(out, path)
+    print(json.dumps({k: len(v) if isinstance(v, list) else list(v.shape)
+                      for k, v in out.items()}))
+
+
+def time_tree(tree: str, path: str, sweep: bool) -> None:
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from sphtpu_torch.kernels import cuda_gravity, cuda_knn, cuda_strip_knn
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA device")
+    dev = "cuda"
+    data = torch.load(path, weights_only=False)
+
+    def to_dev(x):
+        if isinstance(x, (tuple, list)):
+            return type(x)(to_dev(v) for v in x)
+        return x.to(dev) if hasattr(x, "to") else x
+
+    def median_ms(fn, iters=7):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return statistics.median(times)
+
+    def calls_ms(fn, calls, **extra):
+        return sum(median_ms(lambda: fn(*a, **kw, **extra)) for a, kw in calls)
+
+    def device_ms(fn, calls, iters=5):
+        """Device time of the hand-written kernels over one pass of `calls`,
+        and each launch's (ms, the median over iters)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        for a, kw in calls:
+            fn(*a, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                for a, kw in calls:
+                    fn(*a, **kw)
+            torch.cuda.synchronize()
+        per = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "sph::" in e.name]
+        if not per:
+            return None, None
+        k = len(per) // iters
+        launches = [statistics.median(per[i::k]) for i in range(k)]
+        return sum(per) / iters, launches
+
+    k1 = {key: [(to_dev(a), kw) for a, kw in data[key]] for key in ("k1_collapse", "k1_class")}
+    k4 = [(to_dev(a), kw) for a, kw in data["k4_exact"]]
+    pos = data["k3_pos"].to(dev)
+    m = 1.0 / pos.shape[0]
+    out = {"tree": tree, "card": card_line(), "n_k3": pos.shape[0]}
+    out["k1_collapse_ms"] = calls_ms(cuda_strip_knn.phase_a_cells, k1["k1_collapse"])
+    out["k1_class_ms"] = calls_ms(cuda_strip_knn.phase_a_cells, k1["k1_class"])
+    out["k4_exact_ms"] = calls_ms(cuda_knn.phase_a_tile, k4)
+    out["k3_ms"] = median_ms(lambda: cuda_gravity.newton_sweep(pos, m))
+    for key, fn, calls in (("k1_collapse", cuda_strip_knn.phase_a_cells, k1["k1_collapse"]),
+                           ("k1_class", cuda_strip_knn.phase_a_cells, k1["k1_class"]),
+                           ("k4_exact", cuda_knn.phase_a_tile, k4),
+                           ("k3", cuda_gravity.newton_sweep, [((pos, m), {})])):
+        out[f"{key}_device_ms"], launches = device_ms(fn, calls)
+        if key != "k3":
+            out[f"{key}_device_ms_of_launches"] = launches
+    if sweep:
+        out["k1_list_caps"] = {}
+        for cap_l in (672, 448, 320, 224):
+            row = {}
+            for key, calls in k1.items():
+                valid = over = 0
+                for a, kw in calls:
+                    cuda_strip_knn.phase_a_cells(*a, **kw, list_cap=cap_l)
+                    valid += int((a[0][3] > 0).sum())
+                    over += int(cuda_strip_knn.last_overflow.item())
+                row[key] = {"ms": calls_ms(cuda_strip_knn.phase_a_cells, calls, list_cap=cap_l),
+                            "overflow_share": over / max(valid, 1)}
+            out["k1_list_caps"][cap_l] = row
+        n = pos.shape[0]
+        plans = [(r, 256, s) for r in (1, 2, 4) for s in (1, 11, 22, 44, 88)] + [(4, 128, 44)]
+        out["k3_plans"] = []
+        for rows, threads, n_slices in plans:
+            n_slices = -(-n // cuda_gravity.column_slices(n, n_slices, threads))
+            plan = (rows, threads, n_slices)
+            out["k3_plans"].append({
+                "R": rows, "threads": threads, "S": n_slices,
+                "ms": median_ms(lambda: cuda_gravity.newton_sweep(pos, m, plan=plan))})
+        out["k3_default_plan"] = list(cuda_gravity.split_plan(
+            n, torch.cuda.get_device_properties(0).multi_processor_count, pos.dtype))
+    print(json.dumps(out), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) >= 3 and sys.argv[1] == "capture":
+        capture(sys.argv[2])
+    elif len(sys.argv) >= 4 and sys.argv[1] == "time":
+        time_tree(sys.argv[2], sys.argv[3], "--sweep" in sys.argv[4:])
+    else:
+        print(__doc__)
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
