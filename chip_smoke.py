@@ -41,14 +41,18 @@ path's final state gives it (K2 carries the exact and the P3M paths'
 numbers under "on_exact_path" and "on_p3m_path", K4 the exact path's under
 "on_exact_path", K1 the collapse path's under "on_collapse_path", K3
 the exact path's under "on_exact_path": every kernel is held against its
-plain version on the inputs of every path that launches it). K1 also
-reports the share of valid queries whose in-radius candidates overflowed
-its list, and on every input it is checked with the row forced to stream
-in 1 000-slot pieces (no bit may change) and with its list forced to
-overflow (h and ok bit-identical); K3 reports its plan (R, S, grid) and
-that two launches are bit-identical. A time ("ms") is CUDA events around
-the wrapper, so a short launch's time holds the wrapper's host work
-(tools/chip_k1k3.py gives K1's, K3's and K4's device time alone). A bound
+plain version on the inputs of every path that launches it). K1 and K4
+also report the share of valid queries whose in-radius candidates
+overflowed their list, and on every input they are checked with the row
+forced to stream in 1 000-slot pieces (no bit may change) and with the
+list forced to overflow (h and ok bit-identical); K3 reports its plan (R,
+S, grid) and that two launches are bit-identical; K5 is held against its
+plain version in float32 and float64 on every input (the synthetic blocks,
+the collapse path's and both gravity modes of the contrast-1001 state),
+must give two bit-identical launches, and reports its work units. A time
+("ms") is CUDA events around the wrapper, so a short launch's time holds
+the wrapper's host work (tools/chip_k1k3.py gives K1's, K3's, K4's and
+K5's device time alone). A bound
 counts the bytes the
 function needs: the occupancy plane of a padded slot layout whole, its
 other planes at the occupied slots only; phase A's operations count the
@@ -99,8 +103,8 @@ N_NEWTON = {torch.float32: 100_000, torch.float64: 20_000}
 N_NEWTON_ONE_SLICE = 1_500  # small enough that K3's plan has one column slice
 # synthetic block rows of the kernels phase: candidate widths C_b and blocks
 # per width (f32 from 24 576 and f64 from 12 288 on, K1 streams its rows)
-BLOCK_ROWS = {torch.float32: ((4096, 24576, 32768), 16),
-              torch.float64: ((4096, 12288, 32768), 4)}
+BLOCK_ROWS = {torch.float32: ((512, 4096, 24576, 32768), 16),
+              torch.float64: ((512, 4096, 12288, 32768), 4)}
 
 # Published peaks of one H100 SXM (dense, no sparsity): float32 outside the
 # tensor cores, float64 likewise, and HBM bandwidth.
@@ -281,29 +285,48 @@ FORCED_LIST = 32  # L of the forced-overflow check: below kh, so every query ove
 FORCED_STAGE = 1000  # raw slots a piece of the forced-streaming check
 
 
-def k1_variants(args, kw, out_k, out_p, rho_rtol):
-    """K1's launch `out_k` on `args` against its own variants: the share of
-    the valid queries whose in-radius candidates overflowed L; the rows
-    forced to stream in FORCED_STAGE-slot pieces, which must not change a
-    bit; L forced to FORCED_LIST, which sends the queries to the full-row
-    sweep: h and ok bit-identical to out_k, rho within the bar against the
-    plain version."""
-    queries, reach2, cands = args[0], args[1], args[2]
-    cuda_strip_knn.phase_a_cells(*args, **kw)
+def phase_a_variants(launch, module, queries, reach2, cands, out_k, out_p, rho_rtol):
+    """A phase-A kernel's launch `out_k` (K1 or K4; launch(**extra) launches
+    it again on the same inputs, module.last_overflow counts its
+    overflowed queries) against its own variants: the share of the valid
+    queries whose in-radius candidates overflowed L; the rows forced to
+    stream in FORCED_STAGE-slot pieces, which must not change a bit; L
+    forced to FORCED_LIST, which sends the queries to the full-row sweep:
+    h and ok bit-identical to out_k, rho within the bar against the plain
+    version."""
+    launch()
     valid = int((queries[3] > 0).sum())
-    over = int(cuda_strip_knn.last_overflow.item())
-    out_s = cuda_strip_knn.phase_a_cells(*args, stream_chunk=FORCED_STAGE, **kw)
+    over = int(module.last_overflow.item())
+    out_s = launch(stream_chunk=FORCED_STAGE)
     if not all(bool(torch.equal(a, b)) for a, b in zip(out_k, out_s)):
-        raise AssertionError("phase_a_cells: rows streamed in pieces differ")
-    out_f = cuda_strip_knn.phase_a_cells(*args, list_cap=FORCED_LIST, **kw)
-    forced = int(cuda_strip_knn.last_overflow.item())
+        raise AssertionError(f"{module.__name__}: rows streamed in pieces differ")
+    out_f = launch(list_cap=FORCED_LIST)
+    forced = int(module.last_overflow.item())
     if not (bool(torch.equal(out_f[0], out_k[0])) and bool(torch.equal(out_f[2], out_k[2]))):
-        raise AssertionError("phase_a_cells: forced overflow changes h or ok")
+        raise AssertionError(f"{module.__name__}: forced overflow changes h or ok")
     check_phase_a(*out_f, *out_p, queries, reach2, cands, rho_rtol)
     return {"valid_queries": valid, "overflowed": over,
             "overflow_share": over / max(valid, 1),
             "forced_overflow_share": forced / max(valid, 1),
             "forced_overflow_h_ok_equal": True, "streamed_equal": True}
+
+
+def k1_variants(args, kw, out_k, out_p, rho_rtol):
+    """`phase_a_variants` of a K1 launch on args = (queries, reach2, cands, m)."""
+    return phase_a_variants(lambda **x: cuda_strip_knn.phase_a_cells(*args, **kw, **x),
+                            cuda_strip_knn, args[0], args[1], args[2], out_k, out_p, rho_rtol)
+
+
+def k4_variants(args, kw, out_k, out_p, rho_rtol):
+    """`phase_a_variants` of a K4 launch on args = (cands, s2, m): the queries
+    are the centre cell's slots, every query's reach s2."""
+    cands, s2 = args[0], args[1]
+    cap = kw["cap"]
+    queries = tuple(c[:, 13 * cap : 14 * cap] for c in cands)
+    reach2 = torch.as_tensor(s2, dtype=cands[0].dtype, device=DEVICE).expand(
+        cands[0].shape[0], cap)
+    return phase_a_variants(lambda **x: cuda_knn.phase_a_tile(*args, **kw, **x), cuda_knn,
+                            queries, reach2, cands, out_k, out_p, rho_rtol)
 
 
 def check_phase_b(outs_k, outs_p, dtype, names=B_OUTPUTS, kernel="phase_b_tiles"):
@@ -436,11 +459,14 @@ def check_newton(pos, m):
 def kernels_k4(rng, kh, m):
     """K4 vs its plain version on synthetic mono-tile rows: the queries are
     the centre cell of each 27-cell row, one uniform s2 (the unit cell
-    edge squared, so most rows certify and the sparser ones do not)."""
+    edge squared, so most rows certify and the sparser ones do not), with
+    `k4_variants`' checks and overflow shares (at cap 160 and 70 %
+    occupancy a query has ~470 in-radius candidates: none overflows L =
+    672 in float32, most overflow L = 320 in float64)."""
     cases = []
     for dtype in (torch.float32, torch.float64):
         n_rows = ROWS_F32 if dtype == torch.float32 else ROWS_F64
-        for cap in (64, 160):
+        for cap in (128, 160):
             t, sl, cw = synthetic_rows(rng, n_rows, cap, cap, dtype, 0.7 * cap)
             t["m"][3, sl] = 0  # one cell with no particle
             cands = tuple(t[k] for k in ("x", "y", "z", "m"))
@@ -448,19 +474,21 @@ def kernels_k4(rng, kh, m):
             rho_rtol = 2e-5 if dtype == torch.float32 else 1e-12
             # s2 = 1: most rows certify; s2 = 0.05: no occupied row can
             for s2 in (1.0, 0.05):
-                h_k, rho_k, ok_k = cuda_knn.phase_a_tile(cands, s2, m, kh=kh, cap=cap)
+                kw = dict(kh=kh, cap=cap)
+                h_k, rho_k, ok_k = cuda_knn.phase_a_tile(cands, s2, m, **kw)
                 sync()
-                res_p = cuda_knn.phase_a_tile_plain(cands, s2, m, kh=kh, cap=cap)
+                res_p = cuda_knn.phase_a_tile_plain(cands, s2, m, **kw)
                 reach2 = torch.full((n_rows, cap), s2, dtype=dtype, device=DEVICE)
                 err, ties = check_phase_a(
                     h_k, rho_k, ok_k, *res_p, queries, reach2, cands, rho_rtol
                 )
+                variants = k4_variants((cands, s2, m), kw, (h_k, rho_k, ok_k), res_p, rho_rtol)
                 if not bool((ok_k[3] == 1).all() and (h_k[3] == 0).all()):
                     raise AssertionError("phase_a_tile: empty cell row wrong")
                 cases.append({
                     "dtype": str(dtype)[6:], "cap": cap, "rows": n_rows, "s2": s2,
                     "k4": {"rho_max_abs_err": err, "rho_rtol": rho_rtol, "tie_rows": ties,
-                           "rows_failing_cert": int((ok_k == 0).any(1).sum())},
+                           "rows_failing_cert": int((ok_k == 0).any(1).sum()), **variants},
                 })
             if not bool((ok_k[queries[3] > 0] == 0).all()):
                 raise AssertionError("phase_a_tile: rows certify beyond s2")
@@ -561,11 +589,75 @@ def grouped_layout(cf):
 C_NAMES = "sax say saz svisc sgx sgy sgz sgp".split()
 
 
+def cast_args(args, dtype):
+    """Kernel arguments with every floating tensor (also inside tuples)
+    cast to dtype."""
+    def cast(x):
+        if isinstance(x, (tuple, list)):
+            return type(x)(cast(v) for v in x)
+        return x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x
+    return tuple(cast(a) for a in args)
+
+
+def plain_kw(kw):
+    """K5's keyword arguments as its plain version takes them (the work
+    units are the kernel's)."""
+    return {k: v for k, v in kw.items() if k != "units"}
+
+
+def k5_units(qfields, cstack, kw):
+    """K5's work units for a launch (`kw["units"]` where the caller passes
+    the plan's, else `unit_table`'s) and their sizes: count, slots of the
+    largest and smallest, and their work in occupied (query, slot) pairs."""
+    units = kw.get("units")
+    if units is None:
+        units = tuple(torch.as_tensor(a).to(DEVICE) for a in cuda_grouped_pairs.unit_table(
+            tuple(kw["qblk"]), tuple(kw["first"]), qfields[0].shape[0]))
+    u = units[0].long()
+    occ = torch.cat([torch.zeros(1, dtype=torch.long, device=DEVICE),
+                     torch.cumsum((cstack[:, 9] > 0).sum(1), 0)])
+    work = (occ[u[:, 1] + u[:, 2]] - occ[u[:, 1]]) * (qfields[6] > 0).sum(1)[u[:, 0]]
+    slots = u[:, 2] * cuda_grouped_pairs.CW
+    return units, {"n_units": int(u.shape[0]), "query_blocks": int(qfields[0].shape[0]),
+                   "unit_slots_max_min": [int(slots.max()), int(slots.min())],
+                   "unit_work_max_min": [int(work.max()), int(work.min())]}
+
+
+def k5_check(args, kw, dtypes=(torch.float32, torch.float64)):
+    """K5 on one launch's inputs (args, kw as phase_b_grouped takes them),
+    cast to each of `dtypes`: within check_phase_b's tolerance of its plain
+    version, and two launches bit-identical (no output uses an atomic). Also
+    the launch's work units (`k5_units`). Returns a summary; raises on a
+    failed check."""
+    units, summary = k5_units(args[0], args[1], kw)
+    kw = dict(kw, units=units)
+    for dtype in dtypes:
+        a = cast_args(args, dtype)
+        qo_k, co_k = cuda_grouped_pairs.phase_b_grouped(*a, **kw)
+        qo_k2, co_k2 = cuda_grouped_pairs.phase_b_grouped(*a, **kw)
+        sync()
+        if not (all(bool(torch.equal(x, y)) for x, y in zip(qo_k, qo_k2))
+                and bool(torch.equal(co_k, co_k2))):
+            raise AssertionError(f"phase_b_grouped {dtype}: two launches differ")
+        qo_p, co_p = cuda_grouped_pairs.phase_b_grouped_plain(*a, **plain_kw(kw))
+        rq, rtol, atol = check_phase_b(qo_k, qo_p, dtype, kernel="phase_b_grouped")
+        rc = check_phase_b(co_k.transpose(0, 1), co_p.transpose(0, 1), dtype,
+                           names=C_NAMES, kernel="phase_b_grouped")[0]
+        err = max(max(float((x - y).abs().max()) for x, y in zip(qo_k, qo_p) if x.numel()),
+                  float((co_k - co_p).abs().max()))
+        summary[str(dtype)[6:]] = {"max_err_over_scale": max(rq, rc), "max_abs_err": err,
+                                   "rtol": rtol, "atol_of_scale": atol,
+                                   "runs_bit_identical": True}
+        del qo_k, co_k, qo_k2, co_k2, qo_p, co_p
+    return summary
+
+
 def kernels_blocks(rng, m):
-    """K1 at block widths (C_b from 4096 to 32 768: resident and streamed
+    """K1 at block widths (C_b from 512 to 32 768: resident and streamed
     rows; a resident row also forced to stream, which must not change a
-    bit), K5 and K6 against their plain versions on synthetic block rows,
-    float32 (28 bisection passes) and float64 (68), both gravity modes."""
+    bit), K5 (`k5_check`) and K6 against their plain versions on synthetic
+    block rows, float32 (28 bisection passes) and float64 (68), both
+    gravity modes."""
     kh = 50
     cases = []
     for dtype, (widths, nb) in BLOCK_ROWS.items():
@@ -596,16 +688,10 @@ def kernels_blocks(rng, m):
                 wq = check_phase_b(qo_k, qo_p, dtype, kernel="phase_b_blocks")[0]
                 wc = check_phase_b(co_k, co_p, dtype, names=C_NAMES, kernel="phase_b_blocks")[0]
                 cstack, qblk, first = grouped_layout(cf)
-                kwg = dict(kwb, qblk=qblk, first=first)
-                gq_k, gc_k = cuda_grouped_pairs.phase_b_grouped(qf, cstack, *args, **kwg)
-                sync()
-                gq_p, gc_p = cuda_grouped_pairs.phase_b_grouped_plain(qf, cstack, *args, **kwg)
-                gq = check_phase_b(gq_k, gq_p, dtype, kernel="phase_b_grouped")[0]
-                gcw = check_phase_b(gc_k.transpose(0, 1), gc_p.transpose(0, 1), dtype,
-                                    names=C_NAMES, kernel="phase_b_grouped")[0]
+                k5 = k5_check((qf, cstack, *args), dict(kwb, qblk=qblk, first=first),
+                              dtypes=(dtype,))
                 case[f"k5_k6_{'p3m' if p3m else 'exact'}"] = {
-                    "k6_query_err_over_scale": wq, "k6_cand_err_over_scale": wc,
-                    "k5_query_err_over_scale": gq, "k5_cand_err_over_scale": gcw}
+                    "k6_query_err_over_scale": wq, "k6_cand_err_over_scale": wc, "k5": k5}
             cases.append(case)
             del queries, cands, qf, cf, out_k, out_p
             torch.cuda.empty_cache()
@@ -986,6 +1072,7 @@ def phase_mono_kernel_times(res, cfg, counts):
     queries = tuple(c[:, 13 * cap : 14 * cap] for c in cands)
     reach2 = torch.as_tensor(s2, dtype=dtype, device=DEVICE).expand(cands[0].shape[0], cap)
     err, ties = check_phase_a(*out_k, *out_p, queries, reach2, cands, 2e-5)
+    variants = k4_variants(args, kw, out_k, out_p, 2e-5)
     ms = time_ms(lambda: cuda_knn.phase_a_tile(*args, **kw))
     plain_ms = time_ms(lambda: cuda_knn.phase_a_tile_plain(*args, **kw), iters=1, warmup=0)
     flops, pairs, inside = phase_a_ops(queries, reach2, cands, kw["kh"],
@@ -995,7 +1082,9 @@ def phase_mono_kernel_times(res, cfg, counts):
     k4 = kernel_entry("phase_a_tile", counts, err, ms, plain_ms, flops,
                       slot_bytes(cands[3], 3) + nbytes(*out_k), peak, tie_rows=ties,
                       rows=cands[0].shape[0], cap=cap, occupied_pairs=pairs,
-                      pairs_in_radius=inside)
+                      pairs_in_radius=inside, **variants,
+                      list_len_stage=list(cuda_strip_knn.list_budget(
+                          cap, 27 * cap, dtype, build.device_limits(DEVICE)[1])))
 
     # the tail: one launch over every cell row
     tail = None
@@ -1239,30 +1328,27 @@ def phase_collapse_kernels(res, cfg, counts, gpu_line):
           **k1, "c_b_of_launches": [args[2][0].shape[1] for args, _ in calls["phase_a_cells"]],
           "n_bisect": calls["phase_a_cells"][0][1]["n_bisect"]}
 
-    # K5, one launch
+    # K5, one launch: also in float64, and two launches bit-identical
     (args, kw), = calls["phase_b_grouped"]
     qfields, cstack = args[0], args[1]
-    qo_k, co_k = cuda_grouped_pairs.phase_b_grouped(*args, **kw)
-    qo_p, co_p = cuda_grouped_pairs.phase_b_grouped_plain(*args, **kw)
-    rq = check_phase_b(qo_k, qo_p, dtype, kernel="phase_b_grouped")[0]
-    rc, rtol, atol = check_phase_b(co_k.transpose(0, 1), co_p.transpose(0, 1), dtype,
-                                   names=C_NAMES, kernel="phase_b_grouped")
-    err = max(max(float((a - b).abs().max()) for a, b in zip(qo_k, qo_p) if a.numel()),
-              float((co_k - co_p).abs().max()))
+    checks5 = k5_check(args, kw)
     ms = time_ms(lambda: cuda_grouped_pairs.phase_b_grouped(*args, **kw), iters=3)
-    plain_ms = time_ms(lambda: cuda_grouped_pairs.phase_b_grouped_plain(*args, **kw),
+    plain_ms = time_ms(lambda: cuda_grouped_pairs.phase_b_grouped_plain(*args, **plain_kw(kw)),
                        iters=1, warmup=0)
     qblk = torch.as_tensor(kw["qblk"], device=DEVICE)
     total, inside = block_pairs(qfields, tuple(cstack[:, k] for k in (0, 1, 2, 9)), qblk,
                                 args[6])
+    qo_k, co_k = cuda_grouped_pairs.phase_b_grouped(*args, **kw)
     byts = (slot_bytes(qfields[6], 10) + slot_bytes(cstack[:, 9], 9)
             + nbytes(*qo_k, co_k))
-    k5 = kernel_entry("phase_b_grouped", counts, err, ms, plain_ms,
+    f32 = checks5.pop("float32")
+    k5 = kernel_entry("phase_b_grouped", counts, f32["max_abs_err"], ms, plain_ms,
                       pairs_ops(total, inside, kw["p3m"]), byts, peak,
-                      max_err_over_scale=max(rq, rc),
-                      tolerance={"rtol": rtol, "atol_of_scale": atol},
-                      chunks=int(cstack.shape[0]), query_blocks=int(qfields[0].shape[0]),
-                      occupied_pairs=total, pairs_in_visibility=inside,
+                      max_err_over_scale=f32["max_err_over_scale"],
+                      tolerance={"rtol": f32["rtol"], "atol_of_scale": f32["atol_of_scale"]},
+                      runs_bit_identical=True, float64=checks5.pop("float64"),
+                      chunks=int(cstack.shape[0]), occupied_pairs=total,
+                      pairs_in_visibility=inside, **checks5,
                       chunks_a_block_min_max=[min(cb for cb, _ in cfg.blocks[0]) // 512,
                                               max(cb for cb, _ in cfg.blocks[0]) // 512])
 
@@ -1357,8 +1443,9 @@ def phase_collapse_vs_gather(res, cfg, bargs, gpu_line):
 
 def phase_deep_state(gpu_line):
     """bb_collapsed_deep.npz (contrast 1001): the block plan and one
-    evaluation in each gravity mode must certify; the P3M force error
-    against the exact sweep within the bars of tests/test_mesh_gravity.py."""
+    evaluation in each gravity mode must certify; K5 on each evaluation's
+    inputs (`k5_check`, float32 and float64); the P3M force error against
+    the exact sweep within the bars of tests/test_mesh_gravity.py."""
     from sphtpu_torch.engine import params_from_numpy
 
     d = np.load(COLLAPSE_DEEP)
@@ -1367,7 +1454,7 @@ def phase_deep_state(gpu_line):
     p = params_from_numpy(m=float(d["m"]), gamma=5 / 3, cs0=0.0, alpha=1.0, beta=2.0, U0=0.0,
                           t_end=1e30, device=DEVICE)
     h = dev(h_h, torch.float32)
-    g, phi, plans, ms = {}, {}, {}, {}
+    g, phi, plans, ms, k5 = {}, {}, {}, {}, {}
     for grav in ("exact", "p3m"):
         plan = blocks.plan_blocks(pos_h, h_h, KH_COLLAPSE, gravity=grav)
         if plan is None:
@@ -1386,9 +1473,23 @@ def phase_deep_state(gpu_line):
                 idx_tables=tables,
             )
 
-        red, gcorr, ok = evaluate()
+        calls = {"phase_b_grouped": []}
+        orig = blocks.phase_b_grouped
+
+        def rec(*a, **kw):
+            calls["phase_b_grouped"].append((a, kw))
+            return orig(*a, **kw)
+
+        blocks.phase_b_grouped = rec
+        try:
+            red, gcorr, ok = evaluate()
+        finally:
+            blocks.phase_b_grouped = orig
         if not bool(ok):
             raise AssertionError(f"the deep state's {grav} evaluation does not certify")
+        (a5, kw5), = calls["phase_b_grouped"]
+        k5[grav] = k5_check(a5, kw5)
+        del calls, a5, kw5
         ms[grav] = time_ms(evaluate, iters=3)
         if grav == "p3m":
             ghat = greens_hat(cfg.mesh_pad, cfg.sigma_cells, torch.float32, DEVICE)
@@ -1412,7 +1513,7 @@ def phase_deep_state(gpu_line):
               "momentum < 1e-5 of |g|": mom < 1e-5}
     failed = [k for k, v in checks.items() if not v]
     say("deep_state", card=gpu_line, scene="bb_collapsed_deep.npz (contrast 1001) N=100000 "
-        "Kh=50 float32", plans=plans, block_eval_ms=ms, certified=True,
+        "Kh=50 float32", plans=plans, block_eval_ms=ms, certified=True, k5=k5,
         g_err_rms_over_rms_g=err, phi_rel_rms=phi_rel, momentum_over_rms_g=mom, failed=failed)
     if failed:
         raise AssertionError(f"deep-state checks failed: {failed}")
@@ -1561,7 +1662,9 @@ def main() -> int:
         "runs_bit_identical", "plan")}
     k4["on_exact_path"] = {k: k4_exact[k] for k in (
         "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "tie_rows",
-        "rows", "cap", "occupied_pairs", "pairs_in_radius")}
+        "rows", "cap", "occupied_pairs", "pairs_in_radius", "valid_queries", "overflowed",
+        "overflow_share", "forced_overflow_share", "forced_overflow_h_ok_equal",
+        "streamed_equal", "list_len_stage")}
     entries += [k4, tail, k5, k6]
     for e in entries:
         e["launches_by_path"] = {path: c[e["name"]] for path, c in by_path.items()}

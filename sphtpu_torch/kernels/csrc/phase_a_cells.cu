@@ -31,8 +31,8 @@
 // with fewer particles than the capacity) writes its outputs and leaves
 // before it stages anything.
 //
-// K1 (phase_a_cells) reads the row ONCE: each query's lanes take rounds of
-// 8 consecutive candidates, and a ballot gives every d2 <= hi0 its slot in
+// Both entries read the row ONCE: each query's lanes take rounds of 8
+// consecutive candidates, and a ballot gives every d2 <= hi0 its slot in
 // the query's list in shared memory, in candidate order. The n_bisect
 // passes, rk2, nfound and rho then run over that list only (lane sub takes
 // entries sub mod 8). The counts are integers, so h and ok equal the
@@ -41,9 +41,9 @@
 // again on every pass where it is streamed), and the kernel counts it in
 // *n_over. Staging issues its loads a few steps ahead, and the collect
 // loop computes 4 rounds before their votes, so neither waits out one
-// load latency at a time.
-// K4 (phase_a_tile) has no list: it runs the full-row sweep for every
-// query, recomputing d2 from shared memory on every pass.
+// load latency at a time. K4's row (27 cap slots, 4 320 at cap 160) is
+// wider than the staging width, so it streams in pieces for the one
+// collect pass; only an overflowed query's block stages it again.
 #include "common.cuh"
 
 namespace sph {
@@ -68,8 +68,8 @@ struct PhaseAArgs {
   int kh;
   int n_bisect;
   int chunk;  // raw candidate slots staged at a time (>= cw: the row stays resident)
-  int list_len;  // K1: in-radius candidates a query's list holds (L)
-  int* n_over;   // K1: queries whose in-radius candidates overflowed L
+  int list_len;  // in-radius candidates a query's list holds (L)
+  int* n_over;   // queries whose in-radius candidates overflowed L
 };
 
 // Rounds of 8 candidates K1's collect loop computes before it votes.
@@ -87,7 +87,7 @@ __device__ __forceinline__ T spline_w(T qq) {
                     : (qq <= T(2) ? T(0.25) * (two_m * two_m * two_m) : T(0));
 }
 
-// K1's list path for the calling thread's query slot. Every thread of the
+// The list path for the calling thread's query slot. Every thread of the
 // block calls it (the row is staged inside). Returns true where the query
 // overflowed its list; a listed query has written its h, rho and ok, a
 // masked-off slot its defaults.
@@ -232,10 +232,10 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
     __syncthreads();
     return kept;
   };
-  // K1's staging: the same compaction, with the loads of AHEAD steps of
-  // 256 slots issued before their compaction steps, so one memory latency
-  // serves them all (AHEAD * 256 covers K1's staging width, 2048 slots in
-  // float32 and 1024 in float64)
+  // The collect pass's staging: the same compaction, with the loads of
+  // AHEAD steps of 256 slots issued before their compaction steps, so one
+  // memory latency serves them all (AHEAD * 256 covers the staging width,
+  // 2048 slots in float32 and 1024 in float64)
   auto stage_ahead = [&](int c0) {
     constexpr int AHEAD = sizeof(T) == 4 ? 8 : 4;
     const int c1 = (c0 + a.chunk < a.cw) ? c0 + a.chunk : a.cw;
@@ -270,7 +270,7 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
     return kept;
   };
   const bool resident = a.chunk >= a.cw;
-  const int n_resident = resident ? (MONO ? stage(0) : stage_ahead(0)) : 0;
+  const int n_resident = resident ? stage_ahead(0) : 0;
 
   // Every thread stays to the end (streaming stages the row again on each
   // pass); only the lanes of a query slot that a pass is for compute.
@@ -279,16 +279,12 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
   const T qz = qvalid ? (MONO ? cz[centre + q] : a.qz[qi]) : T(0);
   const T r2 = qvalid ? (MONO ? a.reach2[0] : a.reach2[qi]) : T(0);
 
-  // queries the full-row sweep below computes for: every occupied one in
-  // K4, only the overflowed ones in K1
-  bool sweep = qvalid;
-  if constexpr (!MONO) {
-    const bool over = collect_and_bisect(a, sx, sy, sz, stage_ahead, resident, n_resident,
-                                         qvalid, q, qi, sub, qx, qy, qz, r2);
-    if (over && sub == 0) atomicAdd(a.n_over, 1);
-    sweep = over;
-    if (!__syncthreads_or(over)) return;
-  }
+  // the collect pass and the list's passes; the full-row sweep below
+  // computes only for the queries that overflowed their list
+  const bool sweep = collect_and_bisect(a, sx, sy, sz, stage_ahead, resident, n_resident, qvalid,
+                                        q, qi, sub, qx, qy, qz, r2);
+  if (sweep && sub == 0) atomicAdd(a.n_over, 1);
+  if (!__syncthreads_or(sweep)) return;
 
   // One pass over the row's occupied candidates. Lane `sub` of a query takes
   // the candidates whose index in the compacted row is sub mod 8, in order,
@@ -343,17 +339,7 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
         wsum += ct * w;
       })
 #undef SPH_FOR_EACH_CAND
-  if (q >= a.cap) return;
-  if (!sweep) {
-    // off-mask rows: h = rho = 0, ok = 1 (all lanes of the group agree);
-    // K1's listed queries have written theirs
-    if (!qvalid && sub == 0) {
-      a.h[qi] = T(0);
-      a.rho[qi] = T(0);
-      a.ok[qi] = T(1);
-    }
-    return;
-  }
+  if (q >= a.cap || !sweep) return;  // listed and masked-off queries have written theirs
   nfound = group_sum<int>(nfound);
   wsum = group_sum<T>(wsum);
 
@@ -364,47 +350,24 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_a_kernel(PhaseAArgs<T> a) 
   }
 }
 
-// K4's raw candidate slots a block stages at a time: the whole row when its
-// three planes fit the shared memory a block may opt into (the wrapper
-// refuses wider rows), else the most that fit, a multiple of the block's
-// threads.
+// Dynamic shared memory of a launch: the staged planes and the lists of
+// the block's query slots (min(cap, 32) of them).
 template <typename T>
-int stage_chunk(int cw, int* chunk) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return int(e);
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return int(e);
-  const int fit = (optin - 1024) / int(3 * sizeof(T)) / TILE_THREADS * TILE_THREADS;
-  const int c = cw < fit ? cw : fit;
-  *chunk = c > 0 ? c : 1;
-  return 0;
-}
-
-// Dynamic shared memory of a launch: the staged planes, and for K1 the
-// lists of the block's query slots (min(cap, 32) of them).
-template <typename T, bool MONO>
 size_t phase_a_smem(const PhaseAArgs<T>& a) {
   const int slots = a.cap < QUERIES_PER_BLOCK ? a.cap : QUERIES_PER_BLOCK;
-  const size_t lists = MONO ? 0 : size_t(slots) * list_stride(a.list_len);
-  return (size_t(3) * a.chunk + lists) * sizeof(T);
+  return (size_t(3) * a.chunk + size_t(slots) * list_stride(a.list_len)) * sizeof(T);
 }
 
 template <typename T, bool MONO>
 int launch_phase_a(PhaseAArgs<T> a, int n_cells, cudaStream_t stream) {
   if (n_cells <= 0) return 0;
+  if (a.chunk <= 0 || a.list_len <= 0) return int(cudaErrorInvalidValue);
   const dim3 grid(n_cells, (a.cap + QUERIES_PER_BLOCK - 1) / QUERIES_PER_BLOCK);
-  const size_t smem = phase_a_smem<T, MONO>(a);
-  if (MONO) {
-    cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<T, MONO>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return int(e);
-  } else {
-    const int err = fits_one_cta(phase_a_kernel<T, MONO>, TILE_THREADS, smem);
-    if (err) return err;
-    cudaError_t e = cudaMemsetAsync(a.n_over, 0, sizeof(int), stream);
-    if (e != cudaSuccess) return int(e);
-  }
+  const size_t smem = phase_a_smem<T>(a);
+  const int err = fits_one_cta(phase_a_kernel<T, MONO>, TILE_THREADS, smem);
+  if (err) return err;
+  cudaError_t e = cudaMemsetAsync(a.n_over, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return int(e);
   SPH_LAUNCH((phase_a_kernel<T, MONO>), grid, TILE_THREADS, smem, stream, a);
   return int(cudaGetLastError());
 }
@@ -416,7 +379,6 @@ namespace sph {
 template <typename T>
 int phase_a_from_ptrs(void* const* p, int n_cells, int cap, int cw, int kh, int n_bisect,
                       int stage, int list_len, cudaStream_t stream) {
-  if (stage <= 0 || list_len <= 0) return int(cudaErrorInvalidValue);
   PhaseAArgs<T> a;
   a.qx = static_cast<const T*>(p[0]);
   a.qy = static_cast<const T*>(p[1]);
@@ -442,8 +404,8 @@ int phase_a_from_ptrs(void* const* p, int n_cells, int cap, int cw, int kh, int 
 }
 
 template <typename T>
-int phase_a_tile_from_ptrs(void* const* p, int n_cells, int cap, int kh, int n_bisect,
-                           cudaStream_t stream) {
+int phase_a_tile_from_ptrs(void* const* p, int n_cells, int cap, int kh, int n_bisect, int stage,
+                           int list_len, cudaStream_t stream) {
   PhaseAArgs<T> a = {};
   a.reach2 = static_cast<const T*>(p[0]);
   a.cx = static_cast<const T*>(p[1]);
@@ -454,12 +416,13 @@ int phase_a_tile_from_ptrs(void* const* p, int n_cells, int cap, int kh, int n_b
   a.h = static_cast<T*>(p[6]);
   a.rho = static_cast<T*>(p[7]);
   a.ok = static_cast<T*>(p[8]);
+  a.n_over = static_cast<int*>(p[9]);
   a.cap = cap;
   a.cw = 27 * cap;
   a.kh = kh;
   a.n_bisect = n_bisect;
-  const int err = stage_chunk<T>(a.cw, &a.chunk);
-  if (err) return err;
+  a.chunk = stage < a.cw ? stage : a.cw;
+  a.list_len = list_len;
   return launch_phase_a<T, true>(a, n_cells, stream);
 }
 
@@ -467,9 +430,9 @@ int phase_a_tile_from_ptrs(void* const* p, int n_cells, int cap, int kh, int n_b
 
 // ptrs: qx qy qz qm reach2 cx cy cz cm m h rho ok n_over (14 device
 // pointers; m one element, n_over one int that the entry zeroes and the
-// kernel adds its overflowed queries to). `stage` raw candidate slots are staged at a time
-// (>= cw: the row stays resident), `list_len` is L, the in-radius
-// candidates a query's list holds; the wrapper sizes both.
+// kernel adds its overflowed queries to). `stage` raw candidate slots are
+// staged at a time (>= cw: the row stays resident), `list_len` is L, the
+// in-radius candidates a query's list holds; the wrapper sizes both.
 extern "C" int sph_phase_a_cells(void* const* ptrs, int n_cells, int cap, int cw, int kh,
                                  int n_bisect, int stage, int list_len, int is_double,
                                  void* stream) {
@@ -480,12 +443,16 @@ extern "C" int sph_phase_a_cells(void* const* ptrs, int n_cells, int cap, int cw
                                                    list_len, s);
 }
 
-// ptrs: s2 cx cy cz cm m h rho ok (9 device pointers; s2 and m one element
-// each; cx..cm (n_cells, 27 * cap), the outputs (n_cells, cap)). The
-// queries are slots 13 * cap .. 14 * cap of each candidate row.
+// ptrs: s2 cx cy cz cm m h rho ok n_over (10 device pointers; s2 and m one
+// element each; cx..cm (n_cells, 27 * cap), the outputs (n_cells, cap);
+// n_over as above). The queries are slots 13 * cap .. 14 * cap of each
+// candidate row; `stage` and `list_len` as above.
 extern "C" int sph_phase_a_tile(void* const* ptrs, int n_cells, int cap, int kh, int n_bisect,
-                                int is_double, void* stream) {
+                                int stage, int list_len, int is_double, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? sph::phase_a_tile_from_ptrs<double>(ptrs, n_cells, cap, kh, n_bisect, s)
-                   : sph::phase_a_tile_from_ptrs<float>(ptrs, n_cells, cap, kh, n_bisect, s);
+  return is_double
+             ? sph::phase_a_tile_from_ptrs<double>(ptrs, n_cells, cap, kh, n_bisect, stage,
+                                                   list_len, s)
+             : sph::phase_a_tile_from_ptrs<float>(ptrs, n_cells, cap, kh, n_bisect, stage,
+                                                  list_len, s);
 }

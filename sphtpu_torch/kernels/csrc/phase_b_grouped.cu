@@ -7,8 +7,8 @@
 // chunks, chunk i querying packed-query block qblk[i], a block's chunks
 // consecutive) and sphtpu/kernels/pallas_block_pairs.py::phase_b_blocks
 // (_kernel; one bucket, (nb, BQ) queries against (nb, C_b) candidates).
-// One kernel template serves both (GROUPED selects the candidate layout);
-// the pair algebra is one device function, `pair_terms`.
+// Two kernels, one for each (`unit_kernel` and `pairs_kernel`), share the
+// pair algebra: one device function, `pair_terms`.
 //
 // Pair semantics (exactly the Pallas kernels'): forward mask d2 <= (2 h_q)^2;
 // the owner's kernel gradient and the owner's sound speed in Pi; the
@@ -23,20 +23,35 @@
 // sgx sgy sgz = -m sum w cgp d, sgp = m sum w cpp), which the caller adds
 // into particle rows with one scatter-add.
 //
-// Bound on this card: operations (d2 and the mask test on every (query,
-// occupied candidate) pair; the body only on the pairs inside the query's
-// visibility radius: kh of them under exact gravity).
-// Design: one CTA of 256 threads per query block of GQ = 128 rows, which
-// walks the block's candidate slots in order, GSUB = 256 at a time staged in
-// shared memory. Each staged piece is swept twice: query-major (8 lanes per
-// query, 32 queries at a time; the lane sums combine by warp shuffle into
-// shared accumulators) and candidate-major (one thread per candidate slot
-// walking the 128 staged queries). A pair inside a mask is thus evaluated
-// twice, and no sum uses an atomic: every output is a fixed-order sum, so
-// the results are the same from run to run. A block with no occupied query
-// row (the sentinel padding of a bucket) writes zeros and leaves.
-// Load balance: a block has between 1 and 64 chunks of 512 slots (C_b from
-// 512 to 32768), so CTAs differ up to 64x in work.
+// Bound on this card: the bytes of the candidate stack on the collapse
+// path (d2 and one compare against the query's visibility radius on every
+// (query, occupied candidate) pair; the body only on the pairs inside it:
+// ~kh of them a query under exact gravity, ~1 % of the pairs).
+//
+// K5's design (`unit_kernel`): the grid is a list of WORK UNITS of equal
+// size, not one CTA a query block: a unit is one query block of GQ = 128
+// rows against a run of at most U slots of that block's chunks (the
+// wrapper's table, numbered in the block's chunk order), so a bucket of
+// 64-chunk blocks spreads over the card like a bucket of 1-chunk ones. A
+// unit stages its slots GSUB = 256 at a time; each thread owns one slot.
+// The piece is TESTED ONCE: warp w takes the 32 slots of bit-word w,
+// first culls whole queries whose visibility ball misses the bounding box
+// of the warp's occupied slots (a conservative test with a 2^-8 margin on
+// the radius), then computes d2 and the test for the remaining (query,
+// slot) pairs and keeps the warp's ballot as word w of the query's row in
+// a (GQ x 8)-word bitmask. The kept pairs, numbered in query-major order
+// (a scan of the rows' bit counts), are then EVALUATED ONCE each, GPAIRS
+// at a time, one pair a thread, their 10 terms kept in shared memory; the
+// query-side sums take each query's pairs in slot order (thread k), the
+// candidate-side sums each slot's pairs in query order (thread j), both in
+// fixed order. Candidate-side sums go straight to their slots: every slot
+// belongs to one unit. Query-side sums are per-unit partials (GQ x 10 a
+// unit) that `combine_kernel` adds in unit order (mu_max by max). No
+// output uses an atomic, so two launches on the same inputs give the same
+// bits.
+// K6 (`pairs_kernel`, one bucket a launch) keeps its first form: one CTA
+// per query block walking its candidate slots, each staged piece swept
+// query-major and candidate-major, the pair test done in both sweeps.
 #include "common.cuh"
 
 namespace sph {
@@ -45,6 +60,8 @@ constexpr int GQ = 128;                                  // query rows a block (
 constexpr int GCW = 512;                                 // slots a chunk of the grouped layout
 constexpr int GSUB = TILE_THREADS;                       // candidate slots staged at a time
 constexpr int GROUNDS = GQ / QUERIES_PER_BLOCK;          // query-major rounds a piece
+constexpr int GWORDS = GSUB / 32;                        // bit-words of a query's row a piece
+constexpr int GGROUPS = GQ / 32;                         // 32-query groups of a block
 
 template <typename T>
 struct PairParams {
@@ -182,24 +199,21 @@ __device__ __forceinline__ bool pair_terms(const QRow<T>& q, const CRow<T>& c,
   return true;
 }
 
+// K6's arguments: q[11] (nb, GQ) x y z vx vy vz mask h rho por2 cs;
+// qout[10] (nb, GQ) ax ay az div mu_max visc gx gy gz gphi; scal (m, alpha,
+// beta, sigma, r_c) on the device; c[10] (nb, cw) x y z vx vy vz h rho
+// por2 mask; cout_b[8] (nb, cw).
 template <typename T>
 struct PairsArgs {
-  const T* q[11];  // (NB, GQ) each: x y z vx vy vz mask h rho por2 cs
-  T* qout[10];     // (NB, GQ) each: ax ay az div mu_max visc gx gy gz gphi
-  const T* scal;   // m alpha beta sigma r_c on the device
-  // GROUPED: cstack (n_chunks, 10, GCW) x y z vx vy vz h rho por2 mask;
-  // chunk_start (NB + 1): block b owns chunks [chunk_start[b], chunk_start[b + 1]);
-  // cout (n_chunks, 8, GCW)
-  const T* cstack;
-  const int* chunk_start;
-  T* cout;
-  // per bucket: c[10] (NB, cw) in the grouped field order; cout_b[8] (NB, cw)
+  const T* q[11];
+  T* qout[10];
+  const T* scal;
   const T* c[10];
   T* cout_b[8];
   int cw;
 };
 
-template <typename T, bool GROUPED, bool ISO, bool P3M>
+template <typename T, bool ISO, bool P3M>
 __global__ void __launch_bounds__(TILE_THREADS) pairs_kernel(PairsArgs<T> a) {
   __shared__ T sq[11][GQ];    // the block's query fields (index 6: mask)
   __shared__ T sacc[10][GQ];  // query-side sums (index 4: mu_max)
@@ -213,15 +227,8 @@ __global__ void __launch_bounds__(TILE_THREADS) pairs_kernel(PairsArgs<T> a) {
   __syncthreads();
   const bool any_query = __syncthreads_or(tid < GQ && sq[6][tid] > T(0));
 
-  long slot0;  // GROUPED: index of the block's first slot in the flat chunk list
-  int n_slots;
-  if (GROUPED) {
-    slot0 = long(a.chunk_start[b]) * GCW;
-    n_slots = (a.chunk_start[b + 1] - a.chunk_start[b]) * GCW;
-  } else {
-    slot0 = b * a.cw;
-    n_slots = a.cw;
-  }
+  const long slot0 = b * a.cw;
+  const int n_slots = a.cw;
   PairParams<T> p;
   p.m = a.scal[0];
   p.alpha = a.scal[1];
@@ -236,15 +243,8 @@ __global__ void __launch_bounds__(TILE_THREADS) pairs_kernel(PairsArgs<T> a) {
 #pragma unroll
     for (int k = 0; k < 10; ++k) f[k] = T(0);
     if (live && any_query) {
-      if (GROUPED) {
-        const long flat = slot0 + s;
-        const T* src = a.cstack + (flat / GCW) * 10 * GCW + flat % GCW;
 #pragma unroll
-        for (int k = 0; k < 10; ++k) f[k] = src[k * GCW];
-      } else {
-#pragma unroll
-        for (int k = 0; k < 10; ++k) f[k] = a.c[k][slot0 + s];
-      }
+      for (int k = 0; k < 10; ++k) f[k] = a.c[k][slot0 + s];
     }
 #pragma unroll
     for (int k = 0; k < 10; ++k) sc[k][tid] = f[k];
@@ -325,15 +325,8 @@ __global__ void __launch_bounds__(TILE_THREADS) pairs_kernel(PairsArgs<T> a) {
     }
     if (live) {
       const T out[8] = {sax, say, saz, svisc, -p.m * sgx, -p.m * sgy, -p.m * sgz, p.m * sgp};
-      if (GROUPED) {
-        const long flat = slot0 + s;
-        T* dst = a.cout + (flat / GCW) * 8 * GCW + flat % GCW;
 #pragma unroll
-        for (int k = 0; k < 8; ++k) dst[k * GCW] = out[k];
-      } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) a.cout_b[k][slot0 + s] = out[k];
-      }
+      for (int k = 0; k < 8; ++k) a.cout_b[k][slot0 + s] = out[k];
     }
     __syncthreads();  // the piece is overwritten next
   }
@@ -353,86 +346,402 @@ __global__ void __launch_bounds__(TILE_THREADS) pairs_kernel(PairsArgs<T> a) {
   }
 }
 
-// F2: the kernel's budget for GQ = 128 query rows a block — its static
-// shared memory and the registers of 256 threads — must fit one CTA of this
-// card; otherwise nothing is launched and the caller gets ERR_BUDGET.
-template <typename K>
-int check_budget(K kernel) {
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-  if (e != cudaSuccess) return int(e);
-  int dev = 0, smem_max = 0;
-  e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return int(e);
-  e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlock, dev);
-  if (e != cudaSuccess) return int(e);
-  if (attr.maxThreadsPerBlock < TILE_THREADS || int(attr.sharedSizeBytes) > smem_max) return ERR_BUDGET;
-  return 0;
+// ---------------------------------------------------------------------------
+// K5: work units, one test a pair, fixed-order sums
+
+// A query's position and the square of the radius its pairs are tested
+// against: max((2 h)^2, (max(2 h, r_c))^2 (1 + 2^-10)), exactly the
+// comparisons of pair_terms' prefilter; -1 for a masked-off row.
+template <typename T>
+struct alignas(4 * sizeof(T)) QPos {
+  T x, y, z, thr;
+};
+
+template <typename T>
+struct UnitArgs {
+  const T* q[11];      // (NB, GQ) each: x y z vx vy vz mask h rho por2 cs
+  T* qout[10];         // (NB, GQ) each: ax ay az div mu_max visc gx gy gz gphi
+  const T* scal;       // m alpha beta sigma r_c on the device
+  const T* cstack;     // (n_chunks, 10, GCW) x y z vx vy vz h rho por2 mask
+  T* cout;             // (n_chunks, 8, GCW)
+  const int* units;    // (n_units, 3): query block, first chunk, chunks
+  const int* ustart;   // (NB + 1): block b owns units [ustart[b], ustart[b + 1])
+  T* qpart;            // (n_units, 10, GQ) query-side partials
+};
+
+template <typename T>
+__device__ __forceinline__ PairParams<T> load_params(const T* scal) {
+  PairParams<T> p;
+  p.m = scal[0];
+  p.alpha = scal[1];
+  p.beta = scal[2];
+  p.sigma = scal[3];
+  p.r_c = scal[4];
+  return p;
 }
 
-template <typename T, bool GROUPED, bool ISO, bool P3M>
-int launch_pairs(const PairsArgs<T>& a, int nb, cudaStream_t stream) {
-  const int err = check_budget(pairs_kernel<T, GROUPED, ISO, P3M>);
+template <typename T>
+__device__ __forceinline__ T warp_min(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = w < v ? w : v;
+  }
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = w > v ? w : v;
+  }
+  return v;
+}
+
+// Distance from q to the interval [lo, hi] along one axis (0 inside).
+template <typename T>
+__device__ __forceinline__ T gap(T q, T lo, T hi) {
+  const T d = lo - q > q - hi ? lo - q : q - hi;
+  return d > T(0) ? d : T(0);
+}
+
+// Surviving pairs a unit evaluates at a time (its dynamic shared memory:
+// their 10 pair terms and their (query, slot) ids).
+constexpr int GPAIRS = 512;
+
+template <typename T>
+size_t unit_smem() {
+  return size_t(GPAIRS) * (10 * sizeof(T) + sizeof(int));
+}
+
+template <typename T, bool ISO, bool P3M>
+__global__ void __launch_bounds__(TILE_THREADS) unit_kernel(UnitArgs<T> a) {
+  __shared__ QPos<T> sqp[GQ];                 // the block's query positions and test radii
+  __shared__ T sqf[7][GQ];                    // vx vy vz h rho por2 cs
+  __shared__ T sc[10][GSUB];                  // a staged piece: x y z vx vy vz h rho por2 mask
+  __shared__ unsigned qbits[GWORDS][GQ];      // bit l of [w][k]: query k keeps slot 32 w + l
+  __shared__ unsigned short pre[GWORDS][GQ];  // query k's kept pairs in words before w
+  __shared__ int rowstart[GQ + 1];            // query k's first pair in query-major order
+  __shared__ int wtotal[GQ / 32];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* po = reinterpret_cast<T*>(smem_raw);     // (10, GPAIRS) pair terms of a batch
+  int* plist = reinterpret_cast<int*>(po + 10 * GPAIRS);  // (GPAIRS) query << 8 | slot
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long u = blockIdx.x;
+  const long b = a.units[3 * u];
+  const long s_begin = long(a.units[3 * u + 1]) * GCW;
+  const long s_end = s_begin + long(a.units[3 * u + 2]) * GCW;
+  const T big = Num<T>::big();
+  const PairParams<T> p = load_params(a.scal);
+
+  bool on = false;
+  if (tid < GQ) {
+    const long qi = b * GQ + tid;
+    const T h = a.q[7][qi];
+    const T two_h = T(2) * h;
+    const T qrk2 = Num<T>::mul_rn(two_h, two_h);
+    const T vq_r = two_h > p.r_c ? two_h : p.r_c;
+    const T vis2 = vq_r * vq_r * T(1.0009765625);
+    on = a.q[6][qi] > T(0);
+    sqp[tid] = QPos<T>{a.q[0][qi], a.q[1][qi], a.q[2][qi],
+                       on ? (qrk2 > vis2 ? qrk2 : vis2) : T(-1)};
+    sqf[0][tid] = a.q[3][qi];
+    sqf[1][tid] = a.q[4][qi];
+    sqf[2][tid] = a.q[5][qi];
+    sqf[3][tid] = h;
+    sqf[4][tid] = a.q[8][qi];
+    sqf[5][tid] = a.q[9][qi];
+    sqf[6][tid] = a.q[10][qi];
+  }
+  const bool any_query = __syncthreads_or(on);
+
+  // the thread's slot of the next piece, loaded one piece ahead
+  auto load = [&](long s, T* f) {
+    const T* src = a.cstack + (s / GCW) * 10 * GCW + s % GCW;
+#pragma unroll
+    for (int k = 0; k < 10; ++k) f[k] = src[k * GCW];
+  };
+  T f[10];
+  if (any_query) load(s_begin + tid, f);
+
+  // query-side sums of query tid (threads < GQ), over the unit's pieces
+  T ax = T(0), ay = T(0), az = T(0), dv = T(0), visc = T(0);
+  T gx = T(0), gy = T(0), gz = T(0), gp = T(0), mumax = -big;
+
+  for (long s0 = s_begin; s0 < s_end; s0 += GSUB) {
+    const long s = s0 + tid;  // this thread's slot (pieces of GSUB divide a chunk)
+    T sax = T(0), say = T(0), saz = T(0), svisc = T(0);
+    T sgx = T(0), sgy = T(0), sgz = T(0), sgp = T(0);
+    if (any_query) {
+      const T cx = f[0], cy = f[1], cz = f[2];
+      const bool cvalid = f[9] > T(0);
+#pragma unroll
+      for (int k = 0; k < 10; ++k) sc[k][tid] = f[k];
+      if (s0 + GSUB < s_end) load(s + GSUB, f);
+
+      // the test: the bounding box of the warp's occupied slots (empty:
+      // [big, -big], which no ball reaches), the queries whose ball may
+      // reach it, d2 for those, two at a time
+      const T lox = warp_min(cvalid ? cx : big), hix = warp_max(cvalid ? cx : -big);
+      const T loy = warp_min(cvalid ? cy : big), hiy = warp_max(cvalid ? cy : -big);
+      const T loz = warp_min(cvalid ? cz : big), hiz = warp_max(cvalid ? cz : -big);
+      unsigned hit[GGROUPS];
+#pragma unroll
+      for (int g = 0; g < GGROUPS; ++g) {
+        qbits[warp][32 * g + lane] = 0u;
+        const QPos<T> q = sqp[32 * g + lane];
+        const T ex = gap(q.x, lox, hix), ey = gap(q.y, loy, hiy), ez = gap(q.z, loz, hiz);
+        const T bd2 = ex * ex + ey * ey + ez * ez;
+        unsigned maybe = __ballot_sync(0xffffffffu, q.thr >= T(0) && bd2 <= q.thr * T(1.00390625));
+        hit[g] = 0u;
+        __syncwarp();
+        while (maybe) {
+          const int l0 = __ffs(maybe) - 1;
+          maybe &= maybe - 1u;
+          const bool two = maybe != 0u;
+          const int l1 = two ? __ffs(maybe) - 1 : l0;
+          maybe &= two ? maybe - 1u : ~0u;
+          const QPos<T> q0 = sqp[32 * g + l0], q1 = sqp[32 * g + l1];
+          const T d0 = dist2<T>(q0.x - cx, q0.y - cy, q0.z - cz);
+          const T d1 = dist2<T>(q1.x - cx, q1.y - cy, q1.z - cz);
+          const unsigned b0 = __ballot_sync(0xffffffffu, cvalid && d0 <= q0.thr);
+          const unsigned b1 = __ballot_sync(0xffffffffu, two && cvalid && d1 <= q1.thr);
+          if (lane == 0) {
+            qbits[warp][32 * g + l0] = b0;
+            if (two) qbits[warp][32 * g + l1] = b1;
+          }
+          hit[g] |= (b0 ? (1u << l0) : 0u) | (b1 ? (1u << l1) : 0u);
+        }
+      }
+      __syncthreads();
+
+      // the kept pairs in query-major order: query k's pairs start at
+      // rowstart[k], its word w's at rowstart[k] + pre[w][k]
+      int n_row = 0, start = 0;
+      if (tid < GQ) {
+#pragma unroll
+        for (int w = 0; w < GWORDS; ++w) {
+          pre[w][tid] = static_cast<unsigned short>(n_row);
+          n_row += __popc(qbits[w][tid]);
+        }
+        int incl = n_row;  // inclusive scan over the warp's 32 queries
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, incl, o);
+          incl += lane >= o ? v : 0;
+        }
+        if (lane == 31) wtotal[warp] = incl;
+        start = incl - n_row;
+      }
+      __syncthreads();
+      if (tid < GQ) {
+        for (int w = 0; w < warp; ++w) start += wtotal[w];
+        rowstart[tid] = start;
+        if (tid == GQ - 1) rowstart[GQ] = start + n_row;
+      }
+      __syncthreads();
+      const int n_pairs = rowstart[GQ];
+
+      // batches of GPAIRS pairs: list them, evaluate each pair ONCE, then
+      // sum query-major (thread k: its pairs in slot order) and
+      // candidate-major (thread j: its pairs in query order)
+      for (int i0 = 0; i0 < n_pairs; i0 += GPAIRS) {
+        const int i1 = min(i0 + GPAIRS, n_pairs);
+#pragma unroll
+        for (int c = tid; c < GQ * GWORDS; c += TILE_THREADS) {
+          const int k = c / GWORDS, w = c % GWORDS;
+          unsigned bits = qbits[w][k];
+          int pos = rowstart[k] + pre[w][k];
+          if (bits == 0u || pos >= i1 || pos + __popc(bits) <= i0) continue;
+          while (bits) {
+            const int l = __ffs(bits) - 1;
+            bits &= bits - 1u;
+            if (pos >= i0 && pos < i1) plist[pos - i0] = (k << 8) | (32 * w + l);
+            ++pos;
+          }
+        }
+        __syncthreads();
+        for (int i = tid; i < i1 - i0; i += TILE_THREADS) {
+          const int k = plist[i] >> 8, j = plist[i] & 255;
+          const QPos<T> qp = sqp[k];
+          const QRow<T> q = {qp.x, qp.y, qp.z, sqf[0][k], sqf[1][k], sqf[2][k],
+                             sqf[3][k], sqf[4][k], sqf[5][k], sqf[6][k]};
+          const CRow<T> cj = {sc[0][j], sc[1][j], sc[2][j], sc[3][j], sc[4][j],
+                              sc[5][j], sc[6][j], sc[7][j], sc[8][j]};
+          PairOut<T> o;
+          if (!pair_terms<T, ISO, P3M>(q, cj, p, o)) {  // cannot happen: the bit was set
+            o = PairOut<T>{T(0), T(0), T(0), T(0), -big, T(0), T(0), T(0), T(0), T(0)};
+          }
+          po[0 * GPAIRS + i] = o.cdx;
+          po[1 * GPAIRS + i] = o.cdy;
+          po[2 * GPAIRS + i] = o.cdz;
+          po[3 * GPAIRS + i] = o.div;
+          po[4 * GPAIRS + i] = o.mu;
+          po[5 * GPAIRS + i] = o.visc;
+          po[6 * GPAIRS + i] = o.gwx;
+          po[7 * GPAIRS + i] = o.gwy;
+          po[8 * GPAIRS + i] = o.gwz;
+          po[9 * GPAIRS + i] = o.cpw;
+        }
+        __syncthreads();
+        if (tid < GQ) {
+          const int lo = max(rowstart[tid], i0) - i0, hi = min(rowstart[tid + 1], i1) - i0;
+          for (int i = lo; i < hi; ++i) {
+            ax -= po[0 * GPAIRS + i];
+            ay -= po[1 * GPAIRS + i];
+            az -= po[2 * GPAIRS + i];
+            dv += po[3 * GPAIRS + i];
+            mumax = po[4 * GPAIRS + i] > mumax ? po[4 * GPAIRS + i] : mumax;
+            visc += po[5 * GPAIRS + i];
+            gx += po[6 * GPAIRS + i];
+            gy += po[7 * GPAIRS + i];
+            gz += po[8 * GPAIRS + i];
+            gp += po[9 * GPAIRS + i];
+          }
+        }
+        const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+        for (int g = 0; g < GGROUPS; ++g) {
+          unsigned hm = hit[g];  // the same in the whole warp
+          while (hm) {
+            const int k = 32 * g + __ffs(hm) - 1;
+            hm &= hm - 1u;
+            const unsigned bits = qbits[warp][k];
+            const int i = rowstart[k] + pre[warp][k] + __popc(bits & below) - i0;
+            if (!((bits >> lane) & 1u) || i < 0 || i >= i1 - i0) continue;
+            sax += po[0 * GPAIRS + i];
+            say += po[1 * GPAIRS + i];
+            saz += po[2 * GPAIRS + i];
+            svisc += po[5 * GPAIRS + i];
+            sgx += po[6 * GPAIRS + i];
+            sgy += po[7 * GPAIRS + i];
+            sgz += po[8 * GPAIRS + i];
+            sgp += po[9 * GPAIRS + i];
+          }
+        }
+        __syncthreads();  // the batch's list and terms are overwritten next
+      }
+    }
+    const T out[8] = {sax, say, saz, svisc, -p.m * sgx, -p.m * sgy, -p.m * sgz, p.m * sgp};
+    T* dst = a.cout + (s / GCW) * 8 * GCW + s % GCW;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dst[k * GCW] = out[k];
+  }
+
+  if (tid < GQ) {
+    T* part = a.qpart + u * 10 * GQ + tid;
+    const T sums[10] = {ax, ay, az, dv, mumax, visc, gx, gy, gz, gp};
+#pragma unroll
+    for (int k = 0; k < 10; ++k) part[k * GQ] = sums[k];
+  }
+}
+
+// The query-side outputs of block blockIdx.x: its units' partials added in
+// unit order (mu_max by max), then m applied where the sums carry it.
+template <typename T>
+__global__ void __launch_bounds__(GQ) combine_kernel(UnitArgs<T> a) {
+  const long b = blockIdx.x;
+  const int k = threadIdx.x;
+  const int u0 = a.ustart[b], u1 = a.ustart[b + 1];
+  const T m = a.scal[0];
+#pragma unroll
+  for (int f = 0; f < 10; ++f) {
+    T v = f == 4 ? -Num<T>::big() : T(0);
+    for (int u = u0; u < u1; ++u) {
+      const T x = a.qpart[(long(u) * 10 + f) * GQ + k];
+      v = f == 4 ? (x > v ? x : v) : v + x;
+    }
+    const bool times_m = f == 3 || f >= 6;
+    a.qout[f][b * GQ + k] = times_m ? m * v : v;
+  }
+}
+
+template <typename T, bool ISO, bool P3M>
+int launch_units(const UnitArgs<T>& a, int nb, int n_units, cudaStream_t stream) {
+  int err = fits_one_cta(unit_kernel<T, ISO, P3M>, TILE_THREADS, unit_smem<T>());
   if (err) return err;
-  SPH_LAUNCH((pairs_kernel<T, GROUPED, ISO, P3M>), nb, TILE_THREADS, 0, stream, a);
+  err = fits_one_cta(combine_kernel<T>, GQ, 0);
+  if (err) return err;
+  if (n_units > 0)
+    SPH_LAUNCH((unit_kernel<T, ISO, P3M>), n_units, TILE_THREADS, unit_smem<T>(), stream, a);
+  SPH_LAUNCH((combine_kernel<T>), nb, GQ, 0, stream, a);
   return int(cudaGetLastError());
 }
 
-template <typename T, bool GROUPED>
-int pairs_dispatch(const PairsArgs<T>& a, int nb, int iso, int p3m, cudaStream_t stream) {
-  if (nb <= 0) return 0;
-  if (iso) {
-    return p3m ? launch_pairs<T, GROUPED, true, true>(a, nb, stream)
-               : launch_pairs<T, GROUPED, true, false>(a, nb, stream);
-  }
-  return p3m ? launch_pairs<T, GROUPED, false, true>(a, nb, stream)
-             : launch_pairs<T, GROUPED, false, false>(a, nb, stream);
-}
-
 template <typename T>
-PairsArgs<T> common_args(void* const* q, const void* scal, void* const* qout) {
-  PairsArgs<T> a = {};
+int grouped_from_ptrs(void* const* q, const void* cstack, const void* units, const void* ustart,
+                      const void* scal, void* const* qout, void* cout, void* qpart, int nb,
+                      int n_units, int iso, int p3m, cudaStream_t stream) {
+  if (nb <= 0) return 0;
+  UnitArgs<T> a = {};
   for (int k = 0; k < 11; ++k) a.q[k] = static_cast<const T*>(q[k]);
   for (int k = 0; k < 10; ++k) a.qout[k] = static_cast<T*>(qout[k]);
   a.scal = static_cast<const T*>(scal);
-  return a;
+  a.cstack = static_cast<const T*>(cstack);
+  a.cout = static_cast<T*>(cout);
+  a.units = static_cast<const int*>(units);
+  a.ustart = static_cast<const int*>(ustart);
+  a.qpart = static_cast<T*>(qpart);
+  if (iso) {
+    return p3m ? launch_units<T, true, true>(a, nb, n_units, stream)
+               : launch_units<T, true, false>(a, nb, n_units, stream);
+  }
+  return p3m ? launch_units<T, false, true>(a, nb, n_units, stream)
+             : launch_units<T, false, false>(a, nb, n_units, stream);
 }
 
-template <typename T>
-int grouped_from_ptrs(void* const* q, const void* cstack, const void* chunk_start,
-                      const void* scal, void* const* qout, void* cout, int nb, int iso, int p3m,
-                      cudaStream_t stream) {
-  PairsArgs<T> a = common_args<T>(q, scal, qout);
-  a.cstack = static_cast<const T*>(cstack);
-  a.chunk_start = static_cast<const int*>(chunk_start);
-  a.cout = static_cast<T*>(cout);
-  return pairs_dispatch<T, true>(a, nb, iso, p3m, stream);
+// ---------------------------------------------------------------------------
+// K6
+
+template <typename T, bool ISO, bool P3M>
+int launch_pairs(const PairsArgs<T>& a, int nb, cudaStream_t stream) {
+  const int err = fits_one_cta(pairs_kernel<T, ISO, P3M>, TILE_THREADS, 0);
+  if (err) return err;
+  SPH_LAUNCH((pairs_kernel<T, ISO, P3M>), nb, TILE_THREADS, 0, stream, a);
+  return int(cudaGetLastError());
 }
 
 template <typename T>
 int blocks_from_ptrs(void* const* q, void* const* c, const void* scal, void* const* qout,
                      void* const* cout, int nb, int cw, int iso, int p3m, cudaStream_t stream) {
-  PairsArgs<T> a = common_args<T>(q, scal, qout);
+  if (nb <= 0) return 0;
+  PairsArgs<T> a = {};
+  for (int k = 0; k < 11; ++k) a.q[k] = static_cast<const T*>(q[k]);
+  for (int k = 0; k < 10; ++k) a.qout[k] = static_cast<T*>(qout[k]);
+  a.scal = static_cast<const T*>(scal);
   for (int k = 0; k < 10; ++k) a.c[k] = static_cast<const T*>(c[k]);
   for (int k = 0; k < 8; ++k) a.cout_b[k] = static_cast<T*>(cout[k]);
   a.cw = cw;
-  return pairs_dispatch<T, false>(a, nb, iso, p3m, stream);
+  if (iso) {
+    return p3m ? launch_pairs<T, true, true>(a, nb, stream)
+               : launch_pairs<T, true, false>(a, nb, stream);
+  }
+  return p3m ? launch_pairs<T, false, true>(a, nb, stream)
+             : launch_pairs<T, false, false>(a, nb, stream);
 }
 
 }  // namespace sph
 
 // q: 11 device pointers (NB, 128) x y z vx vy vz mask h rho por2 cs; cstack:
-// (n_chunks, 10, 512) x y z vx vy vz h rho por2 mask; chunk_start: (NB + 1)
-// int32; scal: (m, alpha, beta, sigma, r_c); qout: 10 device pointers
-// (NB, 128); cout: (n_chunks, 8, 512).
-extern "C" int sph_phase_b_grouped(void* const* q, const void* cstack, const void* chunk_start,
-                                   const void* scal, void* const* qout, void* cout, int nb,
-                                   int iso, int p3m, int is_double, void* stream) {
+// (n_chunks, 10, 512) x y z vx vy vz h rho por2 mask; units: (n_units, 3)
+// int32 (query block, first chunk, chunks), a block's units consecutive
+// and in chunk order; ustart: (NB + 1) int32; scal: (m, alpha, beta,
+// sigma, r_c); qout: 10 device pointers (NB, 128); cout: (n_chunks, 8,
+// 512); qpart: (n_units, 10, 128) scratch.
+extern "C" int sph_phase_b_grouped(void* const* q, const void* cstack, const void* units,
+                                   const void* ustart, const void* scal, void* const* qout,
+                                   void* cout, void* qpart, int nb, int n_units, int iso, int p3m,
+                                   int is_double, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? sph::grouped_from_ptrs<double>(q, cstack, chunk_start, scal, qout, cout, nb,
-                                                    iso, p3m, s)
-                   : sph::grouped_from_ptrs<float>(q, cstack, chunk_start, scal, qout, cout, nb,
-                                                   iso, p3m, s);
+  return is_double ? sph::grouped_from_ptrs<double>(q, cstack, units, ustart, scal, qout, cout,
+                                                    qpart, nb, n_units, iso, p3m, s)
+                   : sph::grouped_from_ptrs<float>(q, cstack, units, ustart, scal, qout, cout,
+                                                   qpart, nb, n_units, iso, p3m, s);
 }
 
 // q as above; c: 10 device pointers (nb, cw) in the grouped field order

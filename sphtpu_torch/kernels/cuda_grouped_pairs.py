@@ -15,6 +15,14 @@ reductions accumulate over them (mu_max by max), and the candidate-side
 sums come out per chunk as (n_chunks, 8, CW) (sax say saz svisc sgx sgy sgz
 sgp) for the caller's single scatter-add into particle rows.
 
+On the card the launch is a grid of WORK UNITS (`unit_table`): one query
+block against a run of at most UNIT_SLOTS of its slots, numbered in the
+block's chunk order. A unit's candidate-side sums are final; its
+query-side sums are partials that a second small kernel adds in unit
+order. Each (query, occupied slot) pair is tested once, and the pair body
+runs only on the pairs inside the query's visibility radius. No output
+uses an atomic: two launches on the same inputs give the same bits.
+
 Pair semantics (`pair_sums_plain`, and `pair_terms` of the CUDA source):
 owner-sweep terms — the reference's reverse term equals the ball owner's
 forward term, so the owner emits both endpoints' contributions — on the
@@ -37,6 +45,8 @@ from . import build
 # flat candidate chunk width: divides every capacity of the block planner's
 # menu (physics/blocks.C_MENU)
 CW = 512
+# slots of a work unit at most (a multiple of CW): the grid's grain
+UNIT_SLOTS = 2048
 # query rows a block, as the CUDA kernel is built (its shared-memory and
 # register budget is checked for this many; the planner's BQ)
 BQ_KERNEL = 128
@@ -222,6 +232,30 @@ def chunk_starts(qblk: tuple, first: tuple, nb: int) -> np.ndarray:
     return np.searchsorted(qb, np.arange(nb + 1), side="left").astype(np.int32)
 
 
+@functools.lru_cache(maxsize=16)
+def unit_table(qblk: tuple, first: tuple, nb: int, unit_slots: int = UNIT_SLOTS):
+    """The kernel's work units for a chunk layout: (units (n_units, 3) int32
+    = query block, first chunk, chunks; ustart (nb + 1,) int32, block b owns
+    units [ustart[b], ustart[b + 1])). A block of n chunks gets
+    ceil(n / (unit_slots / CW)) units, numbered in its chunk order, whose
+    chunk counts differ by at most one, so no unit holds more than
+    unit_slots slots and every chunk lies in exactly one unit."""
+    if unit_slots < CW or unit_slots % CW:
+        raise ValueError(f"unit_slots must be a positive multiple of {CW}, not {unit_slots}")
+    starts = chunk_starts(qblk, first, nb).astype(np.int64)
+    per = unit_slots // CW
+    n_chk = np.diff(starts)
+    n_u = -(-n_chk // per)
+    ustart = np.concatenate([[0], np.cumsum(n_u)])
+    blk = np.repeat(np.arange(nb), n_u)
+    j = np.arange(int(ustart[-1])) - ustart[blk]  # unit index within its block
+    base, extra = n_chk[blk] // n_u[blk], n_chk[blk] % n_u[blk]
+    first_chunk = starts[blk] + j * base + np.minimum(j, extra)
+    count = base + (j < extra)
+    units = np.stack([blk, first_chunk, count], axis=1).astype(np.int32)
+    return units, ustart.astype(np.int32)
+
+
 def phase_b_grouped_plain(
     qfields, cstack, m, alpha, beta, sigma, r_c_now, *, eos: str, p3m: bool,
     cap: int, qblk: tuple, first: tuple,
@@ -264,11 +298,18 @@ def phase_b_grouped(
     cap: int,
     qblk: tuple,  # query block id per chunk (non-decreasing)
     first: tuple,  # 1 at each block's first chunk
+    units=None,  # on the card: `unit_table`'s two arrays there
 ):
     """Returns (10 query-side (NB, cap) tensors: ax ay az div mu_max visc gx
     gy gz gphi; the (n_chunks, 8, CW) candidate-side sums). Query field
     order: x y z vx vy vz mask h rho P/rho^2 cs. sigma may be None when p3m
-    is False; r_c_now is the tail radius (0 under exact gravity)."""
+    is False; r_c_now is the tail radius (0 under exact gravity).
+
+    On the card the launch takes its work units from `units`, the
+    (units, ustart) int32 tensors of `unit_table(qblk, first, NB)` on the
+    device, which the caller builds once a plan (the block engine keeps
+    them with its candidate tables), so the launch makes no host
+    synchronisation; the plain version takes the layout from qblk."""
     _check_args(eos, p3m, sigma)
     if cstack.device.type != "cuda":
         return phase_b_grouped_plain(
@@ -291,25 +332,28 @@ def phase_b_grouped(
     for i, t in enumerate(qfields):
         build.check_tensor(f"qfields[{i}]", t, (nb, cap), dtype, device)
     build.check_tensor("cstack", cstack, (n_chunks, 10, CW), dtype, device)
-    starts_np = chunk_starts(tuple(qblk), tuple(first), nb)
-    if int(starts_np[-1]) != n_chunks:
-        raise ValueError("qblk must name a block for every chunk")
-    starts = torch.as_tensor(starts_np).to(device)
+    if units is None:
+        raise ValueError("phase_b_grouped on the card takes the plan's work units (unit_table)")
+    unit_rows, ustart = units
+    n_units = unit_rows.shape[0]
+    build.check_tensor("units[0]", unit_rows, (n_units, 3), torch.int32, device)
+    build.check_tensor("units[1]", ustart, (nb + 1,), torch.int32, device)
     scal = build.scalar_tensor(
         [m, alpha, beta, sigma if sigma is not None else 1.0, r_c_now], dtype, device
     )
     q_out = torch.empty((10, nb, cap), dtype=dtype, device=device)
     c_out = torch.empty((n_chunks, 8, CW), dtype=dtype, device=device)
+    q_part = torch.empty((n_units, 10, cap), dtype=dtype, device=device)
     outs = tuple(q_out.unbind(0))
     if nb == 0:
         return outs, c_out
     lib = build.load_kernels()["phase_b_grouped"]
     with torch.cuda.device(device):
         code = lib.sph_phase_b_grouped(
-            build.pointer_array(list(qfields)), cstack.data_ptr(), starts.data_ptr(),
-            scal.data_ptr(), build.pointer_array(list(outs)), c_out.data_ptr(),
-            nb, int(eos == "isothermal"), int(p3m), int(dtype == torch.float64),
-            torch.cuda.current_stream().cuda_stream,
+            build.pointer_array(list(qfields)), cstack.data_ptr(), unit_rows.data_ptr(),
+            ustart.data_ptr(), scal.data_ptr(), build.pointer_array(list(outs)),
+            c_out.data_ptr(), q_part.data_ptr(), nb, n_units, int(eos == "isothermal"),
+            int(p3m), int(dtype == torch.float64), torch.cuda.current_stream().cuda_stream,
         )
     check_code("phase_b_grouped", code)
     launches += 1

@@ -33,15 +33,11 @@ from .cubic_spline import W
 
 N_BISECT = 34
 
-# shared memory a block may opt into on Hopper (227 KB), less 1 KB for the
-# kernel's static share; K4 (`cuda_knn`) keeps a row's three candidate
-# planes there
-SMEM_LIMIT = 226 * 1024
 # widest candidate row the kernel takes (twice the block engine's largest
 # capacity, C_MENU[-1] = 32 768); wider rows raise
 MAX_CW = 1 << 16
 
-# K1's geometry: a CTA owns 32 query slots; its shared memory holds the
+# The kernel's geometry (K1 and K4 alike): a CTA owns 32 query slots; its shared memory holds the
 # three staged candidate planes (STAGE_BYTES of them) and one list per
 # query slot, sized so that CTAS_PER_SM CTAs share an SM (each CTA also
 # costs the SM 1 KB of reserved shared memory and 32 B of static share)
@@ -114,19 +110,6 @@ def phase_a_cells_plain(
     return h_out, rho_out, ok_out
 
 
-def shared_bytes(cw: int, dtype) -> int:
-    """Shared memory a candidate row of width cw needs to stay resident in
-    one block; raises where that is more than a block may have. K4
-    (`cuda_knn.phase_a_tile`) needs its rows resident; K1 streams them."""
-    need = 3 * cw * dtype.itemsize
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"phase_a_cells: cw={cw} in {dtype} needs {need} B of shared memory, "
-            f"a block may have {SMEM_LIMIT}"
-        )
-    return need
-
-
 def list_stride(list_len: int) -> int:
     """Entries one query's list takes in shared memory: L rounded up to 32,
     plus 8, so the lists a warp reads at a time start on distinct banks
@@ -135,14 +118,14 @@ def list_stride(list_len: int) -> int:
 
 
 def k1_shared_bytes(cap: int, list_len: int, stage: int, dtype) -> int:
-    """Dynamic shared memory of one K1 CTA: the staged planes and the lists
+    """Dynamic shared memory of one K1 or K4 CTA: the staged planes and the lists
     of its min(cap, 32) query slots (the kernel's `phase_a_smem`)."""
     slots = min(cap, QUERIES_PER_CTA)
     return (3 * stage + slots * list_stride(list_len)) * dtype.itemsize
 
 
 def list_budget(cap: int, cw: int, dtype, smem_optin: int) -> tuple[int, int]:
-    """(L, stage) of a K1 launch on a card whose blocks may opt into
+    """(L, stage) of a K1 or K4 launch on a card whose blocks may opt into
     `smem_optin` bytes of shared memory: the staged raw candidate slots (the
     whole row where it is narrower than STAGE_BYTES of planes) and the
     largest multiple of 32 for L that leaves CTAS_PER_SM CTAs room on one
@@ -156,6 +139,19 @@ def list_budget(cap: int, cw: int, dtype, smem_optin: int) -> tuple[int, int]:
         raise ValueError(
             f"phase_a_cells: no list fits {smem_optin} B of shared memory (cap {cap}, {dtype})"
         )
+    return list_len, stage
+
+
+def launch_sizes(cap: int, cw: int, dtype, device, stream_chunk: int = 0,
+                 list_cap: int = 0) -> tuple[int, int]:
+    """(L, stage) of a launch on `device`: `list_budget`'s, with stage
+    capped at stream_chunk and L at list_cap where those are > 0 (the checks
+    that force streaming and overflow)."""
+    list_len, stage = list_budget(cap, cw, dtype, build.device_limits(device)[1])
+    if stream_chunk > 0:
+        stage = min(stage, stream_chunk)
+    if list_cap > 0:
+        list_len = min(list_len, list_cap)
     return list_len, stage
 
 
@@ -201,11 +197,7 @@ def phase_a_cells(
     ok = torch.empty_like(h)
     if n_cells == 0:
         return h, rho, ok
-    list_len, stage = list_budget(cap, cw, dtype, build.device_limits(device)[1])
-    if stream_chunk > 0:
-        stage = min(stage, stream_chunk)
-    if list_cap > 0:
-        list_len = min(list_len, list_cap)
+    list_len, stage = launch_sizes(cap, cw, dtype, device, stream_chunk, list_cap)
     n_over = torch.empty((1,), dtype=torch.int32, device=device)  # zeroed by the entry
     lib = build.load_kernels()["phase_a_cells"]
     ptrs = build.pointer_array([*queries, reach2, *cands, m_dev, h, rho, ok, n_over])

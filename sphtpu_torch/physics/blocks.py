@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..kernels.cuda_block_pairs import phase_b_blocks
-from ..kernels.cuda_grouped_pairs import CW, phase_b_grouped
+from ..kernels.cuda_grouped_pairs import CW, phase_b_grouped, unit_table
 from ..kernels.cuda_strip_knn import phase_a_cells
 from .mesh_gravity import _domain_half
 from .tiles import ReducedForces
@@ -650,11 +650,15 @@ class CandTables(NamedTuple):
             candidate-side sums scatter straight into row order
     inv_oq: (n,) packed-query slot of each row (order_q is injective on
             real rows), turning every query-side unpack into a gather
+    units:  the grouped phase B's work units (`unit_table` of the
+            plan's chunk layout: (n_units, 3) and (NB + 1,) int32), on the
+            device, so that its launches copy nothing from the host
     """
 
     idx: tuple
     rows: tuple
     inv_oq: torch.Tensor
+    units: tuple
 
 
 # run-expansion temporaries a batch of blocks may hold (elements)
@@ -686,7 +690,10 @@ def build_cand_tables(bargs: BlockArgs, spec, n) -> CandTables:
     keep = oq < n
     inv_oq = torch.zeros((n,), dtype=torch.int64, device=device)
     inv_oq[oq[keep]] = torch.arange(oq.shape[0], device=device)[keep]
-    return CandTables(tuple(tables), tuple(rows), inv_oq)
+    qblk, first = _grouped_chunks(tuple(buckets))
+    units = unit_table(qblk, first, sum(nb for _, nb in buckets))
+    return CandTables(tuple(tables), tuple(rows), inv_oq,
+                      tuple(torch.as_tensor(a).to(device) for a in units))
 
 
 @functools.lru_cache(maxsize=16)
@@ -895,7 +902,7 @@ def block_sph_forces(
         qblk, first = _grouped_chunks(tuple(buckets))
         qouts, couts = phase_b_grouped(
             qfields, cstack, m, alpha, beta, sigma, r_c_now,
-            eos=eos, p3m=p3m, cap=BQ, qblk=qblk, first=first,
+            eos=eos, p3m=p3m, cap=BQ, qblk=qblk, first=first, units=idx_tables.units,
         )
         packed = [o.reshape(-1) for o in qouts]
         rows_flat = torch.cat([r.reshape(-1) for r in idx_tables.rows])

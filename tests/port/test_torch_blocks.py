@@ -48,7 +48,7 @@ from sphtpu_torch.physics.mesh_gravity import greens_hat
 # pool from oversubscribing the cores they share
 torch.set_num_threads(2)
 
-DATA = os.path.join(os.path.dirname(__file__), "..", "bench_data")
+DATA = os.path.join(os.path.dirname(__file__), "..", "..", "bench_data")
 FIXTURES = {
     "contrast395": os.path.join(DATA, "bb_collapsed.npz"),
     "contrast1001": os.path.join(DATA, "bb_collapsed_deep.npz"),
@@ -430,6 +430,118 @@ def test_k5_k6_match_pallas(dtype, p3m):
                         interpret=True)
     _assert_close_of_scale(qo, qo_r, bar)
     _assert_close_of_scale(co, co_r, bar)
+
+
+# ------------------------------------------------- (5b) K5's work units
+@functools.lru_cache(maxsize=None)
+def _fixture_plan(source, gravity):
+    pos, h, kh = _planner_state(source)
+    spec, args = TB.plan_blocks(pos, h, kh, gravity=gravity)
+    return pos, h, spec, args
+
+
+@pytest.mark.parametrize("unit_slots", [512, 2048, 8192])
+@pytest.mark.parametrize("source", ["contrast395", "contrast1001"])
+def test_unit_table_covers_every_slot_once(source, unit_slots):
+    """K5's work units on a committed fixture's chunk layout: read in unit
+    order, their chunk runs are the chunks 0 .. n_chunks - 1, each once and
+    in order; a unit's chunks are its block's, no unit holds more than
+    unit_slots slots, a block's units differ by at most one chunk, and
+    ustart delimits each block's units."""
+    _, _, spec, _ = _fixture_plan(source, "exact")
+    buckets = spec[0]
+    qblk, first = TB._grouped_chunks(tuple(buckets))
+    nb = sum(n for _, n in buckets)
+    units, ustart = cuda_grouped_pairs.unit_table(qblk, first, nb, unit_slots)
+    assert units.dtype == np.int32 and ustart.dtype == np.int32
+    blk, c0, cnt = (units[:, i].astype(np.int64) for i in range(3))
+    covered = np.concatenate([np.arange(a, a + c) for a, c in zip(c0, cnt)])
+    np.testing.assert_array_equal(covered, np.arange(len(qblk)))
+    np.testing.assert_array_equal(np.asarray(qblk)[covered], np.repeat(blk, cnt))
+    assert (cnt >= 1).all() and (cnt * cuda_grouped_pairs.CW <= unit_slots).all()
+    assert ustart[0] == 0 and ustart[-1] == len(units) and len(ustart) == nb + 1
+    for b in range(nb):
+        mine = cnt[ustart[b] : ustart[b + 1]]
+        assert (blk[ustart[b] : ustart[b + 1]] == b).all()
+        assert mine.size and mine.max() - mine.min() <= 1
+    with pytest.raises(ValueError, match="multiple"):
+        cuda_grouped_pairs.unit_table(qblk, first, nb, 700)
+
+
+def _fixture_layout(gravity, n_buckets=4):
+    """The committed contrast-395 fixture's plan, cut to the first block of
+    each of its n_buckets narrowest buckets: the phase-B inputs of those
+    blocks (the fixture's positions and h, seeded velocities and EOS
+    fields) in the grouped layout, with (qblk, first), sigma and r_c."""
+    pos, h, spec, args = _fixture_plan("contrast395", gravity)
+    n = pos.shape[0]
+    rng = np.random.default_rng(23)
+    vel = 0.1 * rng.standard_normal((n, 3))
+    rho = 0.5 + rng.random(n)
+    por2, cs = 0.5 + rng.random(n), 0.8 + 0.4 * rng.random(n)
+    rows_f = np.concatenate([pos.T, vel.T, [h, rho, por2, cs]])  # (10, n)
+    rows_f = np.concatenate([rows_f, np.zeros((10, 1))], axis=1)  # sentinel row n
+    bargs = TB.block_args_to_device(args, torch.float64, "cpu")
+    oc = np.append(np.asarray(args.order_c, np.int64), n)
+    oq = np.asarray(args.order_q, np.int64)
+    qf, chunks, qblk, first = [], [], [], []
+    b0 = 0
+    for k, ((C_b, nb), bx, rz) in enumerate(zip(spec[0], bargs.boxes, spec[2])):
+        if k == n_buckets:
+            break
+        idx = TB._cand_indices(bx[:1], bargs.starts, rz, n, C_b).numpy()[0]
+        rows = oc[idx]
+        c = rows_f[[0, 1, 2, 3, 4, 5, 6, 7, 8]][:, rows]
+        c = np.concatenate([c, (rows < n)[None].astype(np.float64)])  # (10, C_b)
+        chunks += [c[:, j : j + cuda_grouped_pairs.CW]
+                   for j in range(0, C_b, cuda_grouped_pairs.CW)]
+        qblk += [k] * (C_b // cuda_grouped_pairs.CW)
+        first += [1] + [0] * (C_b // cuda_grouped_pairs.CW - 1)
+        q = oq[b0 * TB.BQ : (b0 + 1) * TB.BQ]
+        qrows = rows_f[:, np.minimum(q, n)]
+        qf.append(np.concatenate([qrows[:6], (q < n)[None].astype(np.float64),
+                                  qrows[6:]]))  # x y z vx vy vz mask h rho por2 cs
+        b0 += nb
+    qfields = tuple(t(np.ascontiguousarray(np.stack(qf)[:, f])) for f in range(11))
+    half = float(np.abs(pos).max())
+    sigma = 2.2 * 2.0 * half / (5 * spec[3]) if gravity == "p3m" else None
+    r_c = 4.4 * sigma if gravity == "p3m" else 0.0
+    return qfields, t(np.stack(chunks)), tuple(qblk), tuple(first), sigma, r_c
+
+
+@pytest.mark.parametrize("unit_slots", [512, 1024])
+@pytest.mark.parametrize("gravity", ["exact", "p3m"])
+def test_unit_partials_in_order_match_plain(gravity, unit_slots):
+    """K5's form on the committed fixture's layout (the first block of its
+    four narrowest buckets, 512 to 2048 slots): each work unit's query-side
+    partials and candidate-side sums from its own chunks, the partials of a
+    block's units combined in unit order (mu_max by max), equal
+    phase_b_grouped_plain over the whole layout: mu_max bit for bit, every
+    sum within 1e-13 of its output's scale (float64 reassociation)."""
+    qfields, cstack, qblk, first, sigma, r_c = _fixture_layout(gravity)
+    nb = qfields[0].shape[0]
+    args = (1e-5, 1.0, 2.0, sigma, r_c)
+    kw = dict(eos="polytropic", p3m=gravity == "p3m", cap=TB.BQ)
+    q_p, c_p = cuda_grouped_pairs.phase_b_grouped_plain(qfields, cstack, *args, **kw,
+                                                        qblk=qblk, first=first)
+    units, ustart = cuda_grouped_pairs.unit_table(qblk, first, nb, unit_slots)
+    assert len(units) > nb  # some block is split
+    q_m = [torch.zeros_like(q_p[0]) for _ in range(10)]
+    q_m[4].fill_(-torch.finfo(torch.float64).max)
+    c_m = torch.empty_like(c_p)
+    for b, c0, cnt in units.tolist():
+        qs, cs = cuda_grouped_pairs.phase_b_grouped_plain(
+            tuple(f[b : b + 1] for f in qfields), cstack[c0 : c0 + cnt], *args, **kw,
+            qblk=(0,) * cnt, first=(1,) + (0,) * (cnt - 1))
+        for i in range(10):
+            q_m[i][b] = torch.maximum(q_m[i][b], qs[i][0]) if i == 4 else q_m[i][b] + qs[i][0]
+        c_m[c0 : c0 + cnt] = cs
+    assert torch.equal(q_m[4], q_p[4])
+    live = q_p[6] != 0
+    assert bool(live.any()), "the layout has pairs inside the visibility radius"
+    for a, b in [*zip(q_m, q_p), *zip(c_m.unbind(1), c_p.unbind(1))]:
+        scale = float(b[b > -torch.finfo(b.dtype).max].abs().max()) + 1e-300
+        assert float((a - b).abs().max()) <= 1e-13 * scale
 
 
 # ------------------------------------------------------- (6) certificate

@@ -20,8 +20,8 @@ from sphtpu_torch.scenes import iniconds_setup
 # pool from oversubscribing the cores they share
 torch.set_num_threads(2)
 
-GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(os.path.dirname(__file__), "..", "golden")
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _read(path):

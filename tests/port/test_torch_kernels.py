@@ -17,6 +17,7 @@ from sphtpu.kernels import grad_W_over_r as gradW_ref
 from sphtpu.kernels import softened_gphi_over_r as gphi_ref
 from sphtpu.kernels import softened_phi as phi_ref
 from sphtpu.kernels.pallas_gravity import newton_sweep_pallas
+from sphtpu.kernels.pallas_knn import phase_a_pallas as phase_a_tile_ref
 from sphtpu.kernels.pallas_strip_knn import phase_a_cells as phase_a_ref
 from sphtpu.kernels.pallas_tile_pairs import phase_b_tiles as phase_b_ref
 from sphtpu.neighbors import knn as knn_ref
@@ -26,7 +27,7 @@ from sphtpu.physics import sph_forces as sph_forces_ref
 from sphtpu.physics.mesh_gravity import mesh_gphi_over_r as mesh_g_ref
 from sphtpu.physics.mesh_gravity import mesh_phi as mesh_p_ref
 from sphtpu_torch.kernels import W, grad_W_over_r, softened_gphi_over_r, softened_phi
-from sphtpu_torch.kernels import cuda_gravity, cuda_strip_knn, cuda_tile_pairs
+from sphtpu_torch.kernels import cuda_gravity, cuda_knn, cuda_strip_knn, cuda_tile_pairs
 from sphtpu_torch.neighbors import knn
 from sphtpu_torch.physics import (
     gravity_allpairs,
@@ -120,19 +121,23 @@ def test_phase_a_cells_plain_is_generic_in_shape():
 
 
 def test_phase_a_cells_shared_memory_covers_every_plannable_row():
-    """The kernel keeps a row's candidates in shared memory: the widest row
-    the run loop can plan (the mono-tile planner's ceiling; its phase A,
-    phase_a_tile, is the same kernel) fits in both dtypes, a wider one is
-    refused."""
+    """The kernel streams a row through shared memory and keeps each
+    query's list there: the widest row the run loop can plan (the mono-tile
+    planner's ceiling; its phase A, phase_a_tile, is the same kernel) gets
+    a staging width and a list in both dtypes, and a card whose blocks have
+    too little shared memory for any list is refused."""
     import inspect
 
     from sphtpu_torch.physics.tiles import choose_tile_params
 
-    cw = 27 * inspect.signature(choose_tile_params).parameters["cap_max"].default
-    assert cuda_strip_knn.shared_bytes(cw, torch.float32) == 12 * cw
-    assert cuda_strip_knn.shared_bytes(cw, torch.float64) == 24 * cw
+    cap = inspect.signature(choose_tile_params).parameters["cap_max"].default
+    for td in (torch.float32, torch.float64):
+        list_len, stage = cuda_strip_knn.list_budget(cap, 27 * cap, td, H100_SMEM_OPTIN)
+        need = cuda_strip_knn.k1_shared_bytes(cap, list_len, stage, td)
+        assert 0 < stage < 27 * cap and list_len >= 32
+        assert need + cuda_strip_knn.CTA_RESERVED <= H100_SMEM_OPTIN
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_strip_knn.shared_bytes(27 * 512, torch.float64)
+        cuda_strip_knn.list_budget(cap, 27 * cap, torch.float64, 48 * 1024)
 
 
 def _phase_a_list_form(queries, reach2, cands, m, *, kh, cap, n_bisect, list_len):
@@ -201,42 +206,77 @@ def _block_like_rows(dtype, nb=2, cap=128, cw=2048, kh=32, seed=5):
     return q + [qm], reach2, c + [cm], kh
 
 
-@pytest.mark.parametrize("rows", ["class", "block", "overflow"])
+def _mono_rows(dtype, n_cells=4, cap=32, seed=9):
+    """Rows shaped like the mono-tile engine's: a 3^3 block of unit cells,
+    cw = 27 * cap slots, each cell holding between half its fill and its
+    fill of particles in its first slots (fill 24, and 3 in row 1, whose
+    queries cannot find kh neighbours within one cell edge); the queries
+    are the centre cell's slots and s2 = 1, the cell edge squared.
+    Returns (cands, s2)."""
+    rng = np.random.default_rng(seed)
+    cw = 27 * cap
+    fill = np.full((n_cells, 1, 1), 24)
+    fill[1] = 3
+    n_in = rng.integers(fill // 2, fill + 1, size=(n_cells, 27, 1))
+    cm = (np.arange(cap)[None, None, :] < n_in).astype(dtype)
+    cell = np.arange(27)
+    off = np.stack([cell % 3, (cell // 3) % 3, cell // 9])
+    pos = [((rng.random((n_cells, 27, cap)) + off[a][None, :, None]) * cm).astype(dtype)
+           for a in range(3)]
+    return [p.reshape(n_cells, cw) for p in pos] + [cm.reshape(n_cells, cw)], 1.0
+
+
+@pytest.mark.parametrize("rows", ["class", "block", "overflow", "mono", "mono_overflow"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_phase_a_only_in_radius_candidates_matter(dtype, rows):
-    """K1's list form (bisection over each query's in-radius candidates,
-    the full row where they overflow L) gives the full-row form's h and ok
-    bit for bit and the reference's within its tolerances: on class-like
-    rows (cw = 27 cap, uniform reach), block-like rows (C_b = 2048, a
-    hint-capped reach) and rows where some queries overflow a small L."""
+    """K1's and K4's list form (bisection over each query's in-radius
+    candidates, the full row where they overflow L) gives the full-row
+    form's h and ok bit for bit and the reference's within its tolerances:
+    on class-like rows (cw = 27 cap, uniform reach), block-like rows (C_b =
+    2048, a hint-capped reach), mono-tile rows (K4: the centre cell's
+    slots as the queries, one uniform s2) and rows where some queries
+    overflow a small L."""
     td = getattr(torch, dtype)
     if rows == "block":
         queries, reach2, cands, kh = _block_like_rows(NP[dtype])
         cap = queries[0].shape[1]
         n_bisect = 28 if dtype == "float32" else 68
+    elif rows.startswith("mono"):
+        cands, s2 = _mono_rows(NP[dtype])
+        cap, kh, n_bisect = 32, 16, cuda_strip_knn.N_BISECT
+        queries = [c[:, 13 * cap : 14 * cap].copy() for c in cands]
+        reach2 = np.full(queries[0].shape, s2, NP[dtype])
     else:
         queries, reach2, cands, _ = _cell_rows(NP[dtype])
         cap, kh, n_bisect = 32, 16, cuda_strip_knn.N_BISECT
     cw = cands[0].shape[1]
-    list_len = (64 if rows == "overflow"
+    list_len = (64 if rows.endswith("overflow")
                 else cuda_strip_knn.list_budget(cap, cw, td, H100_SMEM_OPTIN)[0])
     m = 1.0 / 4000
     args = (tuple(t(a) for a in queries), t(reach2), tuple(t(a) for a in cands), m)
     kw = dict(kh=kh, cap=cap, n_bisect=n_bisect)
     h, rho, ok, over = _phase_a_list_form(*args, **kw, list_len=list_len)
-    h_p, rho_p, ok_p = cuda_strip_knn.phase_a_cells_plain(*args, **kw)
+    if rows.startswith("mono"):
+        h_p, rho_p, ok_p = cuda_knn.phase_a_tile_plain(args[2], s2, m, **kw)
+    else:
+        h_p, rho_p, ok_p = cuda_strip_knn.phase_a_cells_plain(*args, **kw)
     assert torch.equal(h, h_p) and torch.equal(ok, ok_p)
     rho_tol = 1e-12 if dtype == "float64" else 2e-5
     np.testing.assert_allclose(rho.numpy(), rho_p.numpy(), rtol=rho_tol)
     valid = queries[3] > 0
-    if rows == "overflow":
+    if rows.endswith("overflow"):
         assert over.numpy()[valid].any() and (~over.numpy())[valid].any()
     else:
         assert not over.any()
-    h_r, rho_r, ok_r = phase_a_ref(
-        tuple(jnp.asarray(a) for a in queries), jnp.asarray(reach2),
-        tuple(jnp.asarray(a) for a in cands), m, **kw, interpret=True,
-    )
+    if rows.startswith("mono"):
+        h_r, rho_r, ok_r = phase_a_tile_ref(
+            tuple(jnp.asarray(a) for a in cands), s2, m, kh=kh, cap=cap, interpret=True,
+        )
+    else:
+        h_r, rho_r, ok_r = phase_a_ref(
+            tuple(jnp.asarray(a) for a in queries), jnp.asarray(reach2),
+            tuple(jnp.asarray(a) for a in cands), m, **kw, interpret=True,
+        )
     np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_r))
     h_tol = 1e-12 if dtype == "float64" else 1e-6
     np.testing.assert_allclose(h.numpy(), np.asarray(h_r), rtol=h_tol)
@@ -244,19 +284,26 @@ def test_phase_a_only_in_radius_candidates_matter(dtype, rows):
     assert (ok.numpy()[valid] == 0).any() and (ok.numpy()[valid] == 1).any()
 
 
-@pytest.mark.parametrize("engine", ["class", "block"])
+@pytest.mark.parametrize("engine", ["class", "block", "mono"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_list_budget_fits_every_plannable_row(dtype, engine):
-    """At every (cap, cw) the class and block planners emit, K1's staged
-    planes and lists fit the H100's 227 KB with room for two CTAs an SM
-    (228 KB), and L holds at least 4 kh at kh = 50."""
+    """At every (cap, cw) the class, block and mono-tile planners emit, the
+    phase-A kernel's staged planes and lists (K1's; K4's on the mono rows)
+    fit the H100's 227 KB with room for two CTAs an SM (228 KB), and L
+    holds at least 4 kh at kh = 50."""
+    import inspect
+
     from sphtpu_torch.physics.blocks import BQ, C_MENU
     from sphtpu_torch.physics.ctiles import CLASS_MENU
+    from sphtpu_torch.physics.tiles import choose_tile_params
 
     td = getattr(torch, dtype)
     if engine == "class":  # the class planner's ceiling is cap 128
         shapes = [(cap_k, 27 * cap) for cap in CLASS_MENU for cap_k in CLASS_MENU
                   if cap_k <= cap]
+    elif engine == "mono":  # multiples of 32 up to the mono planner's ceiling
+        cap_max = inspect.signature(choose_tile_params).parameters["cap_max"].default
+        shapes = [(cap, 27 * cap) for cap in range(32, cap_max + 1, 32)]
     else:
         shapes = [(BQ, cw) for cw in C_MENU]
     for cap, cw in shapes:

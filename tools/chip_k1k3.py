@@ -1,29 +1,34 @@
-"""K1, K3 and K4 on the main paths' inputs, timed on one NVIDIA GPU for
-one source tree of the port, so that two trees can be compared in one run.
+"""K1, K3, K4 and K5 on the main paths' inputs, timed on one NVIDIA GPU
+for one source tree of the port, so that two trees can be compared in one
+run.
 
     python3 tools/chip_k1k3.py capture FILE
     python3 tools/chip_k1k3.py time TREE FILE [--sweep]
 
 `capture` builds the inputs of one force evaluation on each path and saves
-them to FILE: K1's 12 launches on the collapse path
-(bench_data/bb_collapsed.npz, contrast 395, block engine) and its launches
-on the class path (boss_bodenheimer N = 100 000, Kh = 32), K4's launch on
-the exact path (the same scene at Kh = 50, mono-tile engine) and K3's
-positions (that scene, N = 100 000), all float32.
+them to FILE: K1's 12 launches and K5's launch on the collapse path
+(bench_data/bb_collapsed.npz, contrast 395, block engine) and K1's
+launches on the class path (boss_bodenheimer N = 100 000, Kh = 32), K4's
+launch on the exact path (the same scene at Kh = 50, mono-tile engine) and
+on the P3M path (N = 200 000, mono-tile engine with P3M gravity) and K3's
+positions (N = 100 000), all float32.
 
 `time` imports `sphtpu_torch` from TREE (a checkout of the port, such as a
 parent commit unpacked with `git archive`), builds its kernels there and
 prints one JSON line: each kernel's CUDA-event median time on those inputs
 (the sum over a path's launches; it holds the wrappers' host work, which a
 short launch waits for) and its device time from torch.profiler (the
-kernels alone, per evaluation; K1's per launch too), with the card's name
-and power limit.
-With --sweep (a tree whose wrappers take `list_cap` and `plan`) it also
-times K1 at smaller list budgets, with each budget's overflow share, and
-K3 at other plans (rows a thread R, column slices S).
+kernels alone, per evaluation; each launch's too), with the card's name
+and power limit. Where TREE's K5 wrapper takes the plan's work units
+(`units`), they are built once beforehand, as the block engine does.
+With --sweep it also times, where TREE's wrappers take the knob, K1 and
+K4 at smaller list budgets (`list_cap`, with each budget's overflow
+share), K5 at other work-unit sizes (`unit_table`'s `unit_slots`) and K3
+at other plans (rows a thread R, column slices S).
 
-Run the trees in turns within one call (parent, change, change, parent):
-two calls may land on two cards.
+Run the trees in turns within one call (parent, change, change, parent),
+each in a fresh process (many profiler sessions in one process lose kernel
+events): two calls may land on two cards.
 """
 
 from __future__ import annotations
@@ -74,14 +79,23 @@ def capture(path: str) -> None:
                                U0=0.0, t_end=1e30, device=cs.DEVICE)
     base = dict(n=pos.shape[0], kh=cs.KH_COLLAPSE, eos="polytropic", dtype="float32")
     cfg, bargs = plan_engine(pos, h0, **base, gravity="exact")
-    out["k1_collapse"], = eval_calls(cfg, state, params, cs.dev(h0, torch.float32), blocks,
-                                     ("phase_a_cells",), bargs)
+    out["k1_collapse"], out["k5_collapse"] = eval_calls(
+        cfg, state, params, cs.dev(h0, torch.float32), blocks,
+        ("phase_a_cells", "phase_b_grouped"), bargs)
+    # the plan's work units stay out of the file: a parent tree's wrapper
+    # does not take them, and `time` builds them for a tree that does
+    out["k5_collapse"] = [(a, {k: v for k, v in kw.items() if k != "units"})
+                          for a, kw in out["k5_collapse"]]
     with tempfile.TemporaryDirectory() as tmp:
-        for kh, key, module, name in ((cs.KH_CLASS, "k1_class", ctiles, "phase_a_cells"),
-                                      (50, "k4_exact", tiles, "phase_a_tile")):
+        for n, kh, gravity, key, module, name in (
+                (cs.N_MAIN, cs.KH_CLASS, "exact", "k1_class", ctiles, "phase_a_cells"),
+                (cs.N_P3M, 50, "p3m", "k4_p3m", tiles, "phase_a_tile"),
+                (cs.N_MAIN, 50, "exact", "k4_exact", tiles, "phase_a_tile")):
             base, state, params, pos, h0 = cs.load_scene(
-                os.path.join(tmp, key), "boss_bodenheimer", cs.N_MAIN, kh)
-            cfg, _ = plan_engine(pos, h0, **base, gravity="exact")
+                os.path.join(tmp, key), "boss_bodenheimer", n, kh)
+            cfg, _ = plan_engine(pos, h0, **base, gravity=gravity)
+            if cfg.gravity != gravity or cfg.tile is None:
+                raise RuntimeError(f"{key}: planned {cfg}")
             out[key], = eval_calls(cfg, state, params, cs.dev(h0, torch.float32), module,
                                    (name,))
     out["k3_pos"] = to_cpu(state.pos)
@@ -92,9 +106,11 @@ def capture(path: str) -> None:
 
 def time_tree(tree: str, path: str, sweep: bool) -> None:
     sys.path.insert(0, os.path.abspath(tree))
+    import inspect
+
     import torch
 
-    from sphtpu_torch.kernels import cuda_gravity, cuda_knn, cuda_strip_knn
+    from sphtpu_torch.kernels import cuda_gravity, cuda_grouped_pairs, cuda_knn, cuda_strip_knn
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
@@ -105,6 +121,9 @@ def time_tree(tree: str, path: str, sweep: bool) -> None:
         if isinstance(x, (tuple, list)):
             return type(x)(to_dev(v) for v in x)
         return x.to(dev) if hasattr(x, "to") else x
+
+    def takes(fn, name):
+        return name in inspect.signature(fn).parameters
 
     def median_ms(fn, iters=7):
         fn()
@@ -124,7 +143,7 @@ def time_tree(tree: str, path: str, sweep: bool) -> None:
 
     def device_ms(fn, calls, iters=5):
         """Device time of the hand-written kernels over one pass of `calls`,
-        and each launch's (ms, the median over iters)."""
+        and each of their kernels' (ms, the median over iters)."""
         from torch.profiler import ProfilerActivity, profile
 
         for a, kw in calls:
@@ -144,34 +163,60 @@ def time_tree(tree: str, path: str, sweep: bool) -> None:
         return sum(per) / iters, launches
 
     k1 = {key: [(to_dev(a), kw) for a, kw in data[key]] for key in ("k1_collapse", "k1_class")}
-    k4 = [(to_dev(a), kw) for a, kw in data["k4_exact"]]
+    k4 = {key: [(to_dev(a), kw) for a, kw in data[key]] for key in ("k4_exact", "k4_p3m")}
+    k5 = [(to_dev(a), kw) for a, kw in data["k5_collapse"]]
+    k5_units = takes(cuda_grouped_pairs.phase_b_grouped, "units")
+
+    def with_units(calls, unit_slots=2048):
+        if not k5_units:
+            return calls
+        return [(a, dict(kw, units=tuple(
+            torch.as_tensor(u).to(dev) for u in cuda_grouped_pairs.unit_table(
+                tuple(kw["qblk"]), tuple(kw["first"]), a[0][0].shape[0], unit_slots))))
+            for a, kw in calls]
+
+    k5 = with_units(k5)
     pos = data["k3_pos"].to(dev)
     m = 1.0 / pos.shape[0]
-    out = {"tree": tree, "card": card_line(), "n_k3": pos.shape[0]}
+    out = {"tree": tree, "card": card_line(), "n_k3": pos.shape[0], "k5_units": k5_units}
     out["k1_collapse_ms"] = calls_ms(cuda_strip_knn.phase_a_cells, k1["k1_collapse"])
     out["k1_class_ms"] = calls_ms(cuda_strip_knn.phase_a_cells, k1["k1_class"])
-    out["k4_exact_ms"] = calls_ms(cuda_knn.phase_a_tile, k4)
+    for key, calls in k4.items():
+        out[f"{key}_ms"] = calls_ms(cuda_knn.phase_a_tile, calls)
+    out["k5_collapse_ms"] = calls_ms(cuda_grouped_pairs.phase_b_grouped, k5)
     out["k3_ms"] = median_ms(lambda: cuda_gravity.newton_sweep(pos, m))
     for key, fn, calls in (("k1_collapse", cuda_strip_knn.phase_a_cells, k1["k1_collapse"]),
                            ("k1_class", cuda_strip_knn.phase_a_cells, k1["k1_class"]),
-                           ("k4_exact", cuda_knn.phase_a_tile, k4),
+                           ("k4_exact", cuda_knn.phase_a_tile, k4["k4_exact"]),
+                           ("k4_p3m", cuda_knn.phase_a_tile, k4["k4_p3m"]),
+                           ("k5_collapse", cuda_grouped_pairs.phase_b_grouped, k5),
                            ("k3", cuda_gravity.newton_sweep, [((pos, m), {})])):
         out[f"{key}_device_ms"], launches = device_ms(fn, calls)
         if key != "k3":
             out[f"{key}_device_ms_of_launches"] = launches
     if sweep:
-        out["k1_list_caps"] = {}
-        for cap_l in (672, 448, 320, 224):
-            row = {}
-            for key, calls in k1.items():
-                valid = over = 0
-                for a, kw in calls:
-                    cuda_strip_knn.phase_a_cells(*a, **kw, list_cap=cap_l)
-                    valid += int((a[0][3] > 0).sum())
-                    over += int(cuda_strip_knn.last_overflow.item())
-                row[key] = {"ms": calls_ms(cuda_strip_knn.phase_a_cells, calls, list_cap=cap_l),
-                            "overflow_share": over / max(valid, 1)}
-            out["k1_list_caps"][cap_l] = row
+        caps = (672, 448, 320, 224)
+        for mod, fn, groups in ((cuda_strip_knn, cuda_strip_knn.phase_a_cells, k1),
+                                (cuda_knn, cuda_knn.phase_a_tile, k4)):
+            if not takes(fn, "list_cap"):
+                continue
+            for key, calls in groups.items():
+                out[f"{key}_list_caps"] = {}
+                for cap_l in caps:
+                    valid = over = 0
+                    for a, kw in calls:
+                        fn(*a, **kw, list_cap=cap_l)
+                        qm = a[0][3] if mod is cuda_strip_knn else a[0][3][
+                            :, 13 * kw["cap"] : 14 * kw["cap"]]
+                        valid += int((qm > 0).sum())
+                        over += int(mod.last_overflow.item())
+                    out[f"{key}_list_caps"][cap_l] = {
+                        "ms": calls_ms(fn, calls, list_cap=cap_l),
+                        "overflow_share": over / max(valid, 1)}
+        if k5_units:
+            out["k5_unit_slots"] = {
+                u: calls_ms(cuda_grouped_pairs.phase_b_grouped, with_units(k5, u))
+                for u in (512, 1024, 2048, 4096, 8192)}
         n = pos.shape[0]
         plans = [(r, 256, s) for r in (1, 2, 4) for s in (1, 11, 22, 44, 88)] + [(4, 128, 44)]
         out["k3_plans"] = []
