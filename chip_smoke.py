@@ -49,10 +49,15 @@ list forced to overflow (h and ok bit-identical); K3 reports its plan (R,
 S, grid) and that two launches are bit-identical; K5 is held against its
 plain version in float32 and float64 on every input (the synthetic blocks,
 the collapse path's and both gravity modes of the contrast-1001 state),
-must give two bit-identical launches, and reports its work units. A time
-("ms") is CUDA events around the wrapper, so a short launch's time holds
-the wrapper's host work (tools/chip_k1k3.py gives K1's, K3's, K4's and
-K5's device time alone). A bound
+must give two bit-identical launches, and reports its work units; K2 (the
+four EOS x P3M variants in float32 and float64 on class rows, on mono rows
+at cap 160 and 256 with rows filled to cap, and on every path's inputs)
+must give two bit-identical launches and the same bits with its cull off
+(`keep_all`), and the tail (W = 1, 2 and 3 at cap 160 and W = 2 at cap
+256, float32 and float64, cells filled to cap, and the P3M path's inputs)
+two bit-identical launches. A time ("ms") is CUDA events around the
+wrapper, so a short launch's time holds the wrapper's host work
+(tools/chip_k1k3.py gives each kernel's device time alone). A bound
 counts the bytes the
 function needs: the occupancy plane of a padded slot layout whole, its
 other planes at the occupied slots only; phase A's operations count the
@@ -220,15 +225,17 @@ def slot_bytes(mask, n_other: int) -> int:
 # --------------------------------------------------------------------------
 
 
-def synthetic_rows(rng, n_cells, cap_k, cap, dtype, occupancy):
+def synthetic_rows(rng, n_cells, cap_k, cap, dtype, occupancy, full_rows=0):
     """Cell rows shaped like the class-compacted engine's: cw = 27 * cap
     candidate slots of which `occupancy` of each cell's cap slots are
     filled, positions inside a 3^3 block of unit cells, the queries being
-    the centre cell's first cap_k slots."""
+    the centre cell's first cap_k slots. The first `full_rows` rows have
+    every cell filled to cap."""
     cw = 27 * cap
     n_occ = max(1, min(cap_k, int(occupancy)))
     slot = np.arange(cap)[None, None, :]
     fill = rng.integers(max(1, n_occ // 2), n_occ + 1, size=(n_cells, 27, 1))
+    fill[:full_rows] = cap
     cm = (slot < fill).astype(np.float64)
     cell = np.arange(27)
     off = np.stack([cell % 3, (cell // 3) % 3, cell // 9], 0)  # (3, 27)
@@ -409,6 +416,7 @@ def phase_kernels(seed: int = 0) -> None:
                         raise AssertionError("phase_b_tiles: masked row wrong")
                     case[f"b_{eos[:4]}_{'p3m' if p3m else 'exact'}"] = {
                         "max_err_over_scale": worst, "rtol": rtol, "atol_of_scale": atol,
+                        **k2_repeats(args, kw, outs_k),
                     }
             report["cases"].append(case)
 
@@ -420,7 +428,11 @@ def phase_kernels(seed: int = 0) -> None:
         if n == N_NEWTON_ONE_SLICE and case["plan"]["S"] != 1:
             raise AssertionError(f"newton_sweep: N = {n} plans {case['plan']['S']} slices")
         report["cases"].append({"dtype": str(dtype)[6:], "newton_n": n, **case})
-    report["cases"] += kernels_k4(rng, kh, m) + kernels_tail(rng, m) + kernels_blocks(rng, m)
+    # the cases added with the redesigned K2 and tail draw from their own
+    # generator, so the earlier cases keep their inputs
+    rng_new = np.random.default_rng(seed + 1)
+    report["cases"] += (kernels_k4(rng, kh, m) + kernels_tail(rng, rng_new, m)
+                        + kernels_blocks(rng, m) + kernels_k2_mono(rng_new, m))
     report["tie_rows_total"] = sum(
         c[k]["tie_rows"] for c in report["cases"] for k in ("a", "k4") if k in c
     )
@@ -495,12 +507,75 @@ def kernels_k4(rng, kh, m):
     return cases
 
 
-def synthetic_tail_planes(rng, grid, cap, w, dtype, occupancy):
+def same_bits(a, b) -> bool:
+    return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
+def k2_repeats(args, kw, outs_k):
+    """K2's launch `outs_k` against a second launch on the same inputs and
+    against a launch that keeps every occupied pair (no cull): both must
+    give the same bits (a pair outside every mask adds exact zeros)."""
+    again = cuda_tile_pairs.phase_b_tiles(*args, **kw)
+    if not same_bits(outs_k, again):
+        raise AssertionError(f"phase_b_tiles {kw}: two launches differ")
+    every = cuda_tile_pairs.phase_b_tiles(*args, **kw, keep_all=True)
+    if not same_bits(outs_k, every):
+        worst = max(float((x - y).abs().max()) for x, y in zip(outs_k, every))
+        raise AssertionError(f"phase_b_tiles {kw}: the cull changes the result ({worst})")
+    return {"runs_bit_identical": True, "keep_all_bit_identical": True}
+
+
+def kernels_k2_mono(rng, m):
+    """K2 on mono-tile rows (cap 160, the paths' capacity, and 256, the mono
+    planner's ceiling), all four (EOS, P3M) variants in both dtypes, the
+    first two rows filled to cap: within check_phase_b's bars, two launches
+    bit-identical, the cull against keep-all bit-identical."""
+    cases = []
+    for dtype, n_rows in ((torch.float32, 32), (torch.float64, 8)):
+        for cap in (160, 256):
+            t, sl, cw = synthetic_rows(rng, n_rows, cap, cap, dtype, 0.6 * cap, full_rows=2)
+            ch = dev(0.3 + 0.2 * rng.random((n_rows, cw)), dtype) * t["m"]
+            crho = dev(0.5 + rng.random((n_rows, cw)), dtype) * t["m"]
+            order = ("x", "y", "z", "vx", "vy", "vz", "m")
+            cfields = tuple(t[k] for k in order) + (ch, crho, t["por2"], t["cs"])
+            qfields = tuple(c[:, sl].contiguous() for c in cfields)
+            case = {"dtype": str(dtype)[6:], "k2_mono_cap": cap, "rows": n_rows,
+                    "full_rows": 2, "piece": cuda_tile_pairs.k2_budget(
+                        cap, cw, dtype, build.device_limits(DEVICE)[1])}
+            for eos in ("polytropic", "isothermal"):
+                for p3m in (False, True):
+                    sigma = 1.0 / 10 * 2.2 if p3m else None
+                    args = (qfields, cfields, m, 1.0, 2.0, sigma)
+                    kw = dict(eos=eos, p3m=p3m, cap=cap)
+                    outs_k = cuda_tile_pairs.phase_b_tiles(*args, **kw)
+                    sync()
+                    outs_p = cuda_tile_pairs.phase_b_tiles_plain(*args, **kw)
+                    worst, rtol, atol = check_phase_b(outs_k, outs_p, dtype)
+                    case[f"b_{eos[:4]}_{'p3m' if p3m else 'exact'}"] = {
+                        "max_err_over_scale": worst, "rtol": rtol, "atol_of_scale": atol,
+                        **k2_repeats(args, kw, outs_k)}
+            cases.append(case)
+            del t, cfields, qfields
+            torch.cuda.empty_cache()
+    return cases
+
+
+def tail_repeats(args, kw, out_k):
+    """The tail kernel's launch `out_k` against a second launch on the same
+    inputs: the same bits."""
+    if not bool(torch.equal(out_k, cuda_p3m_tail.p3m_tail(*args, **kw))):
+        raise AssertionError(f"p3m_tail {kw}: two launches differ")
+    return {"runs_bit_identical": True}
+
+
+def synthetic_tail_planes(rng, grid, cap, w, dtype, occupancy, full_cells=0):
     """x, y, z, mask planes of the tail kernel's layout for unit cells:
     every cell holds between occupancy/2 and occupancy particles in its
-    first slots, a w-cell halo of zeros around the grid."""
+    first slots (the first `full_cells` cells of the flat order cap of
+    them), a w-cell halo of zeros around the grid."""
     gpc = grid + 2 * w
     fill = rng.integers(max(1, occupancy // 2), occupancy + 1, size=(grid, grid, grid, 1))
+    fill.reshape(-1)[:full_cells] = cap
     occ = (np.arange(cap)[None, None, None, :] < fill).astype(np.float64)
     idx = np.indices((grid, grid, grid))  # z, y, x
     planes = np.zeros((4, gpc, gpc, gpc * cap))
@@ -512,15 +587,23 @@ def synthetic_tail_planes(rng, grid, cap, w, dtype, occupancy):
     return dev(planes, dtype)
 
 
-def kernels_tail(rng, m):
-    """The P3M tail kernel vs its plain version on synthetic planes, W = 2
-    (the default mesh_factor 5) in both dtypes and W = 1 (mesh_factor 10)
-    in float64."""
+def kernels_tail(rng, rng_new, m):
+    """The P3M tail kernel vs its plain version on synthetic planes, float32
+    and float64: W = 2 (the default mesh_factor 5) and W = 1 (mesh_factor
+    10) at cap 160 from `rng`; then, from `rng_new`, W = 1, 2 and 3
+    (mesh_factor 4) at cap 160 and W = 2 at cap 256 (the mono planner's
+    ceiling), each grid's first layer of cells filled to cap. Two launches
+    bit-identical."""
     cases = []
-    for dtype, w in ((torch.float32, 2), (torch.float64, 2), (torch.float64, 1)):
-        grid, cap = 8, 160
-        planes = synthetic_tail_planes(rng, grid, cap, w, dtype, 100)
-        sigma = 1.0 / {2: 5, 1: 10}[w] * 2.2
+    for dtype, w, grid, cap, gen, occ, full in (
+            (torch.float32, 2, 8, 160, rng, 100, 0),
+            (torch.float64, 2, 8, 160, rng, 100, 0),
+            (torch.float64, 1, 8, 160, rng, 100, 0),
+            *((dt, w, grid, cap, rng_new, int(0.6 * cap), grid * grid)
+              for dt in (torch.float32, torch.float64)
+              for w, grid, cap in ((1, 8, 160), (2, 8, 160), (3, 6, 160), (2, 5, 256)))):
+        planes = synthetic_tail_planes(gen, grid, cap, w, dtype, occ, full_cells=full)
+        sigma = 1.0 / {1: 10, 2: 5, 3: 4}[w] * 2.2
         kw = dict(grid=grid, cap=cap, halfwidth=w)
         out_k = cuda_p3m_tail.p3m_tail(planes, m, sigma, **kw)
         sync()
@@ -529,8 +612,11 @@ def kernels_tail(rng, m):
             out_k, out_p, dtype, names=TAIL_OUTPUTS, kernel="p3m_tail"
         )
         cases.append({"dtype": str(dtype)[6:], "tail_w": w, "grid": grid, "cap": cap,
+                      "full_cells": full,
                       "tail": {"max_err_over_scale": worst, "rtol": rtol,
-                               "atol_of_scale": atol}})
+                               "atol_of_scale": atol,
+                               **tail_repeats((planes, m, sigma), kw, out_k)}})
+        del planes, out_k, out_p
     return cases
 
 
@@ -975,6 +1061,7 @@ def k2_entry(calls, counts, dtype):
         qfields, cfields = args[0], args[1]
         out_k = cuda_tile_pairs.phase_b_tiles(*args, **kw)
         out_p = cuda_tile_pairs.phase_b_tiles_plain(*args, **kw)
+        repeats = k2_repeats(args, kw, out_k)
         for name, a, b in zip(B_OUTPUTS, out_k, out_p):
             e = float((a - b).abs().max())
             if e > err:
@@ -994,10 +1081,13 @@ def k2_entry(calls, counts, dtype):
         byts += slot_bytes(qfields[6], 10) + slot_bytes(cfields[6], 10) + nbytes(*out_k)
     # the absolute error is in code units of whichever output is largest;
     # the check itself is relative to each output's scale
+    cap, cw = calls[0][1]["cap"], calls[0][0][1][0].shape[1]
     return kernel_entry("phase_b_tiles", counts, err, ms, plain_ms, flops, byts,
                         PEAK_FLOPS[dtype], max_abs_err_output=err_field,
                         largest_value_of_it=err_scale, max_err_over_scale=rel,
-                        occupied_pairs=pairs_all, pairs_in_a_mask=pairs_masked)
+                        occupied_pairs=pairs_all, pairs_in_a_mask=pairs_masked,
+                        piece=cuda_tile_pairs.k2_budget(
+                            cap, cw, dtype, build.device_limits(DEVICE)[1]), **repeats)
 
 
 # --------------------------------------------------------------------------
@@ -1095,6 +1185,7 @@ def phase_mono_kernel_times(res, cfg, counts):
         out_p = cuda_p3m_tail.p3m_tail_plain(*args, **kw)
         rel, rtol, atol = check_phase_b(out_k, out_p, dtype, names=TAIL_OUTPUTS,
                                         kernel="p3m_tail")
+        repeats = tail_repeats(args, kw, out_k)
         err = float((out_k - out_p).abs().max())
         ms = time_ms(lambda: cuda_p3m_tail.p3m_tail(*args, **kw))
         plain_ms = time_ms(lambda: cuda_p3m_tail.p3m_tail_plain(*args, **kw),
@@ -1104,12 +1195,14 @@ def phase_mono_kernel_times(res, cfg, counts):
                             slot_bytes(planes[3], 3) + nbytes(out_k), peak,
                             max_err_over_scale=rel,
                             tolerance={"rtol": rtol, "atol_of_scale": atol},
-                            occupied_pairs=pairs, halfwidth=kw["halfwidth"])
+                            occupied_pairs=pairs, halfwidth=kw["halfwidth"],
+                            chunk=cuda_p3m_tail.TAIL_CHUNK, **repeats)
 
     k2 = k2_entry(calls["phase_b_tiles"], counts, dtype)
     k2_here = {k: k2[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "max_err_over_scale", "occupied_pairs",
-                                  "pairs_in_a_mask")}
+                                  "pairs_in_a_mask", "runs_bit_identical",
+                                  "keep_all_bit_identical")}
     return k4, k2_here, tail
 
 

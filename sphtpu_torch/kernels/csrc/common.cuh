@@ -33,6 +33,13 @@ struct Num<float> {
   static __device__ __forceinline__ float rsqrt(float a) { return rsqrtf(a); }
   static __device__ __forceinline__ float sqrt(float a) { return sqrtf(a); }
   static __device__ __forceinline__ float exp(float a) { return expf(a); }
+  // one approximate reciprocal (MUFU, ~1 ulp; a subnormal a flushes to 0):
+  // only for arguments that are normal numbers by construction
+  static __device__ __forceinline__ float rcp(float a) {
+    float y;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(a));
+    return y;
+  }
   static __device__ __forceinline__ float big() { return FLT_MAX; }
 };
 
@@ -43,6 +50,7 @@ struct Num<double> {
   static __device__ __forceinline__ double rsqrt(double a) { return ::rsqrt(a); }
   static __device__ __forceinline__ double sqrt(double a) { return ::sqrt(a); }
   static __device__ __forceinline__ double exp(double a) { return ::exp(a); }
+  static __device__ __forceinline__ double rcp(double a) { return 1.0 / a; }  // IEEE
   static __device__ __forceinline__ double big() { return DBL_MAX; }
 };
 

@@ -9,38 +9,276 @@
 // exp(-z^2) times a degree-8 erfcx polynomial, z = r / (sqrt2 sigma). A
 // candidate at d2 = 0 (the query itself) adds no force and phi +=
 // sqrt(2/pi) / sigma: it cancels the mesh's smoothed self-interaction.
+// Every (occupied query, occupied candidate) pair of the stencil counts:
+// there is no radius cut.
 //
-// Bound on this card: operations (~50 per (query, occupied candidate)
-// pair, one exp and two divisions among them) against four position/mask
-// planes read once. Design, as phase_b_tiles: a block owns 32 queries of
-// one cell, 8 lanes per query, accumulators in registers. The kernel reads
-// the padded position planes (gpc, gpc, gpc * cap), gpc = grid + 2W,
-// directly: a cell's stencil is (2W+1)^2 contiguous runs of (2W+1) * cap
-// slots, so no candidate prestack (20 000 slots a row at W = 2, cap = 160)
-// is ever built. The stencil is walked in chunks of CHUNK slots whose
-// OCCUPIED entries are compacted, order kept, into shared memory; a block
-// with no occupied query slot leaves before it stages anything. No
-// atomics: the lanes of a query combine by warp shuffle at the end.
+// Bound on this card: operations (~48 per pair against four planes read
+// once). Design:
+// * `tail_pack_kernel`, one warp a cell of the padded grid, compacts the
+//   cell's occupied slots in slot order into (x, y, z, slot) records and
+//   counts them, so the mask stays general and an empty cell costs the
+//   main kernel one count.
+// * `tail_kernel`: one CTA a cell row. It
+//   reads its stencil's (2W+1)^3 counts into an exclusive prefix in shared
+//   memory, stages the stencil's occupied candidates once for all of the
+//   cell's queries, `chunk` records at a time, and sweeps them with every
+//   thread on its own queries: nq queries take QT = ceil(nq / R) threads
+//   (R = 1, 2 or 4 queries a thread, in registers) times S = 256 / QT slices
+//   of the staged candidates, so a 56-query cell keeps 252 of 256 threads
+//   busy and a cell filled to cap (<= 256) still fits. Lanes of a warp
+//   read the same candidate (a shared-memory broadcast).
+// * Arithmetic: no division by sigma in the body (1/(sqrt2 sigma), the
+//   exponent's scale and sqrt(2/pi)/sigma are computed once a thread);
+//   float32 takes rsqrt, u = z / (1 + z) and exp(-z^2) = exp2(d2 ce) by one
+//   MUFU operation each (flush-to-zero forms); float64 keeps the IEEE
+//   division, rsqrt and exp.
+// * Fixed order, no atomics: a thread sums its candidates in staging order,
+//   the S slice partials of a query are added in slice order through shared
+//   memory. Two launches on the same inputs give the same bits.
 #include "common.cuh"
 
 namespace sph {
 
-constexpr int TAIL_CHUNK = 1024;  // stencil slots staged per pass (3 planes)
+constexpr int TAIL_THREADS = 256;
+constexpr int TAIL_WARPS = TAIL_THREADS / 32;
 
+// an occupied slot: position and its slot number within the cell
 template <typename T>
-struct TailArgs {
-  const T* p[4];   // x y z mask planes, each (gpc, gpc, gpc * cap)
-  const T* scal;   // m, sigma on the device
-  T* out[4];       // gx gy gz gphi, each (grid^3, cap)
-  int grid;
-  int cap;
-  int w;           // stencil half-width in cells
+struct alignas(16) Slot4 {
+  T x, y, z, slot;
 };
 
 template <typename T>
-__global__ void __launch_bounds__(TILE_THREADS) p3m_tail_kernel(TailArgs<T> a) {
-  __shared__ T s[3][TAIL_CHUNK];
-  __shared__ int wcount[TILE_WARPS];
+struct TailArgs {
+  const T* p[4];      // x y z mask planes, each (gpc, gpc, gpc * cap)
+  const T* scal;      // m, sigma on the device
+  T* out[4];          // gx gy gz gphi, each (grid^3, cap)
+  Slot4<T>* packed;   // (gpc^3, cap) scratch: each cell's occupied slots
+  int* count;         // (gpc^3) scratch: occupied slots a cell
+  int grid;
+  int cap;
+  int w;              // stencil half-width in cells
+  int chunk;          // candidate records staged at a time
+};
+
+// Dynamic shared memory of `tail_kernel`: the staged records (reused for
+// the slice partials, at most 4 x 4 x TAIL_THREADS values, which chunk >=
+// 1024 leaves room for) and the stencil's count prefix.
+template <typename T>
+size_t tail_smem(int w, int chunk) {
+  const int span = 2 * w + 1;
+  return size_t(chunk) * sizeof(Slot4<T>) + size_t(span * span * span + 1) * sizeof(int);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TAIL_THREADS) tail_pack_kernel(TailArgs<T> a, long n_pad) {
+  const long cell = long(blockIdx.x) * TAIL_WARPS + (threadIdx.x >> 5);
+  if (cell >= n_pad) return;
+  const int lane = threadIdx.x & 31;
+  const long base = cell * a.cap;  // a padded cell's slots are contiguous
+  int n = 0;
+  for (int s0 = 0; s0 < a.cap; s0 += 32) {
+    const int s = s0 + lane;
+    const bool keep = s < a.cap && a.p[3][base + s] > T(0);
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (keep) {
+      a.packed[base + n + __popc(ballot & ((1u << lane) - 1u))] =
+          Slot4<T>{a.p[0][base + s], a.p[1][base + s], a.p[2][base + s], T(s)};
+    }
+    n += __popc(ballot);
+  }
+  if (lane == 0) a.count[cell] = n;
+}
+
+template <typename T>
+struct TailConst {
+  T cz;        // 1 / (sqrt2 sigma): z = r cz
+  T ce;        // exp(-z^2) = exp2(d2 ce) in float32, exp(d2 ce) in float64
+  T self_phi;  // sqrt(2/pi) / sigma
+};
+
+// float32's MUFU forms without the subnormal handling: rsqrt of a normal
+// d2, and exp2 of d2 ce <= 0 (a result below FLT_MIN flushes to 0).
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One pair's (Newtonian - mesh) terms added to (gx, gy, gz, gp). In
+// float32 a d2 below FLT_MIN (a pair closer than 1.1e-19) counts as the
+// self slot, as d2 = 0 does.
+template <typename T>
+__device__ __forceinline__ void tail_pair(T dx, T dy, T dz, const TailConst<T>& k, T& gx, T& gy,
+                                          T& gz, T& gp) {
+  const T d2 = dx * dx + dy * dy + dz * dz;
+  const bool sep = sizeof(T) == 4 ? d2 >= T(FLT_MIN) : d2 > T(0);
+  T inv_r, u, e;
+  if constexpr (sizeof(T) == 4) {
+    inv_r = sep ? rsqrt_ftz(d2) : T(0);  // the self slot: no force
+  } else {
+    inv_r = sep ? Num<T>::rsqrt(d2) : T(0);
+  }
+  const T z = d2 * inv_r * k.cz;
+  if constexpr (sizeof(T) == 4) {
+    u = z * Num<T>::rcp(T(1) + z);  // 1 + z >= 1: never subnormal
+    e = ex2_ftz(d2 * k.ce);
+  } else {
+    u = z / (T(1) + z);
+    e = ::exp(d2 * k.ce);
+  }
+  T p = T(2.3849380332e-01);
+  p = p * u + T(-9.3397713762e-01);
+  p = p * u + T(1.2579923862e+00);
+  p = p * u + T(-8.1740263321e-01);
+  p = p * u + T(4.6001262975e-01);
+  p = p * u + T(4.3301822784e-02);
+  p = p * u + T(-1.1974394197e-01);
+  p = p * u + T(-1.1287916483e+00);
+  p = p * u + T(1.0000047021e+00);
+  const T erfc_z = e * p;
+  // sqrt(2/pi) t e with t = sqrt2 z
+  const T f = erfc_z + T(1.1283791670955126) * z * e;
+  const T cgp = f * (inv_r * inv_r * inv_r);
+  gx += cgp * dx;
+  gy += cgp * dy;
+  gz += cgp * dz;
+  gp += sep ? -erfc_z * inv_r : k.self_phi;
+}
+
+// Exclusive prefix of the stencil's per-cell counts into spre[0..ns], in
+// (dz, dy, dx) order; spre[ns] = the stencil's occupied slots.
+template <typename T>
+__device__ void stencil_prefix(const TailArgs<T>& a, long corner, int* spre, int* wsum) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int span = 2 * a.w + 1;
+  const int gpc = a.grid + 2 * a.w;
+  const int ns = span * span * span;
+  int carry = 0;
+  for (int s0 = 0; s0 < ns; s0 += TAIL_THREADS) {
+    const int s = s0 + tid;
+    int v = 0;
+    if (s < ns) {
+      const int dz = s / (span * span), dy = (s / span) % span, dx = s % span;
+      v = a.count[corner + (long(dz) * gpc + dy) * gpc + dx];
+    }
+    int incl = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, incl, o);
+      incl += lane >= o ? x : 0;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    int before = carry, total = carry;
+#pragma unroll
+    for (int k = 0; k < TAIL_WARPS; ++k) {
+      before += k < warp ? wsum[k] : 0;
+      total += wsum[k];
+    }
+    if (s < ns) spre[s] = before + incl - v;
+    carry = total;
+    __syncthreads();  // wsum is rewritten next
+  }
+  if (tid == 0) spre[ns] = carry;
+  __syncthreads();
+}
+
+// The sweep of one cell row with R queries a thread; see the header.
+template <typename T, int R>
+__device__ void tail_sweep(const TailArgs<T>& a, const TailConst<T>& kc, Slot4<T>* sc,
+                           const int* spre, long row, long own, long corner, int nq) {
+  const int tid = threadIdx.x;
+  const int span = 2 * a.w + 1;
+  const int gpc = a.grid + 2 * a.w;
+  const int ns = span * span * span;
+  const int qt = (nq + R - 1) / R;
+  const int n_slices = TAIL_THREADS / qt;
+  const bool worker = tid < qt * n_slices;
+  const int qa = tid % qt;
+  const int slice = tid / qt;
+
+  T qx[R], qy[R], qz[R], acc[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = qa + r * qt;
+    qx[r] = qy[r] = qz[r] = T(0);
+    if (worker && k < nq) {
+      const Slot4<T> q = a.packed[own * a.cap + k];
+      qx[r] = q.x;
+      qy[r] = q.y;
+      qz[r] = q.z;
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) acc[r][f] = T(0);
+  }
+
+  const int nc = spre[ns];
+  for (int c0 = 0; c0 < nc; c0 += a.chunk) {
+    const int n_here = min(a.chunk, nc - c0);
+    for (int i = tid; i < n_here; i += TAIL_THREADS) {
+      const int gi = c0 + i;
+      int lo = 0, hi = ns;  // spre[lo] <= gi < spre[hi]
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (spre[mid] <= gi) lo = mid;
+        else hi = mid;
+      }
+      const int dz = lo / (span * span), dy = (lo / span) % span, dx = lo % span;
+      const long cell = corner + (long(dz) * gpc + dy) * gpc + dx;
+      sc[i] = a.packed[cell * a.cap + (gi - spre[lo])];
+    }
+    __syncthreads();
+    if (worker) {
+      for (int j = slice; j < n_here; j += n_slices) {
+        const Slot4<T> c = sc[j];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          tail_pair<T>(qx[r] - c.x, qy[r] - c.y, qz[r] - c.z, kc, acc[r][0], acc[r][1],
+                       acc[r][2], acc[r][3]);
+      }
+    }
+    __syncthreads();  // the records are overwritten next
+  }
+
+  // slice partials through shared memory, added in slice order
+  T* part = reinterpret_cast<T*>(sc);
+  const int stride = qt * R;
+  if (worker) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = qa + r * qt;
+      if (k < nq) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) part[(f * n_slices + slice) * stride + k] = acc[r][f];
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < nq) {
+    const T m = a.scal[0];
+    const long o = row * a.cap + int(a.packed[own * a.cap + tid].slot);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      T v = T(0);
+      for (int s = 0; s < n_slices; ++s) v += part[(f * n_slices + s) * stride + tid];
+      a.out[f][o] = m * v;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TAIL_THREADS) tail_kernel(TailArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Slot4<T>* sc = reinterpret_cast<Slot4<T>*>(smem_raw);
+  int* spre = reinterpret_cast<int*>(sc + a.chunk);
+  __shared__ int wsum[TAIL_WARPS];
 
   const int g = a.grid;
   const long row = blockIdx.x;
@@ -48,130 +286,66 @@ __global__ void __launch_bounds__(TILE_THREADS) p3m_tail_kernel(TailArgs<T> a) {
   const int iy = int((row / g) % g);
   const int iz = int(row / (long(g) * g));
   const int gpc = g + 2 * a.w;
-  const long xs = long(gpc) * a.cap;  // slots of one (z, y) line
-  const int span = 2 * a.w + 1;
-  const int runlen = span * a.cap;
-  const int cwc = span * span * runlen;
-
+  const long corner = (long(iz) * gpc + iy) * gpc + ix;
+  const long own = (long(iz + a.w) * gpc + (iy + a.w)) * gpc + (ix + a.w);
   const int tid = threadIdx.x;
-  const int sub = tid % LANES_PER_QUERY;
-  const int q = blockIdx.y * QUERIES_PER_BLOCK + tid / LANES_PER_QUERY;
-  const long qo = row * a.cap + q;  // output slot
-  const long qp = (long(iz + a.w) * gpc + (iy + a.w)) * xs + long(ix + a.w) * a.cap + q;
-  const bool active = q < a.cap && a.p[3][qp] > T(0);
 
-  if (!__syncthreads_or(active)) {
-    if (q < a.cap && sub == 0) {
+  // unoccupied query slots: zeros
+  if (tid < a.cap && !(a.p[3][own * a.cap + tid] > T(0))) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) a.out[k][qo] = T(0);
-    }
-    return;
+    for (int f = 0; f < 4; ++f) a.out[f][row * a.cap + tid] = T(0);
   }
+  const int nq = a.count[own];
+  if (nq == 0) return;  // uniform over the CTA
 
-  const T m = a.scal[0];
   const T sigma = a.scal[1];
-  T qx = T(0), qy = T(0), qz = T(0);
-  if (active) {
-    qx = a.p[0][qp];
-    qy = a.p[1][qp];
-    qz = a.p[2][qp];
-  }
-  const long corner = (long(iz) * gpc + iy) * xs + long(ix) * a.cap;
+  TailConst<T> kc;
+  kc.cz = T(0.7071067811865476) / sigma;
+  kc.ce = (sizeof(T) == 4 ? T(-0.7213475204444817) : T(-0.5)) / (sigma * sigma);  // log2(e)/2
+  kc.self_phi = T(0.7978845608028654) / sigma;
 
-  T gx = T(0), gy = T(0), gz = T(0), gp = T(0);
-  for (int c0 = 0; c0 < cwc; c0 += TAIL_CHUNK) {
-    int ncand = 0;
-    const int c1 = (c0 + TAIL_CHUNK < cwc) ? c0 + TAIL_CHUNK : cwc;
-    for (int t0 = c0; t0 < c1; t0 += TILE_THREADS) {
-      const int j = t0 + tid;
-      long cj = 0;
-      bool keep = false;
-      if (j < c1) {
-        const int run = j / runlen;
-        const int off = j - run * runlen;
-        cj = corner + (long(run / span) * gpc + (run % span)) * xs + off;
-        keep = a.p[3][cj] > T(0);
-      }
-      const int p = compact_slot(keep, ncand, wcount);
-      if (keep) {
-        s[0][p] = a.p[0][cj];
-        s[1][p] = a.p[1][cj];
-        s[2][p] = a.p[2][cj];
-      }
-    }
-    __syncthreads();
-
-    if (active) {
-      for (int j = sub; j < ncand; j += LANES_PER_QUERY) {
-        const T dx = qx - s[0][j];
-        const T dy = qy - s[1][j];
-        const T dz = qz - s[2][j];
-        const T d2 = dist2<T>(dx, dy, dz);
-        if (d2 > T(0)) {
-          const T inv_r = Num<T>::rsqrt(d2);
-          const T t = d2 * inv_r / sigma;
-          const T z = t * T(0.7071067811865476);
-          const T u = z / (T(1) + z);
-          T p = T(2.3849380332e-01);
-          p = p * u + T(-9.3397713762e-01);
-          p = p * u + T(1.2579923862e+00);
-          p = p * u + T(-8.1740263321e-01);
-          p = p * u + T(4.6001262975e-01);
-          p = p * u + T(4.3301822784e-02);
-          p = p * u + T(-1.1974394197e-01);
-          p = p * u + T(-1.1287916483e+00);
-          p = p * u + T(1.0000047021e+00);
-          const T e = Num<T>::exp(-z * z);
-          const T erfc_z = e * p;
-          const T f = erfc_z + T(0.7978845608028654) * t * e;
-          const T cgp = f * (inv_r * inv_r * inv_r);
-          gx += cgp * dx;
-          gy += cgp * dy;
-          gz += cgp * dz;
-          gp += -erfc_z * inv_r;
-        } else {
-          gp += T(0.7978845608028654) / sigma;
-        }
-      }
-    }
-    __syncthreads();  // the planes are overwritten by the next chunk
-  }
-
-  if (q >= a.cap) return;
-  if (!active) {
-    if (sub == 0) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) a.out[k][qo] = T(0);
-    }
-    return;
-  }
-  gx = group_sum<T>(gx);
-  gy = group_sum<T>(gy);
-  gz = group_sum<T>(gz);
-  gp = group_sum<T>(gp);
-  if (sub == 0) {
-    a.out[0][qo] = m * gx;
-    a.out[1][qo] = m * gy;
-    a.out[2][qo] = m * gz;
-    a.out[3][qo] = m * gp;
+  stencil_prefix<T>(a, corner, spre, wsum);
+  // R in 1, 2, 4: the fewest candidate sweeps a thread, R / S (the
+  // smaller R on a tie)
+  const int s1 = TAIL_THREADS / nq;
+  const int s2 = TAIL_THREADS / ((nq + 1) / 2);
+  const int s4 = TAIL_THREADS / ((nq + 3) / 4);
+  if (s4 > 2 * s2 && s4 > 4 * s1) {
+    tail_sweep<T, 4>(a, kc, sc, spre, row, own, corner, nq);
+  } else if (s2 > 2 * s1) {
+    tail_sweep<T, 2>(a, kc, sc, spre, row, own, corner, nq);
+  } else {
+    tail_sweep<T, 1>(a, kc, sc, spre, row, own, corner, nq);
   }
 }
 
 template <typename T>
-int p3m_tail_from_ptrs(void* const* planes, const void* scal, void* const* out, int grid,
-                       int cap, int w, cudaStream_t stream) {
+int p3m_tail_from_ptrs(void* const* planes, const void* scal, void* const* out, void* packed,
+                       void* count, int grid, int cap, int w, int chunk, cudaStream_t stream) {
   if (grid <= 0) return 0;
+  if (cap > TAIL_THREADS || w < 1 || chunk < 4 * TAIL_THREADS) return ERR_BUDGET;
   TailArgs<T> a;
   for (int k = 0; k < 4; ++k) {
     a.p[k] = static_cast<const T*>(planes[k]);
     a.out[k] = static_cast<T*>(out[k]);
   }
   a.scal = static_cast<const T*>(scal);
+  a.packed = static_cast<Slot4<T>*>(packed);
+  a.count = static_cast<int*>(count);
   a.grid = grid;
   a.cap = cap;
   a.w = w;
-  const dim3 blocks(unsigned(grid) * grid * grid, (cap + QUERIES_PER_BLOCK - 1) / QUERIES_PER_BLOCK);
-  SPH_LAUNCH((p3m_tail_kernel<T>), blocks, TILE_THREADS, 0, stream, a);
+  a.chunk = chunk;
+  const size_t smem = tail_smem<T>(w, chunk);
+  int err = fits_one_cta(tail_pack_kernel<T>, TAIL_THREADS, 0);
+  if (err) return err;
+  err = fits_one_cta(tail_kernel<T>, TAIL_THREADS, smem);
+  if (err) return err;
+  const long gpc = grid + 2 * w;
+  const long n_pad = gpc * gpc * gpc;
+  SPH_LAUNCH((tail_pack_kernel<T>), unsigned((n_pad + TAIL_WARPS - 1) / TAIL_WARPS), TAIL_THREADS,
+             0, stream, a, n_pad);
+  SPH_LAUNCH((tail_kernel<T>), unsigned(grid) * grid * grid, TAIL_THREADS, smem, stream, a);
   return int(cudaGetLastError());
 }
 
@@ -180,10 +354,16 @@ int p3m_tail_from_ptrs(void* const* planes, const void* scal, void* const* out, 
 // planes: 4 device pointers (x y z mask, each (grid + 2w)^2 * (grid + 2w) * cap,
 // the particles at their slots with a w-cell halo of zeros); scal: device
 // pointer to (m, sigma); out: 4 device pointers (gx gy gz gphi, each
-// (grid^3, cap)).
-extern "C" int sph_p3m_tail(void* const* planes, const void* scal, void* const* out, int grid,
-                            int cap, int w, int is_double, void* stream) {
+// (grid^3, cap)); packed: (grid + 2w)^3 * cap records of 4 values, count:
+// (grid + 2w)^3 int32, both scratch; chunk: records staged at a time
+// (>= 1024). Returns ERR_BUDGET for cap > 256 or where the shared memory of
+// (w, chunk) does not fit one CTA.
+extern "C" int sph_p3m_tail(void* const* planes, const void* scal, void* const* out, void* packed,
+                            void* count, int grid, int cap, int w, int chunk, int is_double,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? sph::p3m_tail_from_ptrs<double>(planes, scal, out, grid, cap, w, s)
-                   : sph::p3m_tail_from_ptrs<float>(planes, scal, out, grid, cap, w, s);
+  return is_double ? sph::p3m_tail_from_ptrs<double>(planes, scal, out, packed, count, grid, cap,
+                                                     w, chunk, s)
+                   : sph::p3m_tail_from_ptrs<float>(planes, scal, out, packed, count, grid, cap, w,
+                                                    chunk, s);
 }

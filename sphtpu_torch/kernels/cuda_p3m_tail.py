@@ -14,6 +14,14 @@ slots with a W-cell halo of zeros. Cell (iz, iy, ix) owns slots
 [(iz+W, iy+W), (ix+W) * cap : (ix+W+1) * cap]; its stencil is the
 (2W+1)^2 runs [(iz+dz, iy+dy), ix * cap : (ix+2W+1) * cap], in that
 (dz, dy, x-slot) order.
+
+The kernel first packs each padded cell's occupied slots in slot order,
+then gives each cell row one CTA of TAIL_THREADS threads that stages the
+stencil's packed candidates once for all of the row's queries, `chunk` at
+a time, and splits the (query, candidate) pairs over its threads by
+`thread_plan`; a query's slice partials are added in slice order.
+`tail_shared_bytes` is its shared memory, `tail_budget` checks it against
+the card.
 """
 
 from __future__ import annotations
@@ -24,6 +32,53 @@ from ..physics.mesh_gravity import newton_minus_mesh
 from . import build
 
 launches = 0  # kernel launches made by p3m_tail (CUDA tensors only)
+
+TAIL_THREADS = 256  # threads of a CTA (one cell row)
+TAIL_CHUNK = 1024  # candidate records staged at a time
+MAX_CAP = TAIL_THREADS  # a row's queries must fit one CTA's threads
+
+
+def thread_plan(nq: int, threads: int = TAIL_THREADS) -> tuple[int, int, int]:
+    """(R, QT, S) of a row with nq occupied queries, as the kernel picks it:
+    R = 1, 2 or 4 queries a thread, QT = ceil(nq / R) query threads, S =
+    threads // QT slices of the staged candidates (thread t < QT * S takes
+    queries t % QT + r * QT, r < R, and candidates slice, slice + S, ... of
+    each staged chunk, slice = t // QT). R is the one with the fewest
+    candidate sweeps a thread, R / S, the smaller R on a tie."""
+    if not 1 <= nq <= threads:
+        raise ValueError(f"p3m_tail: {nq} queries do not fit {threads} threads")
+    s = {r: threads // -(-nq // r) for r in (1, 2, 4)}
+    if s[4] > 2 * s[2] and s[4] > 4 * s[1]:
+        r = 4
+    elif s[2] > 2 * s[1]:
+        r = 2
+    else:
+        r = 1
+    return r, -(-nq // r), s[r]
+
+
+def tail_shared_bytes(halfwidth: int, chunk: int, dtype) -> int:
+    """Dynamic shared memory of one CTA (the kernel's `tail_smem`): `chunk`
+    staged (x, y, z, slot) records and the stencil's count prefix."""
+    span = 2 * halfwidth + 1
+    return chunk * max(16, 4 * dtype.itemsize) + (span**3 + 1) * 4
+
+
+def tail_budget(cap: int, halfwidth: int, dtype, smem_optin: int,
+                chunk: int = TAIL_CHUNK) -> int:
+    """The chunk of a launch: `chunk`, checked against the card's opt-in
+    shared memory and the kernel's limits (cap <= MAX_CAP; chunk >= 4
+    TAIL_THREADS, the slice partials reuse the staged records). Raises where
+    the launch would not fit."""
+    if cap > MAX_CAP or halfwidth < 1 or chunk < 4 * TAIL_THREADS:
+        raise ValueError(
+            f"p3m_tail: cap {cap} (<= {MAX_CAP}), halfwidth {halfwidth} (>= 1) and chunk "
+            f"{chunk} (>= {4 * TAIL_THREADS}) out of the kernel's range"
+        )
+    need = tail_shared_bytes(halfwidth, chunk, dtype)
+    if need > smem_optin:
+        raise ValueError(f"p3m_tail: {need} B of shared memory exceed {smem_optin} B")
+    return chunk
 
 
 def stencil_index(grid: int, cap: int, halfwidth: int, device):
@@ -91,10 +146,12 @@ def p3m_tail_plain(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
     return out
 
 
-def p3m_tail(planes, m, sigma, *, grid: int, cap: int, halfwidth: int):
+def p3m_tail(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
+             chunk: int = TAIL_CHUNK):
     """Returns (4, grid^3, cap): gx, gy, gz, gphi of the tail correction at
     every query slot (zeros at unoccupied slots). planes: (4, gpc, gpc,
-    gpc * cap) x, y, z, mask with gpc = grid + 2 * halfwidth."""
+    gpc * cap) x, y, z, mask with gpc = grid + 2 * halfwidth. On the card,
+    `chunk` sets the records staged at a time."""
     if planes.device.type != "cuda":
         return p3m_tail_plain(
             planes, m, sigma, grid=grid, cap=cap, halfwidth=halfwidth
@@ -103,21 +160,23 @@ def p3m_tail(planes, m, sigma, *, grid: int, cap: int, halfwidth: int):
     dtype, device = planes.dtype, planes.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"p3m_tail: unsupported dtype {dtype}")
-    if halfwidth < 1:
-        raise ValueError("p3m_tail: halfwidth must be >= 1")
     gpc = grid + 2 * halfwidth
     build.check_tensor("planes", planes, (4, gpc, gpc, gpc * cap), dtype, device)
+    chunk = tail_budget(cap, halfwidth, dtype, build.device_limits(device)[1], chunk)
     scal = build.scalar_tensor([m, sigma], dtype, device)
     out = torch.empty((4, grid**3, cap), dtype=dtype, device=device)
     if grid == 0:
         return out
+    packed = torch.empty((gpc**3 * cap * 4,), dtype=dtype, device=device)
+    count = torch.empty((gpc**3,), dtype=torch.int32, device=device)
     lib = build.load_kernels()["p3m_tail"]
     with torch.cuda.device(device):
         code = lib.sph_p3m_tail(
             build.pointer_array(list(planes.unbind(0))),
             scal.data_ptr(),
             build.pointer_array(list(out.unbind(0))),
-            grid, cap, halfwidth, int(dtype == torch.float64),
+            packed.data_ptr(), count.data_ptr(),
+            grid, cap, halfwidth, chunk, int(dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check("p3m_tail", code)

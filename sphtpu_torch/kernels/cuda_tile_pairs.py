@@ -19,6 +19,15 @@ term 2 (Newtonian - mesh shape) — valid when the tail stencil half-width
 is one cell (EngineConfig.c_halfwidth == 1, i.e. mesh_factor >=
 ceil(4.4 * sigma_cells); the default mesh_factor of 5 does NOT satisfy
 it), which the caller must guarantee.
+
+The kernel gives each cell row one CTA: the row's occupied queries and, in
+pieces of up to `piece` records, its occupied candidates are compacted into
+shared memory; each warp takes whole queries, tests each (query,
+candidate) pair once against `cull_r2` (a radius that covers the forward,
+reverse and gravity masks), evaluates the kept pairs 32 at a time, one a
+lane, and adds their terms to the query's sums in candidate order.
+`k2_shared_bytes` is its shared memory and `k2_budget` its default piece
+on a card.
 """
 
 from __future__ import annotations
@@ -31,6 +40,51 @@ from ..physics.mesh_gravity import newton_minus_mesh
 from . import build
 
 launches = 0  # kernel launches made by phase_b_tiles (CUDA tensors only)
+
+K2_THREADS = 256  # threads of a CTA (one cell row)
+K2_WARPS = K2_THREADS // 32
+MAX_CAP = K2_THREADS  # a row's queries must fit one CTA's threads
+MAX_CW = 27 * MAX_CAP  # widest candidate row: a 27-cell stack
+K2_PLANES = 8  # staged planes a record besides (x, y, z, cull): vx vy vz h rho por2 cs 1/h
+K2_QUEUE = 96  # a warp's queue of kept records: < 32 waiting + a step's 2 x 32
+CULL_MARGIN = 1.00390625  # 1 + 2^-8 on the cull radius^2
+K2_PIECE = {torch.float32: 512, torch.float64: 256}  # default candidate records a piece
+
+
+def cull_r2(h):
+    """The cull radius^2 of a slot with smoothing length h (the kernel's
+    `cull_r2`): (2 rho)^2 (1 + 2^-8), rho = h where h > 0, else max(|h|, 1).
+    A pair can lie in the forward, reverse or gravity mask only if d2 <=
+    max(cull_r2(h_q), cull_r2(h_c))."""
+    a = torch.where(h > 0, h, torch.clamp(-h, min=1.0))
+    return 4.0 * a * a * CULL_MARGIN
+
+
+def k2_shared_bytes(cap: int, cw: int, piece: int, dtype) -> int:
+    """Dynamic shared memory of one CTA (the kernel's `phase_b_smem`): the
+    query and candidate records (position and cull radius, then K2_PLANES
+    planes), the ten sums of each query, each warp's 32 pair terms (rows
+    padded to 33), the query slots, each warp's queue, and the row's
+    occupancy bits with their prefix."""
+    words = -(-cw // 32)
+    return (dtype.itemsize * ((4 + K2_PLANES) * (cap + piece) + 10 * cap + K2_WARPS * 10 * 33)
+            + 4 * (cap + K2_WARPS * K2_QUEUE + 2 * words + 1))
+
+
+def k2_budget(cap: int, cw: int, dtype, smem_optin: int, piece: int = 0) -> int:
+    """The piece of a launch: K2_PIECE's unless given, checked against the
+    kernel's limits (cap <= MAX_CAP, cw <= MAX_CW, piece a multiple of 64)
+    and the card's opt-in shared memory. Raises where it would not fit."""
+    piece = piece or K2_PIECE[dtype]
+    if cap > MAX_CAP or cw > MAX_CW or piece < 64 or piece % 64 or piece > 1 << 16:
+        raise ValueError(
+            f"phase_b_tiles: cap {cap} (<= {MAX_CAP}), cw {cw} (<= {MAX_CW}) or piece "
+            f"{piece} (a multiple of 64) out of the kernel's range"
+        )
+    need = k2_shared_bytes(cap, cw, piece, dtype)
+    if need > smem_optin:
+        raise ValueError(f"phase_b_tiles: {need} B of shared memory exceed {smem_optin} B")
+    return piece
 
 
 def phase_b_tiles_plain(
@@ -212,11 +266,14 @@ def phase_b_tiles(
     eos: str,
     p3m: bool,
     cap: int,
+    piece: int = 0,
+    keep_all: bool = False,
 ):
     """Returns 10 query-side (n_cells, cap) tensors: ax, ay, az, div,
     mu_max, visc, ggx, ggy, ggz, gphi. Field order on both sides: x, y, z,
     vx, vy, vz, mask, h, rho, P/rho^2, cs. sigma may be None when p3m is
-    False."""
+    False. On the card, piece overrides `k2_budget`'s and keep_all=True
+    keeps every occupied pair (no cull); neither changes a result."""
     if eos not in ("polytropic", "isothermal"):
         raise ValueError(f"unknown EOS {eos!r}")
     if p3m and sigma is None:
@@ -237,6 +294,7 @@ def phase_b_tiles(
         build.check_tensor(f"qfields[{i}]", t, (n_cells, cap), dtype, device)
     for i, t in enumerate(cfields):
         build.check_tensor(f"cfields[{i}]", t, (n_cells, cw), dtype, device)
+    piece = k2_budget(cap, cw, dtype, build.device_limits(device)[1], piece)
     scal = build.scalar_tensor(
         [m, alpha, beta, sigma if sigma is not None else 1.0], dtype, device
     )
@@ -251,7 +309,7 @@ def phase_b_tiles(
             build.pointer_array(list(cfields)),
             scal.data_ptr(),
             build.pointer_array(list(outs)),
-            n_cells, cap, cw, int(eos == "isothermal"), int(p3m),
+            n_cells, cap, cw, int(eos == "isothermal"), int(p3m), piece, int(keep_all),
             int(dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -1,17 +1,18 @@
-"""K1, K3, K4 and K5 on the main paths' inputs, timed on one NVIDIA GPU
-for one source tree of the port, so that two trees can be compared in one
-run.
+"""K1, K2, K3, K4, K5 and the P3M tail on the main paths' inputs, timed on
+one NVIDIA GPU for one source tree of the port, so that two trees can be
+compared in one run.
 
     python3 tools/chip_k1k3.py capture FILE
-    python3 tools/chip_k1k3.py time TREE FILE [--sweep]
+    python3 tools/chip_k1k3.py time TREE FILE [--sweep] [--kernels k1,k2,k3,k4,k5,tail]
 
 `capture` builds the inputs of one force evaluation on each path and saves
 them to FILE: K1's 12 launches and K5's launch on the collapse path
-(bench_data/bb_collapsed.npz, contrast 395, block engine) and K1's
-launches on the class path (boss_bodenheimer N = 100 000, Kh = 32), K4's
-launch on the exact path (the same scene at Kh = 50, mono-tile engine) and
-on the P3M path (N = 200 000, mono-tile engine with P3M gravity) and K3's
-positions (N = 100 000), all float32.
+(bench_data/bb_collapsed.npz, contrast 395, block engine), K1's and K2's
+launches on the class path (boss_bodenheimer N = 100 000, Kh = 32: one
+each a class), K4's and K2's launch on the exact path (the same scene at
+Kh = 50, mono-tile engine) and on the P3M path (N = 200 000, mono-tile
+engine with P3M gravity) with the tail's launch there, and K3's positions
+(N = 100 000), all float32.
 
 `time` imports `sphtpu_torch` from TREE (a checkout of the port, such as a
 parent commit unpacked with `git archive`), builds its kernels there and
@@ -23,8 +24,10 @@ and power limit. Where TREE's K5 wrapper takes the plan's work units
 (`units`), they are built once beforehand, as the block engine does.
 With --sweep it also times, where TREE's wrappers take the knob, K1 and
 K4 at smaller list budgets (`list_cap`, with each budget's overflow
-share), K5 at other work-unit sizes (`unit_table`'s `unit_slots`) and K3
-at other plans (rows a thread R, column slices S).
+share), K5 at other work-unit sizes (`unit_table`'s `unit_slots`), K3
+at other plans (rows a thread R, column slices S), K2 at other piece
+sizes (`piece`) and the tail at other staging chunks (`chunk`).
+--kernels limits the run to the kernels named (all by default).
 
 Run the trees in turns within one call (parent, change, change, parent),
 each in a fresh process (many profiler sessions in one process lose kernel
@@ -87,30 +90,43 @@ def capture(path: str) -> None:
     out["k5_collapse"] = [(a, {k: v for k, v in kw.items() if k != "units"})
                           for a, kw in out["k5_collapse"]]
     with tempfile.TemporaryDirectory() as tmp:
-        for n, kh, gravity, key, module, name in (
-                (cs.N_MAIN, cs.KH_CLASS, "exact", "k1_class", ctiles, "phase_a_cells"),
-                (cs.N_P3M, 50, "p3m", "k4_p3m", tiles, "phase_a_tile"),
-                (cs.N_MAIN, 50, "exact", "k4_exact", tiles, "phase_a_tile")):
+        for n, kh, gravity, keys, module, names in (
+                (cs.N_MAIN, cs.KH_CLASS, "exact", ("k1_class", "k2_class"), ctiles,
+                 ("phase_a_cells", "phase_b_tiles")),
+                (cs.N_P3M, 50, "p3m", ("k4_p3m", "k2_p3m", "tail_p3m"), tiles,
+                 ("phase_a_tile", "phase_b_tiles", "p3m_tail")),
+                (cs.N_MAIN, 50, "exact", ("k4_exact", "k2_exact"), tiles,
+                 ("phase_a_tile", "phase_b_tiles"))):
             base, state, params, pos, h0 = cs.load_scene(
-                os.path.join(tmp, key), "boss_bodenheimer", n, kh)
+                os.path.join(tmp, keys[0]), "boss_bodenheimer", n, kh)
             cfg, _ = plan_engine(pos, h0, **base, gravity=gravity)
             if cfg.gravity != gravity or cfg.tile is None:
-                raise RuntimeError(f"{key}: planned {cfg}")
-            out[key], = eval_calls(cfg, state, params, cs.dev(h0, torch.float32), module,
-                                   (name,))
+                raise RuntimeError(f"{keys[0]}: planned {cfg}")
+            got = eval_calls(cfg, state, params, cs.dev(h0, torch.float32), module, names)
+            out.update(zip(keys, got))
+            del got
+            torch.cuda.empty_cache()
     out["k3_pos"] = to_cpu(state.pos)
     torch.save(out, path)
     print(json.dumps({k: len(v) if isinstance(v, list) else list(v.shape)
                       for k, v in out.items()}))
 
 
-def time_tree(tree: str, path: str, sweep: bool) -> None:
+def time_tree(tree: str, path: str, sweep: bool, kernels=("k1", "k2", "k3", "k4", "k5", "tail")
+              ) -> None:
     sys.path.insert(0, os.path.abspath(tree))
     import inspect
 
     import torch
 
-    from sphtpu_torch.kernels import cuda_gravity, cuda_grouped_pairs, cuda_knn, cuda_strip_knn
+    from sphtpu_torch.kernels import (
+        cuda_gravity,
+        cuda_grouped_pairs,
+        cuda_knn,
+        cuda_p3m_tail,
+        cuda_strip_knn,
+        cuda_tile_pairs,
+    )
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
@@ -162,9 +178,25 @@ def time_tree(tree: str, path: str, sweep: bool) -> None:
         launches = [statistics.median(per[i::k]) for i in range(k)]
         return sum(per) / iters, launches
 
-    k1 = {key: [(to_dev(a), kw) for a, kw in data[key]] for key in ("k1_collapse", "k1_class")}
-    k4 = {key: [(to_dev(a), kw) for a, kw in data[key]] for key in ("k4_exact", "k4_p3m")}
-    k5 = [(to_dev(a), kw) for a, kw in data["k5_collapse"]]
+    def load(keys):
+        return {key: [(to_dev(a), kw) for a, kw in data[key]] for key in keys}
+
+    pos = data["k3_pos"].to(dev)
+    m = 1.0 / pos.shape[0]
+    out = {"tree": tree, "card": card_line(), "n_k3": pos.shape[0], "kernels": list(kernels)}
+    timed = []  # (key, wrapper, calls) whose wrapper and device ms are reported
+    if "k1" in kernels:
+        k1 = load(("k1_collapse", "k1_class"))
+        timed += [(key, cuda_strip_knn.phase_a_cells, calls) for key, calls in k1.items()]
+    if "k2" in kernels:
+        k2 = load(("k2_class", "k2_exact", "k2_p3m"))
+        timed += [(key, cuda_tile_pairs.phase_b_tiles, calls) for key, calls in k2.items()]
+    if "k4" in kernels:
+        k4 = load(("k4_exact", "k4_p3m"))
+        timed += [(key, cuda_knn.phase_a_tile, calls) for key, calls in k4.items()]
+    if "tail" in kernels:
+        tail = load(("tail_p3m",))["tail_p3m"]
+        timed.append(("tail_p3m", cuda_p3m_tail.p3m_tail, tail))
     k5_units = takes(cuda_grouped_pairs.phase_b_grouped, "units")
 
     def with_units(calls, unit_slots=2048):
@@ -175,31 +207,34 @@ def time_tree(tree: str, path: str, sweep: bool) -> None:
                 tuple(kw["qblk"]), tuple(kw["first"]), a[0][0].shape[0], unit_slots))))
             for a, kw in calls]
 
-    k5 = with_units(k5)
-    pos = data["k3_pos"].to(dev)
-    m = 1.0 / pos.shape[0]
-    out = {"tree": tree, "card": card_line(), "n_k3": pos.shape[0], "k5_units": k5_units}
-    out["k1_collapse_ms"] = calls_ms(cuda_strip_knn.phase_a_cells, k1["k1_collapse"])
-    out["k1_class_ms"] = calls_ms(cuda_strip_knn.phase_a_cells, k1["k1_class"])
-    for key, calls in k4.items():
-        out[f"{key}_ms"] = calls_ms(cuda_knn.phase_a_tile, calls)
-    out["k5_collapse_ms"] = calls_ms(cuda_grouped_pairs.phase_b_grouped, k5)
-    out["k3_ms"] = median_ms(lambda: cuda_gravity.newton_sweep(pos, m))
-    for key, fn, calls in (("k1_collapse", cuda_strip_knn.phase_a_cells, k1["k1_collapse"]),
-                           ("k1_class", cuda_strip_knn.phase_a_cells, k1["k1_class"]),
-                           ("k4_exact", cuda_knn.phase_a_tile, k4["k4_exact"]),
-                           ("k4_p3m", cuda_knn.phase_a_tile, k4["k4_p3m"]),
-                           ("k5_collapse", cuda_grouped_pairs.phase_b_grouped, k5),
-                           ("k3", cuda_gravity.newton_sweep, [((pos, m), {})])):
+    if "k5" in kernels:
+        k5 = with_units(load(("k5_collapse",))["k5_collapse"])
+        out["k5_units"] = k5_units
+        timed.append(("k5_collapse", cuda_grouped_pairs.phase_b_grouped, k5))
+    if "k3" in kernels:
+        timed.append(("k3", cuda_gravity.newton_sweep, [((pos, m), {})]))
+    for key, fn, calls in timed:
+        out[f"{key}_ms"] = calls_ms(fn, calls)
+    for key, fn, calls in timed:
         out[f"{key}_device_ms"], launches = device_ms(fn, calls)
         if key != "k3":
             out[f"{key}_device_ms_of_launches"] = launches
-    if sweep:
+    if sweep and "k2" in kernels and takes(cuda_tile_pairs.phase_b_tiles, "piece"):
+        for key in ("k2_exact", "k2_p3m", "k2_class"):
+            out[f"{key}_pieces"] = {
+                piece: calls_ms(cuda_tile_pairs.phase_b_tiles, k2[key], piece=piece)
+                for piece in (128, 256, 512, 1024, 2048)}
+    if sweep and "tail" in kernels and takes(cuda_p3m_tail.p3m_tail, "chunk"):
+        out["tail_p3m_chunks"] = {
+            chunk: calls_ms(cuda_p3m_tail.p3m_tail, tail, chunk=chunk)
+            for chunk in (1024, 2048, 4096)}
+    if sweep and "k1" in kernels or sweep and "k4" in kernels:
         caps = (672, 448, 320, 224)
-        for mod, fn, groups in ((cuda_strip_knn, cuda_strip_knn.phase_a_cells, k1),
-                                (cuda_knn, cuda_knn.phase_a_tile, k4)):
-            if not takes(fn, "list_cap"):
+        for mod, fn, key_set in ((cuda_strip_knn, cuda_strip_knn.phase_a_cells, "k1"),
+                                 (cuda_knn, cuda_knn.phase_a_tile, "k4")):
+            if key_set not in kernels or not takes(fn, "list_cap"):
                 continue
+            groups = k1 if key_set == "k1" else k4
             for key, calls in groups.items():
                 out[f"{key}_list_caps"] = {}
                 for cap_l in caps:
@@ -213,10 +248,11 @@ def time_tree(tree: str, path: str, sweep: bool) -> None:
                     out[f"{key}_list_caps"][cap_l] = {
                         "ms": calls_ms(fn, calls, list_cap=cap_l),
                         "overflow_share": over / max(valid, 1)}
-        if k5_units:
-            out["k5_unit_slots"] = {
-                u: calls_ms(cuda_grouped_pairs.phase_b_grouped, with_units(k5, u))
-                for u in (512, 1024, 2048, 4096, 8192)}
+    if sweep and "k5" in kernels and k5_units:
+        out["k5_unit_slots"] = {
+            u: calls_ms(cuda_grouped_pairs.phase_b_grouped, with_units(k5, u))
+            for u in (512, 1024, 2048, 4096, 8192)}
+    if sweep and "k3" in kernels:
         n = pos.shape[0]
         plans = [(r, 256, s) for r in (1, 2, 4) for s in (1, 11, 22, 44, 88)] + [(4, 128, 44)]
         out["k3_plans"] = []
@@ -235,7 +271,11 @@ def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "capture":
         capture(sys.argv[2])
     elif len(sys.argv) >= 4 and sys.argv[1] == "time":
-        time_tree(sys.argv[2], sys.argv[3], "--sweep" in sys.argv[4:])
+        rest = sys.argv[4:]
+        kernels = ("k1", "k2", "k3", "k4", "k5", "tail")
+        if "--kernels" in rest:
+            kernels = tuple(rest[rest.index("--kernels") + 1].split(","))
+        time_tree(sys.argv[2], sys.argv[3], "--sweep" in rest, kernels)
     else:
         print(__doc__)
         return 2
