@@ -5,8 +5,8 @@
 
 Builds the hand-written CUDA kernels from the sources in this checkout,
 holds each against its plain PyTorch version on the card, then drives the
-port's three main paths through the CLI, each with the launch counts set to
-0 just before it and read just after:
+port's paths, each with the launch counts set to 0 just before it and read
+just after:
 
 *   the class path: boss_bodenheimer, polytropic, N = 100 000, Kh = 32,
     float32, four steps, which the planner gives the class-compacted tile
@@ -25,7 +25,14 @@ port's three main paths through the CLI, each with the launch counts set to
     evaluation), then one step on its per-bucket phase B (K6), one block
     evaluation against the gather engine's, and one evaluation of
     bench_data/bb_collapsed_deep.npz (contrast 1001) in each gravity mode
-    with the P3M force error against the exact sweep.
+    with the P3M force error against the exact sweep;
+*   the multi-level path: bb_collapsed_deep.npz on the multi-level engine
+    (physics/mlevel.py, K1 once a level x bucket, K3 under exact gravity)
+    in each gravity mode: the plan, one evaluation against the block
+    engine's with both split by stage, the P3M force error, a 2-step chunk
+    with its certificate per evaluation; then four CLI steps with
+    plan_blocks made to decline, so that the run loop's ladder plans the
+    multi-level engine.
 
 Every phase prints one JSON line; any failure raises, so the process exits
 non-zero. There is no CPU continuation: with no CUDA device the script
@@ -33,6 +40,7 @@ fails before it prints a result.
 
 The line before the last two is `{"kernels": [...]}` with, per kernel, its
 launches on the path its times were taken on (K1, K2, K3: the class path;
+K1 also on the multi-level path's exact chunk, under "on_mlevel_path";
 K4 and the tail: the P3M path; K5: the collapse path; K6: the collapse
 path's per-bucket step) and on every path (`launches_by_path`), its
 error against the plain version and its time beside the plain version's
@@ -49,7 +57,9 @@ list forced to overflow (h and ok bit-identical); K3 reports its plan (R,
 S, grid) and that two launches are bit-identical; K5 is held against its
 plain version in float32 and float64 on every input (the synthetic blocks,
 the collapse path's and both gravity modes of the contrast-1001 state),
-must give two bit-identical launches, and reports its work units; K2 (the
+must give two bit-identical launches, and reports its work units; on
+ROADMAP F7's draw (the sequence of draws that found it, `kernels_f7`) K5 and K6 in
+float32 are held against their plain version in float64; K2 (the
 four EOS x P3M variants in float32 and float64 on class rows, on mono rows
 at cap 160 and 256 with rows filled to cap, and on every path's inputs)
 must give two bit-identical launches and the same bits with its cull off
@@ -67,6 +77,7 @@ power limit as nvidia-smi prints them, then the verdict line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -94,7 +105,7 @@ from sphtpu_torch.kernels import (
     cuda_strip_knn,
     cuda_tile_pairs,
 )
-from sphtpu_torch.physics import blocks, ctiles, gravity_newton_allpairs, tiles
+from sphtpu_torch.physics import blocks, ctiles, gravity_newton_allpairs, mlevel, tiles
 from sphtpu_torch.physics.ctiles import CLASS_MENU, choose_tile_classes
 from sphtpu_torch.physics.mesh_gravity import greens_hat, p3m_mesh_force
 
@@ -432,7 +443,8 @@ def phase_kernels(seed: int = 0) -> None:
     # generator, so the earlier cases keep their inputs
     rng_new = np.random.default_rng(seed + 1)
     report["cases"] += (kernels_k4(rng, kh, m) + kernels_tail(rng, rng_new, m)
-                        + kernels_blocks(rng, m) + kernels_k2_mono(rng_new, m))
+                        + kernels_blocks(rng, m) + kernels_k2_mono(rng_new, m)
+                        + kernels_f7(m, seed))
     report["tie_rows_total"] = sum(
         c[k]["tie_rows"] for c in report["cases"] for k in ("a", "k4") if k in c
     )
@@ -780,6 +792,108 @@ def kernels_blocks(rng, m):
                     "k6_query_err_over_scale": wq, "k6_cand_err_over_scale": wc, "k5": k5}
             cases.append(case)
             del queries, cands, qf, cf, out_k, out_p
+            torch.cuda.empty_cache()
+    return cases
+
+
+def widen(outs):
+    """Kernel outputs as float64, the float32 -max of a masked mu_max
+    (no pair) mapped to the float64 -max the float64 plain version gives."""
+    big32 = torch.finfo(torch.float32).max
+    return tuple(torch.where(o == -big32, -torch.finfo(torch.float64).max, o.double())
+                 for o in outs)
+
+
+def f7_block_generator(seed: int = 0):
+    """A generator at the state from which the kernels phase drew its
+    synthetic block inputs in the run that found ROADMAP F7: one generator
+    of `seed` through the class-row cases, K3's, K4's, every tail case and
+    the K2 mono-row cases (the tail's and K2's later cases now draw from
+    their own generator). Only the draws are repeated; nothing launches."""
+    rng = np.random.default_rng(seed)
+    big_cap = CLASS_MENU[-1]
+    for dtype in (torch.float32, torch.float64):
+        n_rows = ROWS_F32 if dtype == torch.float32 else ROWS_F64
+        for cap_k in CLASS_MENU:
+            _, _, cw = synthetic_rows(rng, n_rows, cap_k, big_cap, dtype, 0.8 * cap_k)
+            rng.random((n_rows, cw))
+            rng.random((n_rows, cw))
+    for _, n in (*N_NEWTON.items(), (torch.float32, N_NEWTON_ONE_SLICE)):
+        rng.standard_normal((n, 3))
+    for dtype in (torch.float32, torch.float64):
+        n_rows = ROWS_F32 if dtype == torch.float32 else ROWS_F64
+        for cap in (128, 160):
+            synthetic_rows(rng, n_rows, cap, cap, dtype, 0.7 * cap)
+    for dtype, w, grid, cap, occ, full in (
+            (torch.float32, 2, 8, 160, 100, 0), (torch.float64, 2, 8, 160, 100, 0),
+            (torch.float64, 1, 8, 160, 100, 0),
+            *((dt, w, grid, cap, int(0.6 * cap), grid * grid)
+              for dt in (torch.float32, torch.float64)
+              for w, grid, cap in ((1, 8, 160), (2, 8, 160), (3, 6, 160), (2, 5, 256)))):
+        synthetic_tail_planes(rng, grid, cap, w, dtype, occ, full_cells=full)
+    for dtype, n_rows in ((torch.float32, 32), (torch.float64, 8)):
+        for cap in (160, 256):
+            _, _, cw = synthetic_rows(rng, n_rows, cap, cap, dtype, 0.6 * cap, full_rows=2)
+            rng.random((n_rows, cw))
+            rng.random((n_rows, cw))
+    return rng
+
+
+def kernels_f7(m, seed: int = 0):
+    """ROADMAP F7's draw: the sequence that found it (`f7_block_generator`), then the
+    float32 block rows of kernels_blocks (C_b 512 ... 32 768). On each, K6
+    and K5 in float32 are held, within check_phase_b's bars, against their
+    plain version evaluated in float64 on the same float32-rounded inputs;
+    the float32 plain version's distance from that sum is reported beside
+    the kernels' (which side is nearer the exact sum)."""
+    rng = f7_block_generator(seed)
+    kh = 50
+    widths, nb = BLOCK_ROWS[torch.float32]
+    cases = []
+    for cw in widths:
+        _, _, _, qf, cf = synthetic_blocks(rng, nb, cw, torch.float32, kh)
+        qf64, cf64 = [a.double() for a in qf], [a.double() for a in cf]
+        case = {"dtype": "float32", "f7_draw": True, "blocks": nb, "c_b": cw}
+        for p3m in (False, True):
+            sigma, r_c = (0.05, 0.22) if p3m else (None, 0.0)
+            args = (m, 1.0, 2.0, sigma, r_c)
+            kwb = dict(eos="polytropic", p3m=p3m, cap=blocks.BQ)
+            qo_k, co_k = cuda_block_pairs.phase_b_blocks(qf, cf, *args, **kwb)
+            sync()
+            qo_64, co_64 = cuda_block_pairs.phase_b_blocks_plain(qf64, cf64, *args, **kwb)
+            qo_32, co_32 = cuda_block_pairs.phase_b_blocks_plain(qf, cf, *args, **kwb)
+            cstack, qblk, first = grouped_layout(cf)
+            kw5 = dict(kwb, qblk=qblk, first=first)
+            units, _ = k5_units(qf, cstack, kw5)
+            qo5, co5 = cuda_grouped_pairs.phase_b_grouped(qf, cstack, *args, **kw5, units=units)
+            qo5b, co5b = cuda_grouped_pairs.phase_b_grouped(qf, cstack, *args, **kw5, units=units)
+            sync()
+            if not (same_bits(qo5, qo5b) and bool(torch.equal(co5, co5b))):
+                raise AssertionError("phase_b_grouped: two launches differ on the F7 draw")
+            co5 = tuple(co5.transpose(0, 1).reshape(8, nb, cw))
+            f32 = torch.float32
+            res = {
+                "k6_query": check_phase_b(widen(qo_k), qo_64, f32, kernel="phase_b_blocks")[0],
+                "k6_cand": check_phase_b(widen(co_k), co_64, f32, names=C_NAMES,
+                                         kernel="phase_b_blocks")[0],
+                "k5_query": check_phase_b(widen(qo5), qo_64, f32, kernel="phase_b_grouped")[0],
+                "k5_cand": check_phase_b(widen(co5), co_64, f32, names=C_NAMES,
+                                         kernel="phase_b_grouped")[0],
+            }
+            # the float32 plain version's own distance from the float64 sum
+            near = {}
+            for name, k, p32, p64 in zip(C_NAMES, co_k, co_32, co_64):
+                scale = float(p64.abs().max())
+                if scale > 0:
+                    near[name] = {"kernel": float((k.double() - p64).abs().max()) / scale,
+                                  "plain_f32": float((p32.double() - p64).abs().max()) / scale}
+            case[f"k5_k6_{'p3m' if p3m else 'exact'}"] = {
+                "err_over_scale_vs_f64_plain": res, "cand_err_over_scale_by_output": near,
+                "k5_runs_bit_identical": True}
+            del qo_k, co_k, qo_64, co_64, qo_32, co_32, qo5, co5, qo5b, co5b, cstack
+        cases.append(case)
+        del qf, cf, qf64, cf64
+        if DEVICE == "cuda":
             torch.cuda.empty_cache()
     return cases
 
@@ -1612,6 +1726,305 @@ def phase_deep_state(gpu_line):
         raise AssertionError(f"deep-state checks failed: {failed}")
 
 
+# --------------------------------------------------------------------------
+# the multi-level engine (physics/mlevel.py) on the contrast-1001 state
+# --------------------------------------------------------------------------
+
+class StageClock:
+    """name -> context manager adding the wall seconds of the stage to
+    `seconds[name]`, the card synchronised at both ends."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            sync()
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def patched(module, name, wrapper):
+    """module.name replaced by wrapper(original) inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, wrapper(orig))
+    try:
+        yield orig
+    finally:
+        setattr(module, name, orig)
+
+
+def deep_state():
+    """bb_collapsed_deep.npz on the card (float32) with h from a k = 50
+    KD-tree (the run loop's bootstrap): (pos, h as float64 host arrays,
+    state, params, h on the card)."""
+    from scipy.spatial import cKDTree
+
+    from sphtpu_torch.engine import params_from_numpy
+
+    d = np.load(COLLAPSE_DEEP)
+    pos_h = d["pos"].astype(np.float64)
+    h_h = cKDTree(pos_h).query(pos_h, k=KH_COLLAPSE)[0][:, -1] / 2.0
+    st = state_from_numpy(pos_h, d["vel"], d["K"], float(d["t"]), device=DEVICE)
+    p = params_from_numpy(m=float(d["m"]), gamma=5 / 3, cs0=0.0, alpha=1.0, beta=2.0, U0=0.0,
+                          t_end=1e30, device=DEVICE)
+    return pos_h, h_h, st, p, dev(h_h, torch.float32)
+
+
+def far_field(cfg, st, p, ghat):
+    """The far field of a tile config: the FFT mesh under p3m, K3 else."""
+    if cfg.gravity == "p3m":
+        return p3m_mesh_force(st.pos, p.m, ghat, gm=cfg.mesh_gm, pad=cfg.mesh_pad)
+    return gravity_newton_allpairs(st.pos, p.m, device=DEVICE)
+
+
+def mlevel_eval(cfg, st, p, h, margs, ghat, clock=None):
+    """One multi-level evaluation of the state, and its far field:
+    (reduced forces, g, phi, ok); with a clock, each of the engine's
+    profiling stages timed by it."""
+    with contextlib.ExitStack() as es:
+        if clock is not None:
+            es.enter_context(patched(mlevel, "stage", lambda orig: clock))
+        red, gcorr, ok = mlevel.mlevel_sph_forces(
+            st.pos, st.vel, p.m, st.K, h, margs, eos=cfg.eos, gamma=p.gamma, cs0=p.cs0,
+            alpha=p.alpha, beta=p.beta, kh=cfg.kh, spec=cfg.mlevel,
+            mesh_factor=cfg.mesh_factor, sigma_cells=cfg.sigma_cells,
+        )
+    with clock("gravity") if clock else contextlib.nullcontext():
+        gfar, phifar = far_field(cfg, st, p, ghat)
+    return red, gfar + torch.stack(gcorr[:3], 1), phifar + gcorr[3], bool(ok)
+
+
+def block_eval(cfg, st, p, h, bargs, tables, ghat, clock=None):
+    """One block-engine evaluation of the state (K1 timed as its phase A,
+    K5 as its phase B when a clock is given) and its far field."""
+    def timed(name):
+        def wrap(orig):
+            def run(*a, **kw):
+                with clock(name):
+                    return orig(*a, **kw)
+            return run
+        return wrap
+
+    with contextlib.ExitStack() as es:
+        if clock is not None:
+            es.enter_context(patched(blocks, "phase_a_cells", timed("phase_a")))
+            es.enter_context(patched(blocks, "phase_b_grouped", timed("phase_b")))
+        red, gcorr, ok = blocks.block_sph_forces(
+            st.pos, st.vel, p.m, st.K, h, bargs, eos=cfg.eos, gamma=p.gamma, cs0=p.cs0,
+            alpha=p.alpha, beta=p.beta, kh=cfg.kh, spec=cfg.blocks, gravity=cfg.gravity,
+            mesh_factor=cfg.mesh_factor, sigma_cells=cfg.sigma_cells, idx_tables=tables,
+        )
+    with clock("gravity") if clock else contextlib.nullcontext():
+        gfar, phifar = far_field(cfg, st, p, ghat)
+    return red, gfar + torch.stack(gcorr[:3], 1), phifar + gcorr[3], bool(ok)
+
+
+def timed_eval(fn):
+    """fn()'s result, and its wall seconds split by stage (a StageClock
+    passed as `clock`) with the whole evaluation's beside them."""
+    clock = StageClock()
+    sync()
+    t0 = time.perf_counter()
+    out = fn(clock)
+    sync()
+    seconds = dict(clock.seconds, total=time.perf_counter() - t0)
+    seconds["other"] = seconds["total"] - sum(v for k, v in seconds.items() if k != "total")
+    return out, seconds
+
+
+def phase_mlevel(gpu_line):
+    """The multi-level engine on bb_collapsed_deep.npz (N = 100 000,
+    contrast 1001, Kh = 50, polytropic, float32), in both gravity modes:
+    the port's plan_mlevel and its spec; one evaluation, which must certify,
+    held against the block engine's on the same state (h bit for bit but
+    for ties, ok, the hydro acceleration within check_phase_b's float32
+    bars, and under exact gravity g and phi too); under P3M the force error
+    against the exact evaluation (< 2e-3 of the RMS |g|); each evaluation's
+    seconds by stage beside the block engine's; then a 2-step chunk
+    (ML_SUBCHUNK) from the state, with the launch counts set to 0 just
+    before and read just after, its certificate per evaluation, fallbacks
+    and energy drift (< 1e-2). K1 is held against its plain version on one
+    evaluation's launches (exact gravity). Returns (K1's numbers on this
+    path, launch counts by chunk)."""
+    from sphtpu_torch.engine import driver, step as step_mod
+
+    pos_h, h_h, st, p, h = deep_state()
+    n = pos_h.shape[0]
+    peak = PEAK_FLOPS[torch.float32]
+    report, counts_by, g_ml, k1 = {}, {}, {}, None
+    for grav in ("exact", "p3m"):
+        t0 = time.time()
+        plan = mlevel.plan_mlevel(pos_h, h_h, KH_COLLAPSE, gravity=grav)
+        plan_s = time.time() - t0
+        if plan is None:
+            raise AssertionError(f"the deep state does not plan the multi-level engine ({grav})")
+        spec, args = plan
+        cfg = EngineConfig(n=n, kh=KH_COLLAPSE, eos="polytropic", dtype="float32", mlevel=spec,
+                           gravity=grav)
+        margs = mlevel.mlevel_args_to_device(args, DEVICE)
+        ghat = (greens_hat(cfg.mesh_pad, cfg.sigma_cells, torch.float32, DEVICE)
+                if grav == "p3m" else None)
+
+        calls = []
+
+        def record(orig):
+            def rec(*a, **kw):
+                calls.append((a, kw))
+                return orig(*a, **kw)
+            return rec
+
+        with patched(mlevel, "phase_a_cells", record):
+            mlevel_eval(cfg, st, p, h, margs, ghat)  # warm-up, records K1's launches
+        (red, g, phi, ok), ml_s = timed_eval(
+            lambda clock: mlevel_eval(cfg, st, p, h, margs, ghat, clock))
+        g_ml[grav] = g.double()
+
+        bplan = blocks.plan_blocks(pos_h, h_h, KH_COLLAPSE, gravity=grav)
+        bcfg = EngineConfig(n=n, kh=KH_COLLAPSE, eos="polytropic", dtype="float32",
+                            blocks=bplan[0], gravity=grav)
+        bargs = blocks.block_args_to_device(bplan[1], torch.float32, DEVICE)
+        tables = blocks.build_cand_tables(bargs, bplan[0], n)
+        ghat_b = (greens_hat(bcfg.mesh_pad, bcfg.sigma_cells, torch.float32, DEVICE)
+                  if grav == "p3m" else None)
+        block_eval(bcfg, st, p, h, bargs, tables, ghat_b)
+        (red_b, g_b, phi_b, ok_b), blk_s = timed_eval(
+            lambda clock: block_eval(bcfg, st, p, h, bargs, tables, ghat_b, clock))
+
+        h_differ = int((red.h != red_b.h).sum())
+        eps = torch.finfo(torch.float32).eps
+        h_rel = float(((red.h - red_b.h).abs() / red_b.h).max())
+        outs_ml = [red.acc[:, a] for a in range(3)]
+        outs_b = [red_b.acc[:, a] for a in range(3)]
+        names = ["acc_x", "acc_y", "acc_z"]
+        if grav == "exact":
+            outs_ml += [g[:, 0], g[:, 1], g[:, 2], phi]
+            outs_b += [g_b[:, 0], g_b[:, 1], g_b[:, 2], phi_b]
+            names += ["g_x", "g_y", "g_z", "phi"]
+        worst, rtol, atol = check_phase_b(outs_ml, outs_b, torch.float32, names=names,
+                                          kernel=f"mlevel vs blocks ({grav})")
+
+        if grav == "exact":
+            k1 = k1_numbers(calls, iters=3)
+            for a, kw in calls:
+                if not same_bits(cuda_strip_knn.phase_a_cells(*a, **kw),
+                                 cuda_strip_knn.phase_a_cells(*a, **kw)):
+                    raise AssertionError("phase_a_cells: two launches on the mlevel path differ")
+            k1.update(runs_bit_identical=True,
+                      cap_b_of_launches=[kw["cap"] for _, kw in calls],
+                      rows_of_launches=[a[0][0].shape[0] for a, _ in calls],
+                      n_bisect=calls[0][1]["n_bisect"])
+        del calls
+
+        # the 2-step chunk, every evaluation's certificate recorded
+        oks = []
+
+        def keep_ok(orig):
+            def rec(*a, **kw):
+                out = orig(*a, **kw)
+                oks.append(bool(out[2]))
+                return out
+            return rec
+
+        with patched(step_mod, "mlevel_sph_forces", keep_ok):
+            reset_counts()
+            t0 = time.time()
+            out = make_chunk_runner(cfg, device=DEVICE)(st, p, h, driver.ML_SUBCHUNK, args)
+            sync()
+            chunk_s = time.time() - t0
+        counts = {name: mod.launches for name, mod in MODULES.items()}
+        counts_by[f"mlevel_{grav}_chunk"] = counts
+        e = out[1][:, 4].double().cpu().numpy()
+        drift = float(np.abs(e - e[0]).max() / abs(e[0]))
+        n_evals = 2 * driver.ML_SUBCHUNK
+        n_buckets = sum(len(lv[2]) for lv in spec[0])
+        want = {name: 0 for name in MODULES}
+        want.update(phase_a_cells=n_evals * n_buckets,
+                    newton_sweep=sum(oks) if grav == "exact" else 0)
+        checks = {
+            "plans": True, "certified": ok, "block engine certifies": ok_b,
+            "h as the block engine's but for ties": h_rel <= 4 * float(eps),
+            "chunk valid": bool(out[2].all()), "|dE/E| < 1e-2": drift < 1e-2,
+            "kernel launches": counts == want,
+        }
+        report[grav] = {
+            "plan": {"levels": [[g_, cap, [list(b) for b in bk]] for g_, cap, bk in spec[0]],
+                     "res_budget": spec[1], "mesh_level": spec[2],
+                     "c_buckets": [list(b) for b in spec[3]], "host_s": plan_s,
+                     "residual_rows": int((args.species == len(spec[0])).sum())},
+            "certified": ok, "h_rows_differ_from_blocks": h_differ, "h_max_rel_err": h_rel,
+            "vs_blocks_err_over_scale": worst, "tolerance": {"rtol": rtol, "atol_of_scale": atol},
+            "eval_s_by_stage": ml_s, "block_eval_s_by_stage": blk_s,
+            "block_plan": {"buckets": [list(b) for b in bplan[0][0]]},
+            "chunk": {"steps": driver.ML_SUBCHUNK, "certificate_by_eval": oks,
+                      "fallbacks": int(out[5].sum()), "energy_drift": drift, "wall_s": chunk_s,
+                      "launches": counts},
+            "failed": [k for k, v in checks.items() if not v],
+        }
+        del red, red_b, g, g_b, out, bargs, tables, margs
+        torch.cuda.empty_cache()
+
+    def rms(v):
+        return float(torch.sqrt(torch.mean(torch.sum(v * v, dim=1))))
+
+    err = rms(g_ml["p3m"] - g_ml["exact"]) / rms(g_ml["exact"])
+    if not err < 2e-3:
+        report["p3m"]["failed"].append("P3M force error < 2e-3")
+    report["p3m"]["g_err_rms_over_rms_g"] = err
+    failed = report["exact"]["failed"] + report["p3m"]["failed"]
+    say("mlevel", card=gpu_line, scene="bb_collapsed_deep.npz (contrast 1001) N=100000 Kh=50 "
+        "polytropic float32", **report, failed=failed)
+    if failed:
+        raise AssertionError(f"mlevel checks failed: {failed}")
+    k1 = {"launches": counts_by["mlevel_exact_chunk"]["phase_a_cells"],
+          "max_abs_err": k1.pop("err"), "ms": k1.pop("ms"), "plain_ms": k1.pop("plain_ms"),
+          **bound(k1.pop("flops"), k1.pop("bytes"), peak), **k1,
+          "launches_path": "mlevel_exact_chunk"}
+    return k1, counts_by
+
+
+def phase_mlevel_ladder(tmp: str, gpu_line: str):
+    """bb_collapsed_deep.npz written as a snapshot and run four steps
+    through the CLI with plan_blocks made to decline: the run loop's ladder
+    then plans the multi-level engine (exact gravity at this N) for every
+    chunk; K1 once a bucket and K3 once an evaluation, counts set to 0 just
+    before the run and read just after. Its fallbacks are reported."""
+    from sphtpu_torch.engine import driver
+
+    root = os.path.join(tmp, "mlevel_ladder")
+    write_collapse_snapshot(root, COLLAPSE_DEEP)
+    with patched(driver, "plan_blocks", lambda orig: (lambda *a, **kw: None)):
+        res, counts, checks, drift = drive_cli(root, N_MAIN, generate=False)
+    cfgs = res["configs"]
+    n_fb = res["fallback_evals"]
+    checks.pop("0 fallback evals")
+    want = {name: 0 for name in MODULES}
+    want.update(phase_a_cells=sum(2 * steps * sum(len(lv[2]) for lv in c.mlevel[0])
+                                  for (steps, _, _), c in zip(res["chunk_walls"],
+                                                              res["chunk_configs"])),
+                newton_sweep=8 - n_fb)
+    checks.update({
+        "every chunk on the multi-level engine": set(res["chunk_engines"]) == {"mlevel"},
+        "exact gravity": all(c.gravity == "exact" for c in cfgs),
+        "kernel launches": counts == want,
+    })
+    failed = [k for k, v in checks.items() if not v]
+    say("mlevel_ladder", card=gpu_line, plan_blocks="made to decline",
+        scene=f"bb_collapsed_deep.npz (contrast 1001) polytropic N={N_MAIN} Kh={KH_COLLAPSE} "
+        "float32", chunk_engines=res["chunk_engines"], steps=res["steps"],
+        fallback_evals=n_fb, launches=counts, energy_drift=drift,
+        specs=[[[lv[0], lv[1]] for lv in c.mlevel[0]] + [c.mlevel[1]] for c in cfgs],
+        **walls_summary(res, N_MAIN), failed=failed)
+    if failed:
+        raise AssertionError(f"mlevel ladder checks failed: {failed}")
+    return counts
+
+
 def kernel_entry(name, counts, err, ms, plain_ms, flops, byts, peak, **extra):
     source, replaces = KERNEL_INFO[name]
     return {
@@ -1747,7 +2160,11 @@ def main() -> int:
         del res, bargs
         torch.cuda.empty_cache()
         phase_deep_state(gpu_line)
+        k1_ml, counts_ml = phase_mlevel(gpu_line)
+        by_path.update(counts_ml)
+        by_path["mlevel_ladder"] = phase_mlevel_ladder(tmp, gpu_line)
     entries[0]["on_collapse_path"] = k1_blk
+    entries[0]["on_mlevel_path"] = k1_ml
     entries[1]["on_exact_path"] = k2_exact
     entries[1]["on_p3m_path"] = k2_p3m
     entries[2]["on_exact_path"] = {k: k3_exact[k] for k in (
@@ -1761,7 +2178,7 @@ def main() -> int:
     entries += [k4, tail, k5, k6]
     for e in entries:
         e["launches_by_path"] = {path: c[e["name"]] for path, c in by_path.items()}
-    side = (k2_exact, k2_p3m, k4["on_exact_path"], k1_blk, entries[2]["on_exact_path"])
+    side = (k2_exact, k2_p3m, k4["on_exact_path"], k1_blk, entries[2]["on_exact_path"], k1_ml)
     if any(e["launches"] <= 0 for e in entries + list(side)):
         raise AssertionError("a kernel of a main path was never launched")
     print(json.dumps({"kernels": entries}), flush=True)

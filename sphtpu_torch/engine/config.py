@@ -51,9 +51,9 @@ class EngineConfig:
     # sizes, or None for the legacy full-cap sweep. Requires tile set,
     # outlier_budget == 0, and (for p3m) c_halfwidth == 1.
     tile_classes: tuple = None
-    # multi-level tile engine spec (not ported yet)
+    # multi-level tile engine spec (physics/mlevel.py)
     mlevel: tuple = None
-    # block-compact engine spec (not ported yet)
+    # block-compact engine spec (physics/blocks.py)
     blocks: tuple = None
     # certification-failure response. "gather": fall back to the exact
     # gather engine (the default — stale plans cost speed, never

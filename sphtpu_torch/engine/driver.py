@@ -12,8 +12,9 @@ step (t >= tEnd) always snapshots. keepSnaps=false suppresses all but the
 final snapshot; showPlots additionally renders PNG figures.
 
 A chunk runs to the next snapshot boundary: there is no cap on the steps
-of one dispatch, except on the block-compact engine, whose chunks are
-ML_SUBCHUNK steps long (its plan is refreshed between them).
+of one dispatch, except on the block-compact and the multi-level engines,
+whose chunks are ML_SUBCHUNK steps long (their plans are refreshed between
+them).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ..device import resolve_device
 from ..io import StatsFile, read_snapshot, snapshot_path, write_snapshot
 from ..physics.blocks import BQ, block_args_for_spec, plan_blocks
 from ..physics.ctiles import choose_tile_classes, ctile_classes_still_ok
+from ..physics.mlevel import mlevel_args_still_ok, plan_mlevel
 from ..physics.tiles import choose_tile_params, tile_params_still_ok
 from ..profiling import StageTimer
 from ..units import UnitSystem
@@ -46,11 +48,12 @@ P3M_MIN_N = 150_000
 
 # planner rungs of the reference package that the port does not have yet;
 # states they would serve run on the gather engine
-RUNGS_NOT_PORTED = ("multi-level engine", "outlier-lane tiles")
+RUNGS_NOT_PORTED = ("outlier-lane tiles",)
 
-# Block-compact chunks are this many steps long: the plan's boxes carry
-# drift margins for ML_SUBCHUNK steps, and refreshing them between short
-# chunks (`block_args_for_spec`) is a host pass that keeps the spec.
+# Block-compact and multi-level chunks are this many steps long: the
+# plans' boxes and strip lists carry drift margins for ML_SUBCHUNK steps,
+# and refreshing them between short chunks (`block_args_for_spec`,
+# `mlevel_args_still_ok`) is a host pass that keeps the spec.
 ML_SUBCHUNK = 2
 
 
@@ -63,11 +66,12 @@ def plan_engine(pos_host, h_host, *, n: int, kh: int, eos: str, dtype: str,
        planner fits the state (1.5x occupancy headroom, cap <= 128);
     2. the mono-tile engine (cap <= 256), under either gravity;
     3. the block-compact engine (`plan_blocks`), under either gravity;
-    4. None: no ported rung can plan; the caller runs the gather engine.
+    4. the multi-level engine (`plan_mlevel`), under either gravity;
+    5. None: no ported rung can plan; the caller runs the gather engine.
 
-    Returns (EngineConfig, BlockArgs or None) or None. p3m skips the class
-    engine: it needs a one-cell tail stencil, which the default mesh_factor
-    does not give."""
+    Returns (EngineConfig, BlockArgs or MLArgs or None) or None. p3m skips
+    the class engine: it needs a one-cell tail stencil, which the default
+    mesh_factor does not give."""
     if gravity == "exact":
         tp_cls = choose_tile_classes(pos_host, h_host, kh, headroom=1.5)
         if tp_cls is not None:
@@ -87,14 +91,23 @@ def plan_engine(pos_host, h_host, *, n: int, kh: int, eos: str, dtype: str,
         return EngineConfig(
             n=n, kh=kh, eos=eos, dtype=dtype, blocks=spec, gravity=gravity
         ), bargs
+    ml = plan_mlevel(pos_host, h_host, kh, gravity=gravity)
+    if ml is not None:
+        spec, mlargs = ml
+        return EngineConfig(
+            n=n, kh=kh, eos=eos, dtype=dtype, mlevel=spec, gravity=gravity
+        ), mlargs
     return None
 
 
 def engine_name(cfg: EngineConfig) -> str:
-    """"classes", "mono", "blocks" or "gather": the engine a config runs
-    (a chunk whose certificate failed ran the gather engine too)."""
+    """"classes", "mono", "blocks", "mlevel" or "gather": the engine a
+    config runs (a chunk whose certificate failed ran the gather engine
+    too)."""
     if cfg.blocks is not None:
         return "blocks"
+    if cfg.mlevel is not None:
+        return "mlevel"
     if cfg.tile is not None:
         return "classes" if cfg.tile_classes is not None else "mono"
     return "gather"
@@ -142,7 +155,8 @@ def run_simulation(
     engine: "auto" uses a certified fast path with fallback, re-planned per
     chunk from the evolving h (`plan_engine`): the class-compacted engine
     (exact gravity only), else the mono-tile engine, else the
-    block-compact engine; "gather" forces the neighbor-list engine.
+    block-compact engine, else the multi-level engine; "gather" forces the
+    neighbor-list engine.
     gravity: "exact" runs the exact Newtonian sweep + near-field
     correction on the tile path; "p3m" the FFT mesh + the tiles' tail
     correction; "auto" is p3m at N >= P3M_MIN_N, else exact. The gather
@@ -221,18 +235,33 @@ def run_simulation(
             # pair slots x the reference's per-slot factor, which puts the
             # block engine on the strip engines' scale
             return 13.0 * sum(cb * nb * BQ for cb, nb in c.blocks[0])
+        if c.mlevel is not None:
+            levels, res_budget, _, c_buckets = c.mlevel
+            cost = sum(
+                (na_b + nb_b) * g * cb * 27.0 * cb
+                for g, cap, buckets in levels
+                for cb, na_b, nb_b in buckets
+            )
+            c_depth = 2 * c.c_halfwidth + 1
+            cost += sum(
+                nc_b * levels[0][0] * cb * float(c_depth) ** 3 * cb
+                for cb, nc_b in c_buckets
+            )
+            return cost + n * float(res_budget) * 2.0
         return float("inf")
 
     said_rungs = []
 
     def pick_cfg(h_host: np.ndarray, pos_host: np.ndarray):
-        """(EngineConfig, BlockArgs or None) for the next chunk.
+        """(EngineConfig, BlockArgs or MLArgs or None) for the next chunk.
 
         Hysteresis: prefer ANY already-used config whose host-side
         forecast still certifies (cheapest by the slot-work model) over
         planning a fresh one — for a block config, a refit of its spec to
-        the current state (`block_args_for_spec`); the in-engine
-        certificate stays the safety net."""
+        the current state (`block_args_for_spec`); for a multi-level
+        config, its strip lists refreshed for the same spec
+        (`mlevel_args_still_ok`); the in-engine certificate stays the
+        safety net."""
         if engine != "auto":
             return base_cfg, None
         cached = []
@@ -247,6 +276,10 @@ def run_simulation(
                     )
                 ):
                     cached.append((c, None))
+            elif c.mlevel is not None:
+                args = mlevel_args_still_ok(pos_host, h_host, c.mlevel)
+                if args is not None:
+                    cached.append((c, args))
             elif c.blocks is not None:
                 args = block_args_for_spec(pos_host, h_host, c.blocks, gravity=c.gravity)
                 if args is not None:
@@ -261,8 +294,8 @@ def run_simulation(
         if verbose and not said_rungs:
             said_rungs.append(True)
             print(
-                "[engine] no ported engine can plan this state; the rungs "
-                "not ported yet ("
+                "[engine] neither the tile, block nor multi-level engine can "
+                "plan this state; the rungs not ported yet ("
                 + ", ".join(RUNGS_NOT_PORTED)
                 + ") are skipped and the gather engine runs"
             )
@@ -409,6 +442,7 @@ def run_simulation(
     chunk_walls = []  # (steps run, wall seconds, fallback evals) per chunk
     pick_walls = []  # host planning (plan or refit) wall seconds before each chunk
     chunk_engines = []  # the engine that ran each chunk (`engine_name`)
+    chunk_configs = []  # the config of each chunk
     while float(state.t) < t_end_code:
         if max_steps is not None and total_steps >= max_steps:
             break
@@ -428,9 +462,9 @@ def run_simulation(
             if cfg not in picked:
                 picked.append(cfg)
             pick_walls.append(time.perf_counter() - t_pick)
-        if cfg.blocks is not None:
-            # the plan's boxes drift with the state: short chunks keep them
-            # fresh (a host refit, same spec)
+        if cfg.blocks is not None or cfg.mlevel is not None:
+            # the plan's boxes or strip lists drift with the state: short
+            # chunks keep them fresh (a host refit, same spec)
             n_steps = min(n_steps, ML_SUBCHUNK)
         with timer("chunk_steps"):
             t_chunk = time.perf_counter()
@@ -454,6 +488,7 @@ def run_simulation(
         n_valid = int(valid.sum())
         chunk_walls.append((n_valid, t_chunk, n_fb))
         chunk_engines.append(engine_name(cfg))
+        chunk_configs.append(cfg)
         if n_valid == 0:
             break
         stats_cgs = _stats_to_cgs(stats_code[:n_valid], u)
@@ -509,6 +544,7 @@ def run_simulation(
         "chunk_walls": chunk_walls,
         "pick_walls": pick_walls,
         "chunk_engines": chunk_engines,
+        "chunk_configs": chunk_configs,
         "params": params,
         "h_last": h_dev,
         "t_cgs": float(state.t) * u.T,

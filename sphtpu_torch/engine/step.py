@@ -11,7 +11,8 @@ class-compacted one (sphtpu_torch.physics.ctiles) when cfg.tile_classes is
 set, else the mono-tile one (sphtpu_torch.physics.tiles); when cfg.blocks
 is set, the block-compact engine (sphtpu_torch.physics.blocks) with the
 chunk's BlockArgs (`mlargs`) and candidate tables (`aux`, built once a
-chunk). The engine's per-evaluation exactness certificate gates the
+chunk); when cfg.mlevel is set, the multi-level engine
+(sphtpu_torch.physics.mlevel) with the chunk's MLArgs (`mlargs`). The engine's per-evaluation exactness certificate gates the
 fallback to the gather engine: a stale plan costs speed, never
 correctness. Gravity on a tile
 path is the exact Newtonian sweep or, under p3m, the FFT mesh; either way
@@ -40,6 +41,7 @@ from ..physics import (
 from ..physics.blocks import block_args_to_device, block_sph_forces, build_cand_tables
 from ..physics.ctiles import ctile_sph_forces
 from ..physics.mesh_gravity import greens_hat, p3m_mesh_force
+from ..physics.mlevel import mlevel_args_to_device, mlevel_sph_forces
 from ..physics.tiles import ReducedForces, tile_sph_forces
 from ..profiling import stage
 from .config import EngineConfig, Params, State
@@ -64,8 +66,6 @@ def _gather_reduced(cfg: EngineConfig, p: Params, pos, vel, K) -> ReducedForces:
 
 
 def _not_ported(cfg: EngineConfig):
-    if cfg.mlevel is not None:
-        return "mlevel (the multi-level engine arrives with slice 4 of the port)"
     if cfg.outlier_budget:
         return "outlier_budget (the outlier lane arrives with slice 4 of the port)"
     return None
@@ -80,7 +80,8 @@ def force_eval(
     ghat: the Green's function of cfg's mesh, `greens_hat(cfg.mesh_pad,
     cfg.sigma_cells, dtype, device)`; required when the config is p3m (the
     chunk runner computes it once). mlargs: the plan's BlockArgs when
-    cfg.blocks is set (required then); aux: its candidate tables
+    cfg.blocks is set, its MLArgs when cfg.mlevel is set (required for
+    either); aux: the block plan's candidate tables
     (`build_cand_tables`; None rebuilds them in the call); grouped=False
     runs the block engine's phase B per bucket (kernel K6) instead of in one
     launch (K5), as the reference's SPHTPU_BLOCKS_GROUPED=0 does. Returns
@@ -93,6 +94,8 @@ def force_eval(
         raise NotImplementedError(f"EngineConfig with {missing}")
     if cfg.blocks is not None and mlargs is None:
         raise ValueError("cfg.blocks requires BlockArgs via mlargs")
+    if cfg.mlevel is not None and mlargs is None:
+        raise ValueError("cfg.mlevel requires mlargs")
     if cfg.gravity == "p3m" and ghat is None:
         raise ValueError(
             "a p3m config needs ghat = greens_hat(cfg.mesh_pad, cfg.sigma_cells, ...)"
@@ -105,6 +108,18 @@ def force_eval(
                 cs0=p.cs0, alpha=p.alpha, beta=p.beta, kh=cfg.kh, spec=cfg.blocks,
                 gravity=cfg.gravity, mesh_factor=cfg.mesh_factor,
                 sigma_cells=cfg.sigma_cells, grouped=grouped, idx_tables=aux,
+            )
+        return _certified_or_gather(cfg, p, pos, vel, K, tf, gcorr, ok, ghat, dev)
+
+    if cfg.mlevel is not None:
+        # phase A per level x bucket on kernel K1 (on a CUDA tensor at every
+        # dtype and size: ROADMAP D11); phases B, C and the residual lane
+        # are torch
+        with stage("hydro_mlevel"):
+            tf, gcorr, ok = mlevel_sph_forces(
+                pos, vel, p.m, K, h_hint, mlargs, eos=cfg.eos, gamma=p.gamma,
+                cs0=p.cs0, alpha=p.alpha, beta=p.beta, kh=cfg.kh, spec=cfg.mlevel,
+                mesh_factor=cfg.mesh_factor, sigma_cells=cfg.sigma_cells,
             )
         return _certified_or_gather(cfg, p, pos, vel, K, tf, gcorr, ok, ghat, dev)
 
@@ -275,8 +290,9 @@ def make_chunk_runner(cfg: EngineConfig, *, device=None, grouped=True):
     step and one of the certificate per force evaluation are the only
     synchronisations. Under p3m the mesh's Green's function is computed
     once, with the runner, not per evaluation. mlargs: the BlockArgs of a
-    cfg.blocks config (required then); they go to the device and their
-    candidate tables are built once a chunk; grouped is force_eval's.
+    cfg.blocks config or the MLArgs of a cfg.mlevel config (required then),
+    fresh each chunk; they go to the device once a chunk (and a block
+    plan's candidate tables are built then); grouped is force_eval's.
     device=None means the card."""
     dev = resolve_device(device)
     step = make_step(cfg, device=dev, grouped=grouped)
@@ -292,6 +308,8 @@ def make_chunk_runner(cfg: EngineConfig, *, device=None, grouped=True):
         if cfg.blocks is not None and mlargs is not None:
             mlargs = block_args_to_device(mlargs, cfg.torch_dtype, dev)
             aux = build_cand_tables(mlargs, cfg.blocks, cfg.n)
+        elif cfg.mlevel is not None and mlargs is not None:
+            mlargs = mlevel_args_to_device(mlargs, dev)
         n_steps = int(n_steps)
         if scan_length is None:
             scan_length = n_steps

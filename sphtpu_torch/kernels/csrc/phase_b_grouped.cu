@@ -15,8 +15,9 @@
 // division-diet algebra on inv_r = rsqrt(d2) (self pairs: 1/r -> 0);
 // polytropic coefficient symmetric, isothermal asymmetric; gravity
 // corrections (softened - Newtonian for r <= 2 h_avg, plus Newtonian - mesh
-// shape under P3M) carry two-sided ownership weights w = 1/2 when both rows
-// see the pair (r <= max(2h, r_c) on each side), 1 when only the query does.
+// shape under P3M; a pair that takes both has their sum taken in double)
+// carry two-sided ownership weights w = 1/2 when both rows see the pair
+// (r <= max(2h, r_c) on each side), 1 when only the query does.
 // Outputs: ten query-side reductions per query row (ax ay az = -sum coeff d,
 // div, mu_max — a MAX, init -max — visc, gx gy gz gphi) and eight
 // candidate-side sums per candidate slot (sax say saz = +sum coeff d, svisc,
@@ -90,6 +91,53 @@ struct PairOut {
   T cpw;            // w cpp
 };
 
+// Softened gravity of a pair at r <= 2 h_avg: (force over r, potential) of
+// the cubic-spline kernel, Newtonian past q = 2.
+template <typename W>
+__device__ __forceinline__ void softened(W r, W inv_r, W h_avg, W inv_h, W& soft_g, W& soft_p) {
+  const W q_g = r * inv_h;
+  const W q2 = q_g * q_g;
+  const W q3 = q2 * q_g;
+  const W inv_h2 = inv_h * inv_h;
+  const W inv_q = h_avg * inv_r;  // 1/q, 0 at self pairs
+  if (q_g <= W(1)) {
+    soft_g = inv_h2 * inv_h * (W(4.0 / 3.0) - W(1.2) * q2 + W(0.5) * q3);
+    soft_p = inv_h * (W(2.0 / 3.0) * q2 - W(0.3) * q2 * q2 + W(0.1) * q2 * q3 - W(1.4));
+  } else if (q_g <= W(2)) {
+    soft_g = inv_h2 *
+             (W(8.0 / 3.0) * q_g - W(3) * q2 + W(1.2) * q3 - q2 * q2 / W(6) -
+              W(1.0 / 15.0) * inv_q * inv_q) *
+             inv_r;
+    soft_p = inv_h * (W(4.0 / 3.0) * q2 - q3 + W(0.3) * q2 * q2 - q2 * q3 / W(30) - W(1.6) +
+                      W(1.0 / 15.0) * inv_q);
+  } else {
+    soft_g = inv_r * inv_r * inv_r;
+    soft_p = -inv_r;
+  }
+}
+
+// Newtonian - mesh shape (physics/mesh_gravity.newton_minus_mesh):
+// f = erfc(z) + sqrt(2/pi) t exp(-z^2) and erfc(z), z = t / sqrt2, t = r /
+// sigma, as exp(-z^2) times the erfcx polynomial.
+template <typename W>
+__device__ __forceinline__ void mesh_tail(W d2, W inv_r, W sigma, W& f, W& erfc_z) {
+  const W t = d2 * inv_r / sigma;
+  const W z = t * W(0.7071067811865476);
+  const W u = z / (W(1) + z);
+  W pp = W(2.3849380332e-01);
+  pp = pp * u + W(-9.3397713762e-01);
+  pp = pp * u + W(1.2579923862e+00);
+  pp = pp * u + W(-8.1740263321e-01);
+  pp = pp * u + W(4.6001262975e-01);
+  pp = pp * u + W(4.3301822784e-02);
+  pp = pp * u + W(-1.1974394197e-01);
+  pp = pp * u + W(-1.1287916483e+00);
+  pp = pp * u + W(1.0000047021e+00);
+  const W e = Num<W>::exp(-z * z);
+  erfc_z = e * pp;
+  f = erfc_z + W(0.7978845608028654) * t * e;
+}
+
 // The pair terms of one occupied (query, candidate) pair. Returns false when
 // the pair adds nothing to any output: outside the query's forward ball and
 // its visibility radius max(2 h_q, r_c) (the prefilter is conservative; the
@@ -140,53 +188,39 @@ __device__ __forceinline__ bool pair_terms(const QRow<T>& q, const CRow<T>& c,
   o.mu = fwd ? mu : -Num<T>::big();
   o.visc = fwd ? p.m * pi_own * v_dot_dw_q / T(2) : T(0);
 
-  // gravity corrections, term 1: softened - Newtonian for r <= 2 h_avg
+  // gravity corrections: softened - Newtonian for r <= 2 h_avg, plus
+  // Newtonian - mesh shape under P3M
   const T newt_g = inv_r * inv_r * inv_r;
   const T newt_p = -inv_r;
   T cgp = T(0), cpp = T(0);
-  if (r <= T(2) * h_avg) {
-    const T q_g = r * inv_h;
-    const T q2 = q_g * q_g;
-    const T q3 = q2 * q_g;
-    const T inv_h2 = inv_h * inv_h;
-    const T inv_q = h_avg * inv_r;  // 1/q, 0 at self pairs
-    T soft_g, soft_p;
-    if (q_g <= T(1)) {
-      soft_g = inv_h2 * inv_h * (T(4.0 / 3.0) - T(1.2) * q2 + T(0.5) * q3);
-      soft_p = inv_h * (T(2.0 / 3.0) * q2 - T(0.3) * q2 * q2 + T(0.1) * q2 * q3 - T(1.4));
-    } else if (q_g <= T(2)) {
-      soft_g = inv_h2 *
-               (T(8.0 / 3.0) * q_g - T(3) * q2 + T(1.2) * q3 - q2 * q2 / T(6) -
-                T(1.0 / 15.0) * inv_q * inv_q) *
-               inv_r;
-      soft_p = inv_h * (T(4.0 / 3.0) * q2 - q3 + T(0.3) * q2 * q2 - q2 * q3 / T(30) - T(1.6) +
-                        T(1.0 / 15.0) * inv_q);
-    } else {
-      soft_g = newt_g;
-      soft_p = newt_p;
+  const bool near = r <= T(2) * h_avg;
+  if (P3M && near && sep) {
+    // the pair takes both corrections, whose 1/r^3 (and 1/r) parts cancel:
+    // for a pair far inside sigma their float sum has no correct digit, so
+    // the reference's terms, in its order, are summed in double and rounded
+    // once (the plain version likewise)
+    const double d2w = d2;
+    const double inv_rw = Num<double>::rsqrt(d2w);
+    const double h_avgw = h_avg;
+    const double newt_gw = inv_rw * inv_rw * inv_rw;
+    double soft_g, soft_p, f, erfc_z;
+    softened<double>(d2w * inv_rw, inv_rw, h_avgw, 1.0 / h_avgw, soft_g, soft_p);
+    mesh_tail<double>(d2w, inv_rw, double(p.sigma), f, erfc_z);
+    cgp = T((soft_g - newt_gw) + f * newt_gw);
+    cpp = T((soft_p + inv_rw) - erfc_z * inv_rw);
+  } else {
+    if (near) {
+      T soft_g, soft_p;
+      softened<T>(r, inv_r, h_avg, inv_h, soft_g, soft_p);
+      cgp = soft_g - newt_g;
+      cpp = soft_p - newt_p;
     }
-    cgp = soft_g - newt_g;
-    cpp = soft_p - newt_p;
-  }
-  if (P3M) {
-    // term 2 (Newtonian - mesh shape): exp(-z^2) * erfcx polynomial
-    const T t = d2 * inv_r / p.sigma;
-    const T z = t * T(0.7071067811865476);
-    const T u = z / (T(1) + z);
-    T pp = T(2.3849380332e-01);
-    pp = pp * u + T(-9.3397713762e-01);
-    pp = pp * u + T(1.2579923862e+00);
-    pp = pp * u + T(-8.1740263321e-01);
-    pp = pp * u + T(4.6001262975e-01);
-    pp = pp * u + T(4.3301822784e-02);
-    pp = pp * u + T(-1.1974394197e-01);
-    pp = pp * u + T(-1.1287916483e+00);
-    pp = pp * u + T(1.0000047021e+00);
-    const T e = Num<T>::exp(-z * z);
-    const T erfc_z = e * pp;
-    const T f = erfc_z + T(0.7978845608028654) * t * e;
-    cgp += sep ? f * newt_g : T(0);
-    cpp += sep ? -erfc_z * inv_r : T(0.7978845608028654) / p.sigma;
+    if (P3M) {
+      T f, erfc_z;
+      mesh_tail<T>(d2, inv_r, p.sigma, f, erfc_z);
+      cgp += sep ? f * newt_g : T(0);
+      cpp += sep ? -erfc_z * inv_r : T(0.7978845608028654) / p.sigma;
+    }
   }
   const T two_hc = T(2) * c.h;
   const T vc_r = two_hc > p.r_c ? two_hc : p.r_c;

@@ -58,6 +58,51 @@ PLAIN_PAIRS = 1 << 20
 launches = 0  # kernel launches made by phase_b_grouped (CUDA tensors only)
 
 
+def _softened(r, inv_r, h_avg, inv_h):
+    """(force over r, potential) of the cubic-spline softened gravity of a
+    pair, Newtonian past r = 2 h_avg."""
+    q_g = r * inv_h
+    q2_g = q_g * q_g
+    q3_g = q2_g * q_g
+    inv_h2 = inv_h * inv_h
+    inv_q = h_avg * inv_r  # 1/q, 0 at self-pairs
+    soft_g = torch.where(
+        q_g <= 1.0,
+        inv_h2 * inv_h * (4.0 / 3.0 - 1.2 * q2_g + 0.5 * q3_g),
+        torch.where(
+            q_g <= 2.0,
+            inv_h2
+            * (
+                8.0 / 3.0 * q_g
+                - 3.0 * q2_g
+                + 1.2 * q3_g
+                - q2_g * q2_g / 6.0
+                - (1.0 / 15.0) * inv_q * inv_q
+            )
+            * inv_r,
+            inv_r * inv_r * inv_r,
+        ),
+    )
+    soft_p = torch.where(
+        q_g <= 1.0,
+        inv_h * (2.0 / 3.0 * q2_g - 0.3 * q2_g * q2_g + 0.1 * q2_g * q3_g - 1.4),
+        torch.where(
+            q_g <= 2.0,
+            inv_h
+            * (
+                4.0 / 3.0 * q2_g
+                - q3_g
+                + 0.3 * q2_g * q2_g
+                - q2_g * q3_g / 30.0
+                - 1.6
+                + (1.0 / 15.0) * inv_q
+            ),
+            -inv_r,
+        ),
+    )
+    return soft_g, soft_p
+
+
 def pair_sums_plain(q, c, m, alpha, beta, sigma, r_c_now, *, eos: str, p3m: bool):
     """The pair terms of the block engine on broadcast tiles: q = 11 query
     fields (x y z vx vy vz mask h rho P/rho^2 cs), each (..., Q, 1); c = 10
@@ -65,7 +110,8 @@ def pair_sums_plain(q, c, m, alpha, beta, sigma, r_c_now, *, eos: str, p3m: bool
     Returns (10 query-side reductions over C, each (..., Q): ax ay az div
     mu_max visc gx gy gz gphi; 8 candidate-side sums over Q, each (..., C):
     sax say saz svisc sgx sgy sgz sgp) — the Pallas kernels' body, op for
-    op."""
+    op; in float32 under p3m a pair inside its softening radius takes its
+    two gravity corrections' sum in float64, rounded once."""
     qx, qy, qz, qvx, qvy, qvz, qm, qh, qrho, qpor2, qcs = q
     cx, cy, cz, cvx, cvy, cvz, ch, crho, cpor2, cm = c
     dtype = qx.dtype
@@ -134,54 +180,27 @@ def pair_sums_plain(q, c, m, alpha, beta, sigma, r_c_now, *, eos: str, p3m: bool
     ]
 
     # gravity corrections with two-sided ownership weights
-    newt_g = inv_r * inv_r * inv_r
-    newt_p = -inv_r
-    q_g = r * inv_h
-    q2_g = q_g * q_g
-    q3_g = q2_g * q_g
-    inv_h2 = inv_h * inv_h
-    inv_q = h_avg * inv_r  # 1/q, 0 at self-pairs
-    soft_g = torch.where(
-        q_g <= 1.0,
-        inv_h2 * inv_h * (4.0 / 3.0 - 1.2 * q2_g + 0.5 * q3_g),
-        torch.where(
-            q_g <= 2.0,
-            inv_h2
-            * (
-                8.0 / 3.0 * q_g
-                - 3.0 * q2_g
-                + 1.2 * q3_g
-                - q2_g * q2_g / 6.0
-                - (1.0 / 15.0) * inv_q * inv_q
-            )
-            * inv_r,
-            newt_g,
-        ),
-    )
-    soft_p = torch.where(
-        q_g <= 1.0,
-        inv_h * (2.0 / 3.0 * q2_g - 0.3 * q2_g * q2_g + 0.1 * q2_g * q3_g - 1.4),
-        torch.where(
-            q_g <= 2.0,
-            inv_h
-            * (
-                4.0 / 3.0 * q2_g
-                - q3_g
-                + 0.3 * q2_g * q2_g
-                - q2_g * q3_g / 30.0
-                - 1.6
-                + (1.0 / 15.0) * inv_q
-            ),
-            newt_p,
-        ),
-    )
     gmask = valid & (r <= 2.0 * h_avg)
-    cgp = torch.where(gmask, soft_g - newt_g, zero)
-    cpp = torch.where(gmask, soft_p - newt_p, zero)
+    soft_g, soft_p = _softened(r, inv_r, h_avg, inv_h)
+    cgp = torch.where(gmask, soft_g - inv_r * inv_r * inv_r, zero)
+    cpp = torch.where(gmask, soft_p + inv_r, zero)
     if p3m:
         tg, tp = newton_minus_mesh(d2, inv_r, sigma)
         cgp = cgp + torch.where(valid, tg, zero)
         cpp = cpp + torch.where(valid, tp, zero)
+        if dtype != torch.float64:
+            # a pair that takes both corrections: their 1/r^3 (and 1/r)
+            # parts cancel, so the pair's sum is taken in float64 and
+            # rounded once (the kernels likewise)
+            d2w = d2.double()
+            sep = d2w > 0
+            inv_rw = torch.where(sep, torch.rsqrt(torch.where(sep, d2w, 1.0)), 0.0)
+            h_avgw = h_avg.double()
+            soft_gw, soft_pw = _softened(d2w * inv_rw, inv_rw, h_avgw, 1.0 / h_avgw)
+            tgw, tpw = newton_minus_mesh(d2w, inv_rw, sigma)
+            both = gmask & sep
+            cgp = torch.where(both, ((soft_gw - inv_rw * inv_rw * inv_rw) + tgw).to(dtype), cgp)
+            cpp = torch.where(both, ((soft_pw + inv_rw) + tpw).to(dtype), cpp)
     r_c = torch.as_tensor(r_c_now, dtype=dtype, device=qx.device)
     vq_r = torch.maximum(2.0 * qh, r_c)
     vc_r = torch.maximum(2.0 * ch, r_c)

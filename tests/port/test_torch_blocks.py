@@ -180,15 +180,17 @@ def _kw(scene, gravity, eos):
 
 
 @functools.lru_cache(maxsize=None)
-def _ref_forces(scene, gravity, eos, dtype, variant):
+def _ref_forces(scene, gravity, eos, dtype, variant, rounded=False):
     """The JAX package's block_sph_forces as numpy: variant "xla" (its
     default path on the CPU), "grouped" / "per_bucket" (Pallas K1 with K5 /
-    K6, interpreted); and the gather oracle's at float64."""
+    K6, interpreted); and the gather oracle's at float64. rounded: the
+    inputs rounded to float32 first."""
     pos, vel, K, h0, spec, args = _plan(scene, gravity)
     if eos == "isothermal":
         K = np.zeros_like(K)
     jd = {"float64": jnp.float64, "float32": jnp.float32}[dtype]
-    P, V, Kj, H = (jnp.asarray(x, jd) for x in (pos, vel, K, h0))
+    rnd = (lambda x: x.astype(np.float32)) if rounded else (lambda x: x)
+    P, V, Kj, H = (jnp.asarray(rnd(x), jd) for x in (pos, vel, K, h0))
     m = 1.0 / pos.shape[0]
     kw = _kw(scene, gravity, eos)
     if variant == "gather":
@@ -301,7 +303,12 @@ def test_forces_f32_match_pallas_interpret(gravity, variant):
     """Plain versions at float32 against the JAX package's Pallas path (K1
     and K5, or K1 and K6 per bucket) in interpret mode: h within one ulp,
     the certificate identical, every other output within 6e-6 of its
-    scale."""
+    scale. Under p3m a pair inside its softening radius takes its two
+    gravity corrections, whose 1/r^3 parts cancel, summed in float64
+    (ROADMAP F7), where the reference sums them in float32 (its gcorr is
+    1.6e-5 of the scale off its own float64 one here): the port's gcorr is
+    held against the reference's path in float64 on the same
+    float32-rounded inputs."""
     out, _ = _port_forces("core_halo", gravity, "polytropic", "float32",
                           grouped=variant == "grouped")
     ref = _ref_forces("core_halo", gravity, "polytropic", "float32", variant)
@@ -310,6 +317,8 @@ def test_forces_f32_match_pallas_interpret(gravity, variant):
     for k in ("rho", "acc", "visc_dk", "div_sum", "mu_max", "cs"):
         sc = np.abs(ref[k]).max() + 1e-30
         assert np.abs(out[k] - ref[k]).max() / sc < 6e-6, k
+    if gravity == "p3m":
+        ref = _ref_forces("core_halo", gravity, "polytropic", "float64", variant, rounded=True)
     for a, b in zip(out["gcorr"], ref["gcorr"]):
         assert np.abs(a - b).max() / (np.abs(b).max() + 1e-30) < 6e-6
 
@@ -398,7 +407,10 @@ def test_k5_k6_match_pallas(dtype, p3m):
     C_b = 2560, which the reference's wrapper splits into two 1280-wide
     launches) as plain versions against the Pallas kernels interpreted:
     every query- and candidate-side output within 6e-6 (float32) / 1e-12
-    (float64) of its scale, mu_max's masked rows identical."""
+    (float64) of its scale, mu_max's masked rows identical. In float32
+    under p3m the Pallas kernels run in float64 on the same float32-rounded
+    inputs: the port takes a close pair's two gravity corrections summed in
+    float64, the reference in float32 (ROADMAP F7)."""
     td = getattr(torch, dtype)
     rng = np.random.default_rng(11 + p3m)
     cap = TB.BQ
@@ -406,12 +418,15 @@ def test_k5_k6_match_pallas(dtype, p3m):
     bar = 6e-6 if td == torch.float32 else 1e-12
     kw = dict(eos="polytropic", p3m=p3m, cap=cap)
     args = (1e-3, 1.0, 2.0, sigma, r_c)
+    jd = jnp.float64 if p3m else None
+
+    def j(a):
+        return jnp.asarray(a, jd)
 
     # K6
     qf, cf = _pair_inputs(rng, 2, cap, 2560, td, 2200)
     qo, co = cuda_block_pairs.phase_b_blocks(list(map(t, qf)), list(map(t, cf)), *args, **kw)
-    qo_r, co_r = k6_ref(tuple(map(jnp.asarray, qf)), tuple(map(jnp.asarray, cf)), *args,
-                        **kw, interpret=True)
+    qo_r, co_r = k6_ref(tuple(map(j, qf)), tuple(map(j, cf)), *args, **kw, interpret=True)
     _assert_close_of_scale(qo, qo_r, bar)
     _assert_close_of_scale(co, co_r, bar)
 
@@ -426,10 +441,51 @@ def test_k5_k6_match_pallas(dtype, p3m):
     qblk, first = (0, 1, 1, 2, 2), (1, 1, 0, 1, 0)
     kw5 = dict(kw, qblk=qblk, first=first)
     qo, co = cuda_grouped_pairs.phase_b_grouped(list(map(t, qf)), t(flat), *args, **kw5)
-    qo_r, co_r = k5_ref(tuple(map(jnp.asarray, qf)), jnp.asarray(flat), *args, **kw5,
-                        interpret=True)
+    qo_r, co_r = k5_ref(tuple(map(j, qf)), j(flat), *args, **kw5, interpret=True)
     _assert_close_of_scale(qo, qo_r, bar)
     _assert_close_of_scale(co, co_r, bar)
+
+
+@pytest.mark.parametrize("eos", ["polytropic", "isothermal"])
+def test_close_pairs_p3m_float32_near_float64(eos):
+    """Rows holding a partner 1e-4 from every query (z = r / (sqrt2 sigma)
+    ~ 1.4e-3, well inside the softening radius), under P3M: a pair there
+    takes softened - Newtonian plus Newtonian - mesh, whose 1/r^3 parts
+    cancel (ROADMAP F7). The float64 pair sums are the reference's
+    (Pallas kernel interpreted) within 1e-12 of each output's scale, and
+    the float32 ones, which take such a pair's two corrections in float64,
+    within chip_smoke's check_phase_b bar (2e-5 of the scale) of the
+    float64 ones (3.4e-7 when written); the reference's float32 sums, which
+    add the two corrections in float32, are 1.4e-2 of the scale off there."""
+    rng = np.random.default_rng(5)
+    qf, cf = _block_rows(rng, 2, TB.BQ, 1024, torch.float64, 900)
+    qh = np.full((2, TB.BQ), 0.06)
+    ch = np.full((2, 1024), 0.06)
+    for a in range(3):  # a partner 1e-4 from every query
+        cf[a][:, TB.BQ : 2 * TB.BQ] = qf[a] + (1e-4 if a == 0 else 0.0)
+    vq = [0.1 * rng.standard_normal((2, TB.BQ)) for _ in range(3)]
+    vc = [0.1 * rng.standard_normal((2, 1024)) for _ in range(3)]
+    ones_q, ones_c = np.ones((2, TB.BQ)), np.ones((2, 1024))
+    # rounded to float32 once: every evaluation below sees the same inputs
+    qfields = [a.astype(np.float32).astype(np.float64)
+               for a in (*qf[:3], *vq, qf[3], qh, ones_q, 0.3 * ones_q, ones_q)]
+    cfields = [a.astype(np.float32).astype(np.float64)
+               for a in (*cf[:3], *vc, cf[3], ch, ones_c, 0.3 * ones_c)]
+    args = (1e-5, 1.0, 2.0, 0.05, 0.22)
+    kw = dict(eos=eos, p3m=True, cap=TB.BQ)
+    q64, c64 = cuda_block_pairs.phase_b_blocks(list(map(t, qfields)), list(map(t, cfields)),
+                                               *args, **kw)
+    q_r, c_r = k6_ref(tuple(map(jnp.asarray, qfields)), tuple(map(jnp.asarray, cfields)), *args,
+                      **kw, interpret=True)
+    _assert_close_of_scale(q64, q_r, 1e-12)
+    _assert_close_of_scale(c64, c_r, 1e-12)
+    q32, c32 = cuda_block_pairs.phase_b_blocks(
+        [t(a).float() for a in qfields], [t(a).float() for a in cfields], *args, **kw)
+    for a, b in zip(q32 + c32, q64 + c64):
+        live = b > -torch.finfo(torch.float64).max
+        scale = float(b[live].abs().max())
+        err = (a.double() - b).abs()[live]
+        assert float(err.max()) <= 2e-5 * scale
 
 
 # ------------------------------------------------- (5b) K5's work units

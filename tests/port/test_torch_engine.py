@@ -205,17 +205,19 @@ def test_chunk_freezes_at_t_end_and_pads_scan_length(scene):
         (dict(tile=(6, 64), outlier_budget=64), "slice 4"),
         (dict(tile=(6, 64), gravity="p3m", outlier_budget=64), "slice 4"),
         (dict(blocks=((), (), (), 8)), "mlargs"),
-        (dict(mlevel=((), 0, 0, ())), "slice 4"),
+        (dict(mlevel=((), 0, 0, ())), "mlargs"),
     ],
 )
 def test_unported_engines_raise(kw, match):
     """Engines of later slices raise NotImplementedError naming the slice.
-    The block engine is ported: without its BlockArgs (mlargs) force_eval
-    raises ValueError, as the reference does."""
+    The block and multi-level engines are ported: without their BlockArgs
+    or MLArgs (mlargs) force_eval raises ValueError, as the reference
+    does."""
     cfg = EngineConfig(n=8, kh=4, eos="polytropic", dtype="float64", **kw)
     z = torch.zeros((8, 3), dtype=torch.float64)
     p = params_from_numpy(**PARAMS, dtype="float64", device="cpu")
-    exc = ValueError if cfg.blocks is not None else NotImplementedError
+    ported = cfg.blocks is not None or cfg.mlevel is not None
+    exc = ValueError if ported else NotImplementedError
     with pytest.raises(exc, match=match):
         force_eval(cfg, p, z, z, z[:, 0], z[:, 0], device="cpu")
 

@@ -284,10 +284,11 @@ def test_phase_a_only_in_radius_candidates_matter(dtype, rows):
     assert (ok.numpy()[valid] == 0).any() and (ok.numpy()[valid] == 1).any()
 
 
-@pytest.mark.parametrize("engine", ["class", "block", "mono"])
+@pytest.mark.parametrize("engine", ["class", "block", "mono", "mlevel"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_list_budget_fits_every_plannable_row(dtype, engine):
-    """At every (cap, cw) the class, block and mono-tile planners emit, the
+    """At every (cap, cw) the class, block, mono-tile and multi-level
+    planners emit (the last: every bucket capacity of CAP_MENU), the
     phase-A kernel's staged planes and lists (K1's; K4's on the mono rows)
     fit the H100's 227 KB with room for two CTAs an SM (228 KB), and L
     holds at least 4 kh at kh = 50."""
@@ -304,6 +305,10 @@ def test_list_budget_fits_every_plannable_row(dtype, engine):
     elif engine == "mono":  # multiples of 32 up to the mono planner's ceiling
         cap_max = inspect.signature(choose_tile_params).parameters["cap_max"].default
         shapes = [(cap, 27 * cap) for cap in range(32, cap_max + 1, 32)]
+    elif engine == "mlevel":
+        from sphtpu_torch.physics.mlevel import CAP_MENU
+
+        shapes = [(cap_b, 27 * cap_b) for cap_b in CAP_MENU]
     else:
         shapes = [(BQ, cw) for cw in C_MENU]
     for cap, cw in shapes:

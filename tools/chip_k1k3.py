@@ -7,7 +7,8 @@ compared in one run.
 
 `capture` builds the inputs of one force evaluation on each path and saves
 them to FILE: K1's 12 launches and K5's launch on the collapse path
-(bench_data/bb_collapsed.npz, contrast 395, block engine), K1's and K2's
+(bench_data/bb_collapsed.npz, contrast 395, block engine), K5's launch under
+P3M on bench_data/bb_collapsed_deep.npz (contrast 1001), K1's and K2's
 launches on the class path (boss_bodenheimer N = 100 000, Kh = 32: one
 each a class), K4's and K2's launch on the exact path (the same scene at
 Kh = 50, mono-tile engine) and on the P3M path (N = 200 000, mono-tile
@@ -87,8 +88,17 @@ def capture(path: str) -> None:
         ("phase_a_cells", "phase_b_grouped"), bargs)
     # the plan's work units stay out of the file: a parent tree's wrapper
     # does not take them, and `time` builds them for a tree that does
-    out["k5_collapse"] = [(a, {k: v for k, v in kw.items() if k != "units"})
-                          for a, kw in out["k5_collapse"]]
+    # K5 under P3M: the block engine on bb_collapsed_deep.npz (contrast
+    # 1001), h from a k = 50 KD-tree as the smoke's deep-state phase takes it
+    pos_d, h_d, st_d, p_d, h_dev = cs.deep_state()
+    plan = blocks.plan_blocks(pos_d, h_d, cs.KH_COLLAPSE, gravity="p3m")
+    cfg_d = cs.EngineConfig(n=pos_d.shape[0], kh=cs.KH_COLLAPSE, eos="polytropic",
+                            dtype="float32", blocks=plan[0], gravity="p3m")
+    res_d = {"state": st_d, "params": p_d, "h_last": h_dev}
+    calls = cs.capture_eval_inputs(res_d, cfg_d, blocks, ("phase_b_grouped",), mlargs=plan[1])
+    out["k5_deep_p3m"] = [(to_cpu(a), kw) for a, kw in calls["phase_b_grouped"]]
+    for key in ("k5_collapse", "k5_deep_p3m"):
+        out[key] = [(a, {k: v for k, v in kw.items() if k != "units"}) for a, kw in out[key]]
     with tempfile.TemporaryDirectory() as tmp:
         for n, kh, gravity, keys, module, names in (
                 (cs.N_MAIN, cs.KH_CLASS, "exact", ("k1_class", "k2_class"), ctiles,
@@ -211,6 +221,9 @@ def time_tree(tree: str, path: str, sweep: bool, kernels=("k1", "k2", "k3", "k4"
         k5 = with_units(load(("k5_collapse",))["k5_collapse"])
         out["k5_units"] = k5_units
         timed.append(("k5_collapse", cuda_grouped_pairs.phase_b_grouped, k5))
+        if "k5_deep_p3m" in data:
+            timed.append(("k5_deep_p3m", cuda_grouped_pairs.phase_b_grouped,
+                          with_units(load(("k5_deep_p3m",))["k5_deep_p3m"])))
     if "k3" in kernels:
         timed.append(("k3", cuda_gravity.newton_sweep, [((pos, m), {})]))
     for key, fn, calls in timed:
