@@ -32,7 +32,16 @@ just after:
     engine's with both split by stage, the P3M force error, a 2-step chunk
     with its certificate per evaluation; then four CLI steps with
     plan_blocks made to decline, so that the run loop's ladder plans the
-    multi-level engine.
+    multi-level engine;
+*   the outlier lane: bb_collapsed.npz on the mono-tile engine with its
+    outlier budget (choose_tile_params_ml: grid 27, cap 160, budget 65 536,
+    26 921 outlier rows; K4, K2 with its outlier masks, K3 or the tail) in
+    each gravity mode: the plan from the stored and the KD-tree h, one
+    evaluation against the block engine's with both split by stage, the P3M
+    force error, a 2-step chunk with its certificate per evaluation; then
+    four CLI steps with plan_blocks and plan_mlevel made to decline, so that
+    the run loop's ladder plans the outlier rung; then dense_forces and
+    knn_celllist, off the production path, once each on the card.
 
 Every phase prints one JSON line; any failure raises, so the process exits
 non-zero. There is no CPU continuation: with no CUDA device the script
@@ -41,6 +50,8 @@ fails before it prints a result.
 The line before the last two is `{"kernels": [...]}` with, per kernel, its
 launches on the path its times were taken on (K1, K2, K3: the class path;
 K1 also on the multi-level path's exact chunk, under "on_mlevel_path";
+K2 also on the outlier path's exact chunk, with its outlier masks, under
+"on_outlier_path", with the share of occupied pairs its cull keeps;
 K4 and the tail: the P3M path; K5: the collapse path; K6: the collapse
 path's per-bucket step) and on every path (`launches_by_path`), its
 error against the plain version and its time beside the plain version's
@@ -63,7 +74,9 @@ float32 are held against their plain version in float64; K2 (the
 four EOS x P3M variants in float32 and float64 on class rows, on mono rows
 at cap 160 and 256 with rows filled to cap, and on every path's inputs)
 must give two bit-identical launches and the same bits with its cull off
-(`keep_all`), and the tail (W = 1, 2 and 3 at cap 160 and W = 2 at cap
+(`keep_all`), and without P3M the same bits with its outlier masks on
+where no slot is marked an outlier (its outlier variant is held against
+its plain version on the synthetic rows and on the outlier path), and the tail (W = 1, 2 and 3 at cap 160 and W = 2 at cap
 256, float32 and float64, cells filled to cap, and the P3M path's inputs)
 two bit-identical launches. A time ("ms") is CUDA events around the
 wrapper, so a short launch's time holds the wrapper's host work
@@ -114,6 +127,7 @@ N_MAIN = 100_000  # particles of the exact paths' scenes
 KH_CLASS = 32  # neighbour count of the class path's scene (Kh = 50 plans cap 160)
 N_P3M = 200_000  # particles of the P3M path's scene (gravity="auto" picks P3M)
 N_SMALL = 5_000  # particles of the fallback phase's scenes
+N_DENSE = 4_000  # particles of the off-path phase's dense_forces run
 ROWS_F32, ROWS_F64 = 256, 64  # synthetic cell rows per class in the kernels phase
 N_NEWTON = {torch.float32: 100_000, torch.float64: 20_000}
 N_NEWTON_ONE_SLICE = 1_500  # small enough that K3's plan has one column slice
@@ -537,6 +551,32 @@ def k2_repeats(args, kw, outs_k):
     return {"runs_bit_identical": True, "keep_all_bit_identical": True}
 
 
+def k2_outlier_cases(args, kw, outs_k, sl):
+    """K2 with its outlier masks on synthetic rows: where no slot is marked
+    an outlier it gives the bits of the launch without them (`outs_k`);
+    with about a quarter of the occupied slots marked (mask 2; the query
+    slots are the candidates' centre-cell slots `sl`; drawn from a
+    generator of their own, so that the other cases keep their inputs)
+    within check_phase_b's bars of the plain version, two launches
+    bit-identical, the cull against keep-all bit-identical."""
+    rng = np.random.default_rng(9)
+    cm = args[1][6]
+    kw_o = dict(kw, outlier=True)
+    if not same_bits(outs_k, cuda_tile_pairs.phase_b_tiles(*args, **kw_o)):
+        raise AssertionError(f"phase_b_tiles {kw}: the outlier masks without outliers "
+                             "change the bits")
+    cm2 = cm + (dev(rng.random(tuple(cm.shape)), cm.dtype) < 0.25).to(cm.dtype) * (cm > 0)
+    args_o = (args[0][:6] + (cm2[:, sl].contiguous(),) + args[0][7:],
+              args[1][:6] + (cm2,) + args[1][7:], *args[2:])
+    out_o = cuda_tile_pairs.phase_b_tiles(*args_o, **kw_o)
+    sync()
+    worst, rtol, atol = check_phase_b(
+        out_o, cuda_tile_pairs.phase_b_tiles_plain(*args_o, **kw_o), cm.dtype)
+    return {"no_outlier_bit_identical": True, "outlier_slots": int((cm2 > 1).sum()),
+            "max_err_over_scale": worst, "rtol": rtol, "atol_of_scale": atol,
+            **k2_repeats(args_o, kw_o, out_o)}
+
+
 def kernels_k2_mono(rng, m):
     """K2 on mono-tile rows (cap 160, the paths' capacity, and 256, the mono
     planner's ceiling), all four (EOS, P3M) variants in both dtypes, the
@@ -566,6 +606,8 @@ def kernels_k2_mono(rng, m):
                     case[f"b_{eos[:4]}_{'p3m' if p3m else 'exact'}"] = {
                         "max_err_over_scale": worst, "rtol": rtol, "atol_of_scale": atol,
                         **k2_repeats(args, kw, outs_k)}
+                    if not p3m:
+                        case[f"b_{eos[:4]}_exact_outlier"] = k2_outlier_cases(args, kw, outs_k, sl)
             cases.append(case)
             del t, cfields, qfields
             torch.cuda.empty_cache()
@@ -1037,10 +1079,12 @@ def capture_eval_inputs(res, cfg, module, names, mlargs=None, grouped=True, out=
     return calls
 
 
-def pairs_in_a_mask(qfields, cfields, chunk_elems: int = 1 << 27) -> int:
+def pairs_in_a_mask(qfields, cfields, chunk_elems: int = 1 << 27, margin: float = 1.0) -> int:
     """Occupied (query, candidate) pairs of phase B's inputs that lie inside
     the forward, the reverse or the gravity-correction mask: d2 <=
-    (2 max(h_q, h_c))^2, which contains all three."""
+    (2 max(h_q, h_c))^2, which contains all three (with the outlier masks
+    too, which only shrink the first two). margin = CULL_MARGIN counts the
+    pairs K2's cull keeps instead."""
     qx, qy, qz, qm, qh = (qfields[k] for k in (0, 1, 2, 6, 7))
     cx, cy, cz, cm, ch = (cfields[k] for k in (0, 1, 2, 6, 7))
     n_rows, cap = qx.shape
@@ -1054,7 +1098,7 @@ def pairs_in_a_mask(qfields, cfields, chunk_elems: int = 1 << 27) -> int:
             + (qz[sl, :, None] - cz[sl, None, :]) ** 2
         )
         reach = 2 * torch.maximum(qh[sl, :, None], ch[sl, None, :])
-        inside = (d2 <= reach * reach) & (qm[sl, :, None] > 0) & (cm[sl, None, :] > 0)
+        inside = (d2 <= reach * reach * margin) & (qm[sl, :, None] > 0) & (cm[sl, None, :] > 0)
         total += int(inside.sum())
     return total
 
@@ -1165,34 +1209,48 @@ def phase_a_ops(queries, reach2, cands, kh: int, n_bisect: int):
     return ops, pairs, inside
 
 
-def k2_entry(calls, counts, dtype):
+def k2_entry(calls, counts, dtype, plain_row_chunk: int = 0):
     """K2 against its plain version over the captured launches of one
-    evaluation."""
+    evaluation (with the outlier masks where the launches had them; the
+    plain version in row chunks of plain_row_chunk rows where given). On a
+    launch without P3M and without the outlier masks, a launch with them
+    (no slot is marked an outlier there) must give the same bits."""
     ms = plain_ms = flops = byts = 0.0
-    err = rel = err_scale = pairs_all = pairs_masked = 0.0
+    err = rel = err_scale = pairs_all = pairs_masked = pairs_kept = 0.0
     err_field = None
+    no_outlier = {}
     for args, kw in calls:
         qfields, cfields = args[0], args[1]
         out_k = cuda_tile_pairs.phase_b_tiles(*args, **kw)
-        out_p = cuda_tile_pairs.phase_b_tiles_plain(*args, **kw)
+        out_p = cuda_tile_pairs.phase_b_tiles_plain(*args, **kw, row_chunk=plain_row_chunk)
         repeats = k2_repeats(args, kw, out_k)
+        if not kw["p3m"] and not kw.get("outlier"):
+            if not same_bits(out_k, cuda_tile_pairs.phase_b_tiles(*args, **dict(kw, outlier=True))):
+                raise AssertionError("phase_b_tiles: the outlier masks without outliers "
+                                     "change the bits")
+            no_outlier = {"no_outlier_bit_identical": True}
         for name, a, b in zip(B_OUTPUTS, out_k, out_p):
             e = float((a - b).abs().max())
             if e > err:
                 err, err_field, err_scale = e, name, float(b.abs().max())
         rel = max(rel, check_phase_b(out_k, out_p, dtype)[0])
+        del out_k, out_p
         ms += time_ms(lambda: cuda_tile_pairs.phase_b_tiles(*args, **kw))
         plain_ms += time_ms(
-            lambda: cuda_tile_pairs.phase_b_tiles_plain(*args, **kw), iters=1, warmup=0
+            lambda: cuda_tile_pairs.phase_b_tiles_plain(*args, **kw, row_chunk=plain_row_chunk),
+            iters=1, warmup=0,
         )
         pairs = float(((qfields[6] > 0).sum(1) * (cfields[6] > 0).sum(1)).sum())
         in_mask = pairs if kw["p3m"] else float(pairs_in_a_mask(qfields, cfields))
         pairs_all += pairs
         pairs_masked += in_mask
+        pairs_kept += pairs if kw["p3m"] else float(
+            pairs_in_a_mask(qfields, cfields, margin=cuda_tile_pairs.CULL_MARGIN))
         flops += pairs * K2_OPS_MASK_TEST + in_mask * (K2_OPS_PER_PAIR - K2_OPS_MASK_TEST)
-        # the mask plane (index 6) of each side whole, the other ten fields
-        # at occupied slots only
-        byts += slot_bytes(qfields[6], 10) + slot_bytes(cfields[6], 10) + nbytes(*out_k)
+        # the mask plane (index 6, which marks the outliers) of each side
+        # whole, the other ten fields at occupied slots only
+        byts += (slot_bytes(qfields[6], 10) + slot_bytes(cfields[6], 10)
+                 + 10 * qfields[0].numel() * qfields[0].element_size())
     # the absolute error is in code units of whichever output is largest;
     # the check itself is relative to each output's scale
     cap, cw = calls[0][1]["cap"], calls[0][0][1][0].shape[1]
@@ -1200,8 +1258,11 @@ def k2_entry(calls, counts, dtype):
                         PEAK_FLOPS[dtype], max_abs_err_output=err_field,
                         largest_value_of_it=err_scale, max_err_over_scale=rel,
                         occupied_pairs=pairs_all, pairs_in_a_mask=pairs_masked,
+                        kept_pair_share=pairs_kept / max(pairs_all, 1.0),
                         piece=cuda_tile_pairs.k2_budget(
-                            cap, cw, dtype, build.device_limits(DEVICE)[1]), **repeats)
+                            cap, cw, dtype, build.device_limits(DEVICE)[1],
+                            outlier=calls[0][1].get("outlier", False)), **repeats,
+                        **no_outlier)
 
 
 # --------------------------------------------------------------------------
@@ -1315,8 +1376,9 @@ def phase_mono_kernel_times(res, cfg, counts):
     k2 = k2_entry(calls["phase_b_tiles"], counts, dtype)
     k2_here = {k: k2[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "max_err_over_scale", "occupied_pairs",
-                                  "pairs_in_a_mask", "runs_bit_identical",
-                                  "keep_all_bit_identical")}
+                                  "pairs_in_a_mask", "kept_pair_share", "runs_bit_identical",
+                                  "keep_all_bit_identical", "no_outlier_bit_identical")
+              if k in k2}
     return k4, k2_here, tail
 
 
@@ -2025,6 +2087,327 @@ def phase_mlevel_ladder(tmp: str, gpu_line: str):
     return counts
 
 
+# --------------------------------------------------------------------------
+# the outlier lane (the mono-tile engine with an outlier budget) on the
+# contrast-395 state
+# --------------------------------------------------------------------------
+
+K2_PLAIN_ROW_CHUNK = 64  # rows a piece of K2's plain version on the outlier path
+K2_F64_ROWS = 2048  # rows of the outlier path's K2 inputs held in float64
+OUTLIER_PLAN = (27, 160, 65536)  # (grid, cap, budget) the driver plans on bb_collapsed.npz
+
+
+def collapse_state(path: str):
+    """A committed collapse state on the card (float32) with h from a k = 50
+    KD-tree (the run loop's bootstrap): (pos, stored h, KD-tree h as float64
+    host arrays, state, params, KD-tree h on the card)."""
+    from scipy.spatial import cKDTree
+
+    from sphtpu_torch.engine import params_from_numpy
+
+    d = np.load(path)
+    pos_h = d["pos"].astype(np.float64)
+    h_h = cKDTree(pos_h).query(pos_h, k=KH_COLLAPSE)[0][:, -1] / 2.0
+    st = state_from_numpy(pos_h, d["vel"], d["K"], float(d["t"]), device=DEVICE)
+    p = params_from_numpy(m=float(d["m"]), gamma=5 / 3, cs0=0.0, alpha=1.0, beta=2.0, U0=0.0,
+                          t_end=1e30, device=DEVICE)
+    return pos_h, d["h"].astype(np.float64), h_h, st, p, dev(h_h, torch.float32)
+
+
+def outlier_plan(pos_h, h_h):
+    """choose_tile_params_ml with the driver's arguments, and the outlier
+    rows it routes: (grid, cap, budget, n_out)."""
+    grid, cap, budget = tiles.choose_tile_params_ml(pos_h, h_h, KH_COLLAPSE, headroom=1.5,
+                                                    budget_margin=2.0)
+    half = float(np.abs(pos_h).max()) * (1 + 1e-6)
+    n_out = int(np.sum(h_h * tiles.OUTLIER_CUT > 2.0 * half / grid))
+    return grid, cap, budget, n_out
+
+
+def outlier_eval(cfg, st, p, h, ghat, clock=None):
+    """One evaluation of the mono-tile engine with its outlier lane, and its
+    far field: (reduced forces, g, phi, ok); with a clock, each of the
+    engine's profiling stages timed by it."""
+    with contextlib.ExitStack() as es:
+        if clock is not None:
+            es.enter_context(patched(tiles, "stage", lambda orig: clock))
+        red, gcorr, ok = tiles.tile_sph_forces(
+            st.pos, st.vel, p.m, st.K, h, eos=cfg.eos, gamma=p.gamma, cs0=p.cs0,
+            alpha=p.alpha, beta=p.beta, kh=cfg.kh, grid=cfg.tile[0], cap=cfg.tile[1],
+            mesh_factor=cfg.mesh_factor if cfg.gravity == "p3m" else 0,
+            sigma_cells=cfg.sigma_cells, outlier_budget=cfg.outlier_budget, device=DEVICE,
+        )
+    with clock("gravity") if clock else contextlib.nullcontext():
+        gfar, phifar = far_field(cfg, st, p, ghat)
+    return red, gfar + torch.stack(gcorr[:3], 1), phifar + gcorr[3], bool(ok)
+
+
+def k2_outlier_f64(args, kw, rows: int = K2_F64_ROWS):
+    """K2 with the outlier masks in float64 against its plain version, on
+    the `rows` cell rows of the launch's inputs holding the most outlier
+    candidates (mask 2; two launches bit-identical)."""
+    pick = torch.argsort((args[1][6] > 1).sum(1), descending=True, stable=True)[:rows]
+    sub = lambda fields: tuple(f[pick].double().contiguous() for f in fields)  # noqa: E731
+    a64 = (sub(args[0]), sub(args[1]), *args[2:])
+    out_k = cuda_tile_pairs.phase_b_tiles(*a64, **kw)
+    out_p = cuda_tile_pairs.phase_b_tiles_plain(*a64, **kw, row_chunk=16)
+    worst, rtol, atol = check_phase_b(out_k, out_p, torch.float64)
+    again = cuda_tile_pairs.phase_b_tiles(*a64, **kw)
+    if not same_bits(out_k, again):
+        raise AssertionError("phase_b_tiles with outlier masks: two float64 launches differ")
+    return {"rows": int(pick.numel()), "outlier_candidates": int((a64[1][6] > 1).sum()),
+            "max_err_over_scale": worst, "rtol": rtol, "atol_of_scale": atol,
+            "runs_bit_identical": True}
+
+
+def phase_outlier(gpu_line):
+    """The outlier lane on bb_collapsed.npz (N = 100 000, contrast 395,
+    Kh = 50, polytropic, float32), in both gravity modes: the plan of
+    choose_tile_params_ml (driver arguments) from the stored h and from the
+    k = 50 KD-tree h; one evaluation, which must certify, held against the
+    block engine's on the same state (h within 1e-5 relative on every row;
+    the hydro acceleration within 2e-5 of its scale, and under exact gravity
+    g and phi too) with both split by stage; under P3M the force error
+    against the exact evaluation (< 2e-3 of the RMS |g|); then a 2-step
+    chunk from the state with the launch counts set to 0 just before and
+    read just after, its certificate per evaluation and its energy drift.
+    K2 with the outlier masks is held against its plain version on the exact
+    evaluation's launch (float32 whole, float64 on K2_F64_ROWS rows).
+    Returns (K2's numbers on this path, launch counts by chunk)."""
+    from sphtpu_torch.engine import step as step_mod
+
+    pos_h, h_stored, h_h, st, p, h = collapse_state(COLLAPSE)
+    n = pos_h.shape[0]
+    plans = {"stored_h": outlier_plan(pos_h, h_stored), "kdtree_h": outlier_plan(pos_h, h_h)}
+    say("outlier_plan", card=gpu_line, scene=f"bb_collapsed.npz (contrast 395) N={n} "
+        f"Kh={KH_COLLAPSE}", **{k: dict(zip(("grid", "cap", "budget", "n_out"), v))
+                                for k, v in plans.items()})
+    grid, cap, budget, n_out = plans["kdtree_h"]
+    report, counts_by, g_out, k2 = {}, {}, {}, None
+    for grav in ("exact", "p3m"):
+        cfg = EngineConfig(n=n, kh=KH_COLLAPSE, eos="polytropic", dtype="float32",
+                           tile=(grid, cap), outlier_budget=budget, gravity=grav)
+        ghat = (greens_hat(cfg.mesh_pad, cfg.sigma_cells, torch.float32, DEVICE)
+                if grav == "p3m" else None)
+        calls = []
+
+        def record(orig):
+            def rec(*a, **kw):
+                calls.append((a, kw))
+                return orig(*a, **kw)
+            return rec
+
+        with patched(tiles, "phase_b_tiles", record):
+            outlier_eval(cfg, st, p, h, ghat)  # warm-up, records K2's launch
+        (red, g, phi, ok), out_s = timed_eval(
+            lambda clock: outlier_eval(cfg, st, p, h, ghat, clock))
+        g_out[grav] = g.double()
+
+        bplan = blocks.plan_blocks(pos_h, h_h, KH_COLLAPSE, gravity=grav)
+        bcfg = EngineConfig(n=n, kh=KH_COLLAPSE, eos="polytropic", dtype="float32",
+                            blocks=bplan[0], gravity=grav)
+        bargs = blocks.block_args_to_device(bplan[1], torch.float32, DEVICE)
+        tables = blocks.build_cand_tables(bargs, bplan[0], n)
+        ghat_b = (greens_hat(bcfg.mesh_pad, bcfg.sigma_cells, torch.float32, DEVICE)
+                  if grav == "p3m" else None)
+        block_eval(bcfg, st, p, h, bargs, tables, ghat_b)
+        (red_b, g_b, phi_b, ok_b), blk_s = timed_eval(
+            lambda clock: block_eval(bcfg, st, p, h, bargs, tables, ghat_b, clock))
+
+        h_rel = float(((red.h - red_b.h).abs() / red_b.h).max())
+        pairs = [("acc_x", red.acc[:, 0], red_b.acc[:, 0]), ("acc_y", red.acc[:, 1], red_b.acc[:, 1]),
+                 ("acc_z", red.acc[:, 2], red_b.acc[:, 2])]
+        if grav == "exact":
+            pairs += [("g_x", g[:, 0], g_b[:, 0]), ("g_y", g[:, 1], g_b[:, 1]),
+                      ("g_z", g[:, 2], g_b[:, 2]), ("phi", phi, phi_b)]
+        vs_blocks = {name: float((a - b).abs().max()) / float(b.abs().max())
+                     for name, a, b in pairs}
+
+        if grav == "exact":
+            (a2, kw2), = calls
+            k2 = k2_entry(calls, {"phase_b_tiles": 0}, torch.float32,
+                          plain_row_chunk=K2_PLAIN_ROW_CHUNK)
+            k2["float64"] = k2_outlier_f64(a2, kw2)
+            k2["outlier_queries"] = int((a2[0][6] > 1).sum())
+            del a2, kw2
+        del calls
+
+        # the 2-step chunk, every evaluation's certificate recorded
+        oks = []
+
+        def keep_ok(orig):
+            def rec(*a, **kw):
+                out = orig(*a, **kw)
+                oks.append(bool(out[2]))
+                return out
+            return rec
+
+        with patched(step_mod, "tile_sph_forces", keep_ok):
+            reset_counts()
+            t0 = time.time()
+            out = make_chunk_runner(cfg, device=DEVICE)(st, p, h, 2)
+            sync()
+            chunk_s = time.time() - t0
+        counts = {name: mod.launches for name, mod in MODULES.items()}
+        counts_by[f"outlier_{grav}_chunk"] = counts
+        e = out[1][:, 4].double().cpu().numpy()
+        drift = float(np.abs(e - e[0]).max() / abs(e[0]))
+        want = {name: 0 for name in MODULES}
+        want.update(phase_a_tile=4, phase_b_tiles=4,
+                    **({"newton_sweep": 4} if grav == "exact" else {"p3m_tail": 4}))
+        checks = {
+            "plans OUTLIER_PLAN": plans["kdtree_h"][:3] == OUTLIER_PLAN,
+            "certified": ok, "block engine certifies": ok_b,
+            "h within 1e-5 of the block engine's": h_rel <= 1e-5,
+            "within 2e-5 of the block engine's scale": max(vs_blocks.values()) <= 2e-5,
+            "chunk certified every evaluation": oks == [True] * 4,
+            "chunk valid": bool(out[2].all()), "|dE/E| < 1e-2": drift < 1e-2,
+            "kernel launches": counts == want,
+        }
+        report[grav] = {
+            "certified": ok, "h_max_rel_err_vs_blocks": h_rel,
+            "vs_blocks_err_over_scale": vs_blocks, "eval_s_by_stage": out_s,
+            "block_eval_s_by_stage": blk_s,
+            "chunk": {"steps": 2, "certificate_by_eval": oks, "fallbacks": int(out[5].sum()),
+                      "energy_drift": drift, "wall_s": chunk_s, "launches": counts},
+            "failed": [k for k, v in checks.items() if not v],
+        }
+        del red, red_b, g, g_b, out, bargs, tables
+        torch.cuda.empty_cache()
+
+    def rms(v):
+        return float(torch.sqrt(torch.mean(torch.sum(v * v, dim=1))))
+
+    err = rms(g_out["p3m"] - g_out["exact"]) / rms(g_out["exact"])
+    if not err < 2e-3:
+        report["p3m"]["failed"].append("P3M force error < 2e-3")
+    report["p3m"]["g_err_rms_over_rms_g"] = err
+    failed = report["exact"]["failed"] + report["p3m"]["failed"]
+    say("outlier", card=gpu_line, scene=f"bb_collapsed.npz (contrast 395) N={n} Kh=50 "
+        "polytropic float32", plan={"grid": grid, "cap": cap, "budget": budget, "n_out": n_out},
+        **report, failed=failed)
+    if failed:
+        raise AssertionError(f"outlier checks failed: {failed}")
+    k2["launches"] = counts_by["outlier_exact_chunk"]["phase_b_tiles"]
+    k2["launches_path"] = "outlier_exact_chunk"
+    return {k: v for k, v in k2.items() if k not in ("name", "route", "source", "replaces")}, \
+        counts_by
+
+
+def phase_outlier_ladder(tmp: str, gpu_line: str):
+    """bb_collapsed.npz written as a snapshot and run four steps through
+    the CLI with plan_blocks and plan_mlevel made to decline: the run loop's
+    ladder then plans the outlier rung (exact gravity at this N) for every
+    chunk: K4, K2 and K3 once an evaluation, counts set to 0 just before the
+    run and read just after."""
+    from sphtpu_torch.engine import driver
+
+    root = os.path.join(tmp, "outlier_ladder")
+    write_collapse_snapshot(root, COLLAPSE)
+    decline = lambda orig: (lambda *a, **kw: None)  # noqa: E731
+    with patched(driver, "plan_blocks", decline), patched(driver, "plan_mlevel", decline):
+        res, counts, checks, drift = drive_cli(root, N_MAIN, generate=False)
+    n_fb = res["fallback_evals"]
+    checks.pop("0 fallback evals")
+    want = {name: 0 for name in MODULES}
+    want.update(phase_a_tile=8, phase_b_tiles=8, newton_sweep=8 - n_fb)
+    checks.update({
+        "every chunk on the outlier rung": set(res["chunk_engines"]) == {"outliers"},
+        "exact gravity": all(c.gravity == "exact" for c in res["chunk_configs"]),
+        "kernel launches": counts == want,
+    })
+    failed = [k for k, v in checks.items() if not v]
+    say("outlier_ladder", card=gpu_line, plan_blocks="made to decline",
+        plan_mlevel="made to decline",
+        scene=f"bb_collapsed.npz (contrast 395) polytropic N={N_MAIN} Kh={KH_COLLAPSE} float32",
+        chunk_engines=res["chunk_engines"], steps=res["steps"], fallback_evals=n_fb,
+        launches=counts, energy_drift=drift,
+        plans=[[*c.tile, c.outlier_budget] for c in res["chunk_configs"]],
+        **walls_summary(res, N_MAIN), failed=failed)
+    if failed:
+        raise AssertionError(f"outlier ladder checks failed: {failed}")
+    return counts
+
+
+def phase_offpath(gpu_line):
+    """The modules off the production path, on the card: dense_forces at
+    N = N_DENSE (float32 against its float64 run, finite, momentum with the
+    viscosity off) and knn_celllist on the headline scene (boss_bodenheimer
+    N = 100 000, Kh = 50) against the port's knn: equal neighbour sets but
+    for rows whose Kh-th distance ties, on the rows its two candidate passes
+    certify (held before the call's all-or-nothing fallback, so that the
+    Morton, searchsorted and topk path itself is checked) and on what the
+    call returns (its certificate, or its fallback to the blocked sweep)."""
+    from scipy.spatial import cKDTree
+
+    from sphtpu_torch.neighbors import knn, knn_celllist
+    from sphtpu_torch.neighbors.celllist import _celllist_rows
+    from sphtpu_torch.physics.dense import dense_forces
+    from sphtpu_torch.scenes.generators import boss_bodenheimer
+
+    rng = np.random.default_rng(0)
+    n_d = N_DENSE
+    pos = rng.standard_normal((n_d, 3))
+    vel = 0.2 * rng.standard_normal((n_d, 3))
+    kw = dict(eos="polytropic", gamma=5 / 3, cs0=0.0, alpha=0.0, beta=0.0, kh=50, G=1.0)
+    t0 = time.time()
+    d32, phi32 = dense_forces(dev(pos, torch.float32), dev(vel, torch.float32), 1.0 / n_d,
+                              torch.ones(n_d, device=DEVICE), **kw)
+    sync()
+    dense_s = time.time() - t0
+    d64, _ = dense_forces(dev(pos, torch.float64), dev(vel, torch.float64), 1.0 / n_d,
+                          torch.ones(n_d, device=DEVICE, dtype=torch.float64), **kw)
+    acc_err = float((d32.acc.double() - d64.acc).abs().max() / d64.acc.abs().max())
+    mom = float(d64.acc.sum(0).abs().max() / d64.acc.abs().max())
+    del d32, d64, phi32
+    torch.cuda.empty_cache()
+
+    pos_h, _, _ = boss_bodenheimer(N_MAIN, 1.0, 1.0, rng=np.random.default_rng(1))
+    h_h = cKDTree(pos_h).query(pos_h, k=50)[0][:, -1] / 2.0
+    pos_c = dev(pos_h, torch.float32)
+    sync()
+    t0 = time.time()
+    idx, info = knn_celllist(pos_c, 50, dev(h_h, torch.float32))
+    sync()
+    cl_s = time.time() - t0
+    idx_k, d2_k = knn(pos_c, pos_c, 50)
+
+    def differ(ix):
+        """Rows whose neighbour set differs from knn's, and those of them
+        whose Kh-th distance ties another candidate's."""
+        other = (torch.sort(ix, 1).values != torch.sort(idx_k, 1).values).any(1)
+        d2_c = ((pos_c[:, None, :] - pos_c[ix]) ** 2).sum(-1)
+        return other, other & (d2_c.max(1).values == d2_k[:, -1])
+
+    idx_f, row_cert, _, _ = _celllist_rows(pos_c, 50, dev(h_h, torch.float32), cap=128,
+                                           cap_residual=512, g0_log2_max=9, safety=1.05,
+                                           row_block=8192)
+    other_f, ties_f = differ(idx_f)
+    other, ties = differ(idx)
+    rows_cert = int(row_cert.sum())
+    cert_differ = int((other_f & row_cert).sum())
+    rows_differ = int(other.sum())
+    checks = {"dense finite": acc_err == acc_err, "dense float32 within 1e-4 of float64":
+              acc_err < 1e-4, "dense momentum < 1e-10": mom < 1e-10,
+              "celllist passes certify 99 % of the rows": rows_cert >= 0.99 * N_MAIN,
+              "celllist certified rows differ only at ties":
+              cert_differ == int((ties_f & row_cert).sum()),
+              "celllist returned rows differ only at ties": rows_differ == int(ties.sum())}
+    failed = [k for k, v in checks.items() if not v]
+    say("offpath", card=gpu_line, dense={"n": n_d, "s": dense_s, "acc_f32_vs_f64": acc_err,
+                                         "momentum_over_acc_scale": mom},
+        celllist={"scene": f"boss_bodenheimer N={N_MAIN} Kh=50 float32", "s": cl_s,
+                  "certified": bool(info.certified), "n_residual": int(info.n_residual),
+                  "rows_certified_by_the_passes": rows_cert,
+                  "certified_rows_differ_from_knn": cert_differ,
+                  "certified_rows_at_ties": int((ties_f & row_cert).sum()),
+                  "returned_rows_differ_from_knn": rows_differ,
+                  "returned_rows_at_ties": int(ties.sum())},
+        failed=failed)
+    if failed:
+        raise AssertionError(f"off-path checks failed: {failed}")
+
+
 def kernel_entry(name, counts, err, ms, plain_ms, flops, byts, peak, **extra):
     source, replaces = KERNEL_INFO[name]
     return {
@@ -2163,10 +2546,16 @@ def main() -> int:
         k1_ml, counts_ml = phase_mlevel(gpu_line)
         by_path.update(counts_ml)
         by_path["mlevel_ladder"] = phase_mlevel_ladder(tmp, gpu_line)
+        torch.cuda.empty_cache()
+        k2_out, counts_out = phase_outlier(gpu_line)
+        by_path.update(counts_out)
+        by_path["outlier_ladder"] = phase_outlier_ladder(tmp, gpu_line)
+        phase_offpath(gpu_line)
     entries[0]["on_collapse_path"] = k1_blk
     entries[0]["on_mlevel_path"] = k1_ml
     entries[1]["on_exact_path"] = k2_exact
     entries[1]["on_p3m_path"] = k2_p3m
+    entries[1]["on_outlier_path"] = k2_out
     entries[2]["on_exact_path"] = {k: k3_exact[k] for k in (
         "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "runs_bit_identical", "plan")}
@@ -2178,7 +2567,8 @@ def main() -> int:
     entries += [k4, tail, k5, k6]
     for e in entries:
         e["launches_by_path"] = {path: c[e["name"]] for path, c in by_path.items()}
-    side = (k2_exact, k2_p3m, k4["on_exact_path"], k1_blk, entries[2]["on_exact_path"], k1_ml)
+    side = (k2_exact, k2_p3m, k4["on_exact_path"], k1_blk, entries[2]["on_exact_path"], k1_ml,
+            k2_out)
     if any(e["launches"] <= 0 for e in entries + list(side)):
         raise AssertionError("a kernel of a main path was never launched")
     print(json.dumps({"kernels": entries}), flush=True)

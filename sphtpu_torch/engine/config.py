@@ -43,8 +43,9 @@ class EngineConfig:
     # carried from the reference config for round-tripping; the port
     # dispatches kernels on the tensor's device, not on this flag
     pallas_a: bool = None
-    # outlier-lane row budget (not ported yet: the mono-tile engine raises
-    # for a non-zero budget). 0 = mono-level.
+    # outlier-lane row budget of the mono-tile engine (physics/outliers.py):
+    # at most this many large-h rows take the exact O(B*N) lane. 0 =
+    # mono-level.
     outlier_budget: int = 0
     # occupancy-class query compaction for the tile path
     # (physics/ctiles.py): ((cap_k, n_cells_k), ...) plan-time class list

@@ -32,7 +32,7 @@ from ..io import StatsFile, read_snapshot, snapshot_path, write_snapshot
 from ..physics.blocks import BQ, block_args_for_spec, plan_blocks
 from ..physics.ctiles import choose_tile_classes, ctile_classes_still_ok
 from ..physics.mlevel import mlevel_args_still_ok, plan_mlevel
-from ..physics.tiles import choose_tile_params, tile_params_still_ok
+from ..physics.tiles import choose_tile_params, choose_tile_params_ml, tile_params_still_ok
 from ..profiling import StageTimer
 from ..units import UnitSystem
 from .config import EngineConfig, params_from_numpy, state_from_numpy
@@ -46,10 +46,6 @@ PLOT_N = {"polytropic": 10000, "isothermal": 1000}
 # threshold, kept as it is.
 P3M_MIN_N = 150_000
 
-# planner rungs of the reference package that the port does not have yet;
-# states they would serve run on the gather engine
-RUNGS_NOT_PORTED = ("outlier-lane tiles",)
-
 # Block-compact and multi-level chunks are this many steps long: the
 # plans' boxes and strip lists carry drift margins for ML_SUBCHUNK steps,
 # and refreshing them between short chunks (`block_args_for_spec`,
@@ -59,15 +55,18 @@ ML_SUBCHUNK = 2
 
 def plan_engine(pos_host, h_host, *, n: int, kh: int, eos: str, dtype: str,
                 gravity: str):
-    """A fresh plan for the next chunk, the reference's ladder over the
-    ported rungs (code-unit host arrays; gravity "exact" or "p3m"):
+    """A fresh plan for the next chunk, the reference's ladder
+    (code-unit host arrays; gravity "exact" or "p3m"):
 
     1. exact gravity only: the class-compacted tile engine, when its
        planner fits the state (1.5x occupancy headroom, cap <= 128);
     2. the mono-tile engine (cap <= 256), under either gravity;
     3. the block-compact engine (`plan_blocks`), under either gravity;
     4. the multi-level engine (`plan_mlevel`), under either gravity;
-    5. None: no ported rung can plan; the caller runs the gather engine.
+    5. the mono-tile engine with its outlier lane
+       (`choose_tile_params_ml`: a grid for the bulk, the large-h rows in an
+       exact O(B*N) lane), under either gravity;
+    then None: no rung can plan; the caller runs the gather engine.
 
     Returns (EngineConfig, BlockArgs or MLArgs or None) or None. p3m skips
     the class engine: it needs a one-cell tail stencil, which the default
@@ -97,19 +96,65 @@ def plan_engine(pos_host, h_host, *, n: int, kh: int, eos: str, dtype: str,
         return EngineConfig(
             n=n, kh=kh, eos=eos, dtype=dtype, mlevel=spec, gravity=gravity
         ), mlargs
+    tp = choose_tile_params_ml(pos_host, h_host, kh, headroom=1.5, budget_margin=2.0)
+    if tp is not None:
+        grid, cap, budget = tp
+        return EngineConfig(
+            n=n, kh=kh, eos=eos, dtype=dtype, tile=(grid, cap),
+            outlier_budget=budget, gravity=gravity,
+        ), None
     return None
 
 
+def cfg_cost(c: EngineConfig, n: int) -> float:
+    """The reference's slot-work model of a config at N = n particles:
+    run_simulation's hysteresis keeps the cheapest of the cached configs
+    whose forecast still certifies."""
+    if c.tile is not None:
+        if c.tile_classes is not None:
+            # class-compacted query rows: only occupied-class slots
+            # sweep pair tiles
+            return sum(
+                nk * float(ck) for ck, nk in c.tile_classes
+            ) * 27.0 * float(c.tile[1])
+        # mono tile: every cell's full capacity sweeps pair tiles; the
+        # outlier lane's O(B*N) sweeps
+        return (
+            c.tile[0] ** 3 * float(c.tile[1]) ** 2 * 27.0
+            + n * float(c.outlier_budget)
+        )
+    if c.blocks is not None:
+        # pair slots x the reference's per-slot factor, which puts the
+        # block engine on the strip engines' scale
+        return 13.0 * sum(cb * nb * BQ for cb, nb in c.blocks[0])
+    if c.mlevel is not None:
+        levels, res_budget, _, c_buckets = c.mlevel
+        cost = sum(
+            (na_b + nb_b) * g * cb * 27.0 * cb
+            for g, cap, buckets in levels
+            for cb, na_b, nb_b in buckets
+        )
+        c_depth = 2 * c.c_halfwidth + 1
+        cost += sum(
+            nc_b * levels[0][0] * cb * float(c_depth) ** 3 * cb
+            for cb, nc_b in c_buckets
+        )
+        return cost + n * float(res_budget) * 2.0
+    return float("inf")
+
+
 def engine_name(cfg: EngineConfig) -> str:
-    """"classes", "mono", "blocks", "mlevel" or "gather": the engine a
-    config runs (a chunk whose certificate failed ran the gather engine
-    too)."""
+    """"classes", "mono", "outliers" (the mono-tile engine with its
+    outlier lane), "blocks", "mlevel" or "gather": the engine a config runs
+    (a chunk whose certificate failed ran the gather engine too)."""
     if cfg.blocks is not None:
         return "blocks"
     if cfg.mlevel is not None:
         return "mlevel"
     if cfg.tile is not None:
-        return "classes" if cfg.tile_classes is not None else "mono"
+        if cfg.tile_classes is not None:
+            return "classes"
+        return "outliers" if cfg.outlier_budget else "mono"
     return "gather"
 
 
@@ -155,8 +200,9 @@ def run_simulation(
     engine: "auto" uses a certified fast path with fallback, re-planned per
     chunk from the evolving h (`plan_engine`): the class-compacted engine
     (exact gravity only), else the mono-tile engine, else the
-    block-compact engine, else the multi-level engine; "gather" forces the
-    neighbor-list engine.
+    block-compact engine, else the multi-level engine, else the mono-tile
+    engine with its outlier lane; "gather" forces the neighbor-list
+    engine.
     gravity: "exact" runs the exact Newtonian sweep + near-field
     correction on the tile path; "p3m" the FFT mesh + the tiles' tail
     correction; "auto" is p3m at N >= P3M_MIN_N, else exact. The gather
@@ -221,37 +267,6 @@ def run_simulation(
             _runner_cache[cfg] = make_chunk_runner(cfg, device=dev)
         return _runner_cache[cfg]
 
-    def _cfg_cost(c: EngineConfig) -> float:
-        if c.tile is not None:
-            if c.tile_classes is not None:
-                # class-compacted query rows: only occupied-class slots
-                # sweep pair tiles
-                return sum(
-                    nk * float(ck) for ck, nk in c.tile_classes
-                ) * 27.0 * float(c.tile[1])
-            # mono tile: every cell's full capacity sweeps pair tiles
-            return c.tile[0] ** 3 * float(c.tile[1]) ** 2 * 27.0
-        if c.blocks is not None:
-            # pair slots x the reference's per-slot factor, which puts the
-            # block engine on the strip engines' scale
-            return 13.0 * sum(cb * nb * BQ for cb, nb in c.blocks[0])
-        if c.mlevel is not None:
-            levels, res_budget, _, c_buckets = c.mlevel
-            cost = sum(
-                (na_b + nb_b) * g * cb * 27.0 * cb
-                for g, cap, buckets in levels
-                for cb, na_b, nb_b in buckets
-            )
-            c_depth = 2 * c.c_halfwidth + 1
-            cost += sum(
-                nc_b * levels[0][0] * cb * float(c_depth) ** 3 * cb
-                for cb, nc_b in c_buckets
-            )
-            return cost + n * float(res_budget) * 2.0
-        return float("inf")
-
-    said_rungs = []
-
     def pick_cfg(h_host: np.ndarray, pos_host: np.ndarray):
         """(EngineConfig, BlockArgs or MLArgs or None) for the next chunk.
 
@@ -285,21 +300,11 @@ def run_simulation(
                 if args is not None:
                     cached.append((c, args))
         if cached:
-            return min(cached, key=lambda ca: _cfg_cost(ca[0]))
+            return min(cached, key=lambda ca: cfg_cost(ca[0], n))
         plan = plan_engine(
             pos_host, h_host, n=n, kh=kh, eos=eos, dtype=dtype, gravity=grav
         )
-        if plan is not None:
-            return plan
-        if verbose and not said_rungs:
-            said_rungs.append(True)
-            print(
-                "[engine] neither the tile, block nor multi-level engine can "
-                "plan this state; the rungs not ported yet ("
-                + ", ".join(RUNGS_NOT_PORTED)
-                + ") are skipped and the gather engine runs"
-            )
-        return base_cfg, None
+        return plan if plan is not None else (base_cfg, None)
 
     # bootstrap h for grid sizing (host KD-tree, code units)
     if engine == "auto":

@@ -70,7 +70,7 @@ def _declare(libs) -> None:
         ("phase_a_cells", "sph_phase_a_cells", [pp, ci, ci, ci, ci, ci, ci, ci, ci, vp]),
         ("phase_a_cells", "sph_phase_a_tile", [pp, ci, ci, ci, ci, ci, ci, ci, vp]),
         ("phase_b_tiles", "sph_phase_b_tiles",
-         [pp, pp, vp, pp, ci, ci, ci, ci, ci, ci, ci, ci, vp]),
+         [pp, pp, vp, pp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]),
         ("newton_sweep", "sph_newton_sweep", [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]),
         ("p3m_tail", "sph_p3m_tail", [pp, vp, pp, vp, vp, ci, ci, ci, ci, ci, vp]),
         ("phase_b_grouped", "sph_phase_b_grouped",

@@ -43,11 +43,21 @@
 // bits. A pair kept but outside every mask adds exact zeros (and -max to
 // the max) in its place of the order, so `keep_all` must give the same
 // bits as the cull.
+// Outlier masks (the mono-tile engine's outlier lane; OUT = true, exact
+// gravity only): the mask plane holds 2 at an outlier's slot (1 at any
+// other occupied slot, which is all the occupancy tests ask: > 0). The
+// variant stages the mask as a ninth record plane, and the forward mask
+// drops a pair whose query is an outlier, the reverse mask one whose
+// candidate is (the reference's fwd & (qo <= 0), rev & (cout <= 0)). The
+// gravity mask and the cull are unchanged: the masks only shrink. Without
+// the lane (OUT = false) the kernel is the one above, its layout and
+// arithmetic untouched.
 #include "common.cuh"
 
 namespace sph {
 
 constexpr int B_PLANES = 8;  // a record's planes besides its position: vx vy vz h rho por2 cs 1/h
+constexpr int B_OUT_PLANE = B_PLANES;  // with the outlier masks, the ninth: the mask
 constexpr int B_MAX_CAP = TILE_THREADS;
 constexpr int B_MAX_CW = 27 * B_MAX_CAP;  // widest candidate row: a 27-cell stack
 constexpr int B_QUEUE = 96;  // a warp's queue: < 32 waiting + 64 of a step
@@ -79,10 +89,10 @@ struct alignas(16) QPos {
 // pair terms, then the ints (query slots, each warp's queue of kept
 // records, the row's occupancy bits and their prefix).
 template <typename T>
-size_t phase_b_smem(int cap, int cw, int piece) {
+size_t phase_b_smem(int cap, int cw, int piece, int planes) {
   const size_t words = size_t(cw + 31) / 32;
   return sizeof(QPos<T>) * size_t(cap + piece) +
-         sizeof(T) * (size_t(B_PLANES) * (cap + piece) + 10 * size_t(cap) +
+         sizeof(T) * (size_t(planes) * (cap + piece) + 10 * size_t(cap) +
                       size_t(TILE_WARPS) * 10 * B_TERM_STRIDE) +
          sizeof(int) * (size_t(cap) + size_t(TILE_WARPS) * B_QUEUE + 2 * words + 1);
 }
@@ -155,7 +165,7 @@ struct BParams {
 
 // The ten terms of one (query, candidate) pair: positions qp, cp and the
 // other planes of query k (planes sq, stride qs) and record j (sc, cs).
-template <typename T, bool ISO, bool P3M>
+template <typename T, bool ISO, bool P3M, bool OUT>
 __device__ __forceinline__ void pair_terms(const QPos<T>& qp, const T* sq, int qs, int k,
                                            const QPos<T>& cp, const T* sc, int cs, int j,
                                            const BParams<T>& p, T* o) {
@@ -170,8 +180,12 @@ __device__ __forceinline__ void pair_terms(const QPos<T>& qp, const T* sq, int q
   const T r = d2 * inv_r;
 
   const T qh = QF(3), ch = CF(3);
-  const bool fwd = d2 <= Num<T>::mul_rn(T(2) * qh, T(2) * qh);
-  const bool rev = d2 <= Num<T>::mul_rn(T(2) * ch, T(2) * ch);
+  bool fwd = d2 <= Num<T>::mul_rn(T(2) * qh, T(2) * qh);
+  bool rev = d2 <= Num<T>::mul_rn(T(2) * ch, T(2) * ch);
+  if (OUT) {
+    fwd = fwd && QF(B_OUT_PLANE) <= T(1);
+    rev = rev && CF(B_OUT_PLANE) <= T(1);
+  }
   const T h_q = qh > T(0) ? qh : T(1);
   const T h_c = ch > T(0) ? ch : T(1);
   const T h_avg = T(0.5) * (h_q + h_c);
@@ -281,8 +295,9 @@ __device__ __forceinline__ void pair_terms(const QPos<T>& qp, const T* sq, int q
 }
 
 // Stage slot i of the 11 input planes `src` as record p: its position and
-// cull radius^2, and planes (stride s) vx vy vz h rho por2 cs 1/h.
-template <typename T>
+// cull radius^2, and planes (stride s) vx vy vz h rho por2 cs 1/h, then,
+// with OUT, its mask (2 marks an outlier).
+template <typename T, bool OUT>
 __device__ __forceinline__ void stage_record(QPos<T>* pos, T* dst, int s, int p,
                                              const T* const* src, long i) {
   const T h = src[7][i];
@@ -295,18 +310,20 @@ __device__ __forceinline__ void stage_record(QPos<T>* pos, T* dst, int s, int p,
   dst[5 * s + p] = src[9][i];
   dst[6 * s + p] = src[10][i];
   dst[7 * s + p] = Num<T>::rcp(h > T(0) ? h : T(1));
+  if (OUT) dst[B_OUT_PLANE * s + p] = src[6][i];
 }
 
-template <typename T, bool ISO, bool P3M>
+template <typename T, bool ISO, bool P3M, bool OUT>
 __global__ void __launch_bounds__(TILE_THREADS) phase_b_kernel(PhaseBArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NPL = OUT ? B_PLANES + 1 : B_PLANES;  // staged planes a record
   const int cap = a.cap, piece = a.piece;
   const int n_words = (a.cw + 31) / 32;
   QPos<T>* sqp = reinterpret_cast<QPos<T>*>(smem_raw);   // (cap)
   QPos<T>* scp = sqp + cap;                               // (piece)
-  T* sq = reinterpret_cast<T*>(scp + piece);              // (B_PLANES, cap)
-  T* sc = sq + B_PLANES * cap;                            // (B_PLANES, piece)
-  T* sacc = sc + B_PLANES * piece;                        // (10, cap) query sums
+  T* sq = reinterpret_cast<T*>(scp + piece);              // (NPL, cap)
+  T* sc = sq + NPL * cap;                                 // (NPL, piece)
+  T* sacc = sc + NPL * piece;                             // (10, cap) query sums
   T* wterm = sacc + 10 * cap;                             // (warps, 10, 33) pair terms
   int* slot = reinterpret_cast<int*>(wterm + TILE_WARPS * 10 * B_TERM_STRIDE);  // (cap)
   int* wqueue = slot + cap;                               // (warps, B_QUEUE) kept records
@@ -331,7 +348,7 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_b_kernel(PhaseBArgs<T> a) 
   const int kq = compact_slot(qon, nq, wcount);
   if (nq == 0) return;  // uniform over the CTA
   if (qon) {
-    stage_record(sqp, sq, cap, kq, a.q, qi);
+    stage_record<T, OUT>(sqp, sq, cap, kq, a.q, qi);
     slot[kq] = tid;
   }
   for (int e = tid; e < 10 * cap; e += TILE_THREADS) sacc[e] = e / cap == 4 ? -big : T(0);
@@ -398,7 +415,7 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_b_kernel(PhaseBArgs<T> a) 
       const unsigned bits = rowbits[j >> 5];
       const int rec = wpre[j >> 5] + __popc(bits & ((1u << (j & 31)) - 1u)) - p0;
       if (((bits >> (j & 31)) & 1u) && rec >= 0 && rec < n_here)
-        stage_record(scp, sc, piece, rec, a.c, c_row + j);
+        stage_record<T, OUT>(scp, sc, piece, rec, a.c, c_row + j);
     }
     const int nw = (n_here + 31) / 32;
     if (tid < 64 * ((nw + 1) / 2) - n_here) scp[n_here + tid] = QPos<T>{big, big, big, T(-1)};
@@ -416,7 +433,7 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_b_kernel(PhaseBArgs<T> a) 
         if (lane < n) {
           const int j = queue[lane];
           T o[10];
-          pair_terms<T, ISO, P3M>(q, sq, cap, k, scp[j], sc, piece, j, p, o);
+          pair_terms<T, ISO, P3M, OUT>(q, sq, cap, k, scp[j], sc, piece, j, p, o);
 #pragma unroll
           for (int f = 0; f < 10; ++f) term[f * B_TERM_STRIDE + lane] = o[f];
         }
@@ -475,22 +492,23 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_b_kernel(PhaseBArgs<T> a) 
   }
 }
 
-template <typename T, bool ISO, bool P3M>
+template <typename T, bool ISO, bool P3M, bool OUT>
 int launch_phase_b(const PhaseBArgs<T>& a, int n_cells, cudaStream_t stream) {
-  const size_t smem = phase_b_smem<T>(a.cap, a.cw, a.piece);
-  const int err = fits_one_cta(phase_b_kernel<T, ISO, P3M>, TILE_THREADS, smem);
+  const size_t smem = phase_b_smem<T>(a.cap, a.cw, a.piece, OUT ? B_PLANES + 1 : B_PLANES);
+  const int err = fits_one_cta(phase_b_kernel<T, ISO, P3M, OUT>, TILE_THREADS, smem);
   if (err) return err;
-  SPH_LAUNCH((phase_b_kernel<T, ISO, P3M>), n_cells, TILE_THREADS, smem, stream, a);
+  SPH_LAUNCH((phase_b_kernel<T, ISO, P3M, OUT>), n_cells, TILE_THREADS, smem, stream, a);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int phase_b_from_ptrs(void* const* qp, void* const* cp, const void* scal, void* const* op,
-                      int n_cells, int cap, int cw, int iso, int p3m, int piece, int keep_all,
-                      cudaStream_t stream) {
+                      int n_cells, int cap, int cw, int iso, int p3m, int outlier, int piece,
+                      int keep_all, cudaStream_t stream) {
   if (n_cells <= 0) return 0;
   if (cap > B_MAX_CAP || cw > B_MAX_CW || piece < 64 || piece % 64 != 0 || piece > 1 << 16)
     return ERR_BUDGET;
+  if (outlier && p3m) return ERR_BUDGET;  // the outlier masks: exact gravity only
   PhaseBArgs<T> a;
   for (int k = 0; k < 11; ++k) {
     a.q[k] = static_cast<const T*>(qp[k]);
@@ -502,27 +520,34 @@ int phase_b_from_ptrs(void* const* qp, void* const* cp, const void* scal, void* 
   a.cw = cw;
   a.piece = piece;
   a.keep_all = keep_all;
-  if (iso) {
-    return p3m ? launch_phase_b<T, true, true>(a, n_cells, stream)
-               : launch_phase_b<T, true, false>(a, n_cells, stream);
+  if (outlier) {
+    return iso ? launch_phase_b<T, true, false, true>(a, n_cells, stream)
+               : launch_phase_b<T, false, false, true>(a, n_cells, stream);
   }
-  return p3m ? launch_phase_b<T, false, true>(a, n_cells, stream)
-             : launch_phase_b<T, false, false>(a, n_cells, stream);
+  if (iso) {
+    return p3m ? launch_phase_b<T, true, true, false>(a, n_cells, stream)
+               : launch_phase_b<T, true, false, false>(a, n_cells, stream);
+  }
+  return p3m ? launch_phase_b<T, false, true, false>(a, n_cells, stream)
+             : launch_phase_b<T, false, false, false>(a, n_cells, stream);
 }
 
 }  // namespace sph
 
 // q, c: 11 device pointers each (x y z vx vy vz mask h rho por2 cs); scal:
-// device pointer to (m, alpha, beta, sigma); out: 10 device pointers; piece:
-// candidate records a piece (a multiple of 64); keep_all: 1 keeps every
-// occupied pair (no cull). Returns ERR_BUDGET for cap > 256, cw > 27 * 256
-// or where the shared memory does not fit one CTA.
+// device pointer to (m, alpha, beta, sigma); out: 10 device pointers;
+// outlier: 1 applies the outlier masks (a mask of 2 marks an outlier's
+// slot); piece: candidate records a piece (a multiple of 64); keep_all: 1
+// keeps every occupied pair (no cull). Returns ERR_BUDGET for cap > 256,
+// cw > 27 * 256, the outlier masks with p3m, or where the shared memory
+// does not fit one CTA.
 extern "C" int sph_phase_b_tiles(void* const* q, void* const* c, const void* scal,
                                  void* const* out, int n_cells, int cap, int cw, int iso,
-                                 int p3m, int piece, int keep_all, int is_double, void* stream) {
+                                 int p3m, int outlier, int piece, int keep_all, int is_double,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double ? sph::phase_b_from_ptrs<double>(q, c, scal, out, n_cells, cap, cw, iso, p3m,
-                                                    piece, keep_all, s)
+                                                    outlier, piece, keep_all, s)
                    : sph::phase_b_from_ptrs<float>(q, c, scal, out, n_cells, cap, cw, iso, p3m,
-                                                   piece, keep_all, s);
+                                                   outlier, piece, keep_all, s);
 }

@@ -28,6 +28,16 @@ reverse and gravity masks), evaluates the kept pairs 32 at a time, one a
 lane, and adds their terms to the query's sums in candidate order.
 `k2_shared_bytes` is its shared memory and `k2_budget` its default piece
 on a card.
+
+The mono-tile engine's outlier lane marks an outlier's slot with a mask of
+2 (any other occupied slot holds 1; every occupancy test asks mask > 0) and
+passes `outlier=True`: the forward mask then drops a pair whose query is an
+outlier and the reverse mask a pair whose candidate is one (the
+reference's `fwd & (qo <= 0)`, `rev & (cout <= 0)`,
+sphtpu/physics/tiles.py:563-572); the gravity mask and the cull stay as
+they are. The kernel stages the mask as a ninth record plane, in a variant
+of its own: without `outlier` the launch is the kernel it was, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ K2_WARPS = K2_THREADS // 32
 MAX_CAP = K2_THREADS  # a row's queries must fit one CTA's threads
 MAX_CW = 27 * MAX_CAP  # widest candidate row: a 27-cell stack
 K2_PLANES = 8  # staged planes a record besides (x, y, z, cull): vx vy vz h rho por2 cs 1/h
+K2_PLANES_OUT = K2_PLANES + 1  # with the outlier masks: the mask
 K2_QUEUE = 96  # a warp's queue of kept records: < 32 waiting + a step's 2 x 32
 CULL_MARGIN = 1.00390625  # 1 + 2^-8 on the cull radius^2
 K2_PIECE = {torch.float32: 512, torch.float64: 256}  # default candidate records a piece
@@ -60,18 +71,20 @@ def cull_r2(h):
     return 4.0 * a * a * CULL_MARGIN
 
 
-def k2_shared_bytes(cap: int, cw: int, piece: int, dtype) -> int:
+def k2_shared_bytes(cap: int, cw: int, piece: int, dtype, outlier: bool = False) -> int:
     """Dynamic shared memory of one CTA (the kernel's `phase_b_smem`): the
     query and candidate records (position and cull radius, then K2_PLANES
-    planes), the ten sums of each query, each warp's 32 pair terms (rows
-    padded to 33), the query slots, each warp's queue, and the row's
-    occupancy bits with their prefix."""
+    planes, K2_PLANES_OUT with the outlier masks), the ten sums of each
+    query, each warp's 32 pair terms (rows padded to 33), the query slots,
+    each warp's queue, and the row's occupancy bits with their prefix."""
     words = -(-cw // 32)
-    return (dtype.itemsize * ((4 + K2_PLANES) * (cap + piece) + 10 * cap + K2_WARPS * 10 * 33)
+    planes = K2_PLANES_OUT if outlier else K2_PLANES
+    return (dtype.itemsize * ((4 + planes) * (cap + piece) + 10 * cap + K2_WARPS * 10 * 33)
             + 4 * (cap + K2_WARPS * K2_QUEUE + 2 * words + 1))
 
 
-def k2_budget(cap: int, cw: int, dtype, smem_optin: int, piece: int = 0) -> int:
+def k2_budget(cap: int, cw: int, dtype, smem_optin: int, piece: int = 0,
+              outlier: bool = False) -> int:
     """The piece of a launch: K2_PIECE's unless given, checked against the
     kernel's limits (cap <= MAX_CAP, cw <= MAX_CW, piece a multiple of 64)
     and the card's opt-in shared memory. Raises where it would not fit."""
@@ -81,7 +94,7 @@ def k2_budget(cap: int, cw: int, dtype, smem_optin: int, piece: int = 0) -> int:
             f"phase_b_tiles: cap {cap} (<= {MAX_CAP}), cw {cw} (<= {MAX_CW}) or piece "
             f"{piece} (a multiple of 64) out of the kernel's range"
         )
-    need = k2_shared_bytes(cap, cw, piece, dtype)
+    need = k2_shared_bytes(cap, cw, piece, dtype, outlier)
     if need > smem_optin:
         raise ValueError(f"phase_b_tiles: {need} B of shared memory exceed {smem_optin} B")
     return piece
@@ -89,12 +102,13 @@ def k2_budget(cap: int, cw: int, dtype, smem_optin: int, piece: int = 0) -> int:
 
 def phase_b_tiles_plain(
     qfields, cfields, m, alpha, beta, sigma, *, eos: str, p3m: bool, cap: int,
-    row_chunk: int = 0,
+    outlier: bool = False, row_chunk: int = 0,
 ):
     """Plain PyTorch version: broadcast (rows, cap', 1) against
     (rows, 1, cw'), row-chunked to bound the pair temporaries, over the
     chunk's occupied query and candidate columns only (cap' <= cap,
-    cw' <= cw; `build.occupied_columns`)."""
+    cw' <= cw; `build.occupied_columns`). outlier: as phase_b_tiles takes
+    it."""
     n_cells, cw = cfields[0].shape
     dtype = cfields[0].dtype
     device = cfields[0].device
@@ -130,6 +144,11 @@ def phase_b_tiles_plain(
         # r_k = 2h recomputed here ((2h)^2 rounds identically)
         fwd = valid & (d2 <= (2.0 * qh) * (2.0 * qh))
         rev = valid & (d2 <= (2.0 * ch) * (2.0 * ch))
+        if outlier:
+            # outlier queries (mask 2) leave the forward mask, outlier
+            # candidates the reverse mask (the lane sums those pairs exactly)
+            fwd = fwd & (qm <= 1)
+            rev = rev & (cm <= 1)
 
         h_q = torch.where(qh > 0, qh, one)
         h_c = torch.where(ch > 0, ch, one)
@@ -266,14 +285,19 @@ def phase_b_tiles(
     eos: str,
     p3m: bool,
     cap: int,
+    outlier: bool = False,
     piece: int = 0,
     keep_all: bool = False,
 ):
     """Returns 10 query-side (n_cells, cap) tensors: ax, ay, az, div,
     mu_max, visc, ggx, ggy, ggz, gphi. Field order on both sides: x, y, z,
     vx, vy, vz, mask, h, rho, P/rho^2, cs. sigma may be None when p3m is
-    False. On the card, piece overrides `k2_budget`'s and keep_all=True
-    keeps every occupied pair (no cull); neither changes a result."""
+    False. outlier=True applies the outlier masks: a slot whose mask is 2
+    is an outlier, whose forward pairs (as the query) and reverse pairs (as
+    the candidate) are dropped; it takes p3m=False only (the mono engine's
+    term 2 is the tail kernel's). On the card, piece overrides
+    `k2_budget`'s and keep_all=True keeps every occupied pair (no cull);
+    neither changes a result."""
     if eos not in ("polytropic", "isothermal"):
         raise ValueError(f"unknown EOS {eos!r}")
     if p3m and sigma is None:
@@ -281,7 +305,8 @@ def phase_b_tiles(
     c0 = cfields[0]
     if c0.device.type != "cuda":
         return phase_b_tiles_plain(
-            qfields, cfields, m, alpha, beta, sigma, eos=eos, p3m=p3m, cap=cap
+            qfields, cfields, m, alpha, beta, sigma, eos=eos, p3m=p3m, cap=cap,
+            outlier=outlier,
         )
     global launches
     n_cells, cw = c0.shape
@@ -294,7 +319,9 @@ def phase_b_tiles(
         build.check_tensor(f"qfields[{i}]", t, (n_cells, cap), dtype, device)
     for i, t in enumerate(cfields):
         build.check_tensor(f"cfields[{i}]", t, (n_cells, cw), dtype, device)
-    piece = k2_budget(cap, cw, dtype, build.device_limits(device)[1], piece)
+    if outlier and p3m:
+        raise ValueError("phase_b_tiles: the outlier masks take p3m=False")
+    piece = k2_budget(cap, cw, dtype, build.device_limits(device)[1], piece, outlier)
     scal = build.scalar_tensor(
         [m, alpha, beta, sigma if sigma is not None else 1.0], dtype, device
     )
@@ -309,7 +336,8 @@ def phase_b_tiles(
             build.pointer_array(list(cfields)),
             scal.data_ptr(),
             build.pointer_array(list(outs)),
-            n_cells, cap, cw, int(eos == "isothermal"), int(p3m), piece, int(keep_all),
+            n_cells, cap, cw, int(eos == "isothermal"), int(p3m), int(outlier), piece,
+            int(keep_all),
             int(dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -21,11 +21,18 @@ sweeps all `cap` query slots:
 *   phase C (P3M only) — kernels/cuda_p3m_tail.p3m_tail, (Newtonian minus
     mesh shape) over the (2W+1)^3-cell stencil, W = the tail half-width.
 
+With an outlier budget (`outlier_budget > 0`, planned by
+`choose_tile_params_ml`) the grid is sized for the bulk of the h
+distribution, and the rows whose hinted h cannot certify on it take the
+exact outlier lane of physics/outliers.py: their kNN, h and rho replace
+phase A's, phase B leaves them out of its forward mask (as queries) and its
+reverse mask (as candidates), and the lane adds their pair forces, their
+scatter and the gravity corrections beyond the 27-cell stencil.
+
 Exactness is certified per evaluation (slot-capacity overflow, k found,
-r_k <= cell edge); the engine layer falls back to the gather engine when
-certification fails, so a bad grid choice degrades speed, never physics.
-The outlier lane (`outlier_budget > 0`) and `choose_tile_params_ml` are not
-ported yet.
+r_k <= cell edge, outliers within the budget); the engine layer falls back
+to the gather engine when certification fails, so a bad grid choice
+degrades speed, never physics. Each stage runs inside `profiling.stage`.
 """
 
 from __future__ import annotations
@@ -38,14 +45,17 @@ from ..device import require_on, resolve_device
 from ..kernels.cuda_knn import phase_a_tile
 from ..kernels.cuda_p3m_tail import p3m_tail
 from ..kernels.cuda_tile_pairs import phase_b_tiles
+from ..profiling import stage
 from .mesh_gravity import _domain_half, tail_halfwidth
+from .outliers import (
+    OUTLIER_CUT,
+    outlier_forces,
+    outlier_gravity_corr,
+    outlier_knn,
+)
 
 # field planes of the slot layout, in the order the pair kernel takes them
 X, Y, Z, VX, VY, VZ, MASK, H, RHO, POR2, CS = range(11)
-
-# rows with h * OUTLIER_CUT > cell edge need the outlier lane (its engine is
-# not ported yet; the constant is part of tile_params_still_ok's forecast)
-OUTLIER_CUT = 2.0 * 1.07
 
 
 class ReducedForces(NamedTuple):
@@ -91,6 +101,81 @@ def choose_tile_params(
     if cap > cap_max:
         return None
     return grid, cap
+
+
+def choose_tile_params_ml(
+    pos_code,
+    h,
+    kh: int,
+    *,
+    safety: float = 1.05,
+    cap_max: int = 256,
+    headroom: float = 1.25,
+    budget_margin: float = 1.3,
+    slots_max: int = 12_000_000,
+    budgets=(256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536),
+):
+    """Host-side grid sizing with the outlier lane: (grid, cap, budget) or
+    None (numpy; the reference's planner, bit-equal).
+
+    Scans candidate grids from the mono-level choice (budget 0, identical
+    to choose_tile_params) down to cells sized for the dense bulk, routing
+    the large-h tail through the exact outlier lane (physics/outliers.py),
+    and picks the candidate with the lowest modeled cost
+
+        cost ~ grid^3 * cap^2 * 27 * C_TILE  +  N * budget * C_SWEEP
+
+    (pair work over padded tile slots vs the O(B*N) outlier sweeps).
+    Feasibility: occupancy cap <= cap_max, an available budget, and
+    grid^3 * cap <= slots_max. Returns None only when no candidate is
+    feasible — the caller stays on the exact gather engine."""
+    import numpy as np
+
+    C_TILE = 70.0  # ops per slot-pair (17 bisection compares + force)
+    C_SWEEP = 60.0  # ops per outlier-sweep pair (two sweeps)
+
+    pos_code = np.asarray(pos_code)
+    h = np.asarray(h)
+    n = h.shape[0]
+    half = float(np.abs(pos_code).max()) * (1 + 1e-6)
+
+    g0 = max(int(2.0 * half / (safety * 2.0 * float(h.max()))), 2)
+    g_hi = max(
+        int(2.0 * half / (safety * 2.0 * float(np.quantile(h, 0.3)))), g0
+    )
+    grids = []
+    g_c = g0
+    while g_c <= min(g_hi, 128):
+        grids.append(g_c)
+        g_c = max(g_c + 1, int(g_c * 1.25))
+
+    best = None
+    for grid in grids:
+        s_eff = 2.0 * half / grid
+        n_out = int(np.sum(h * OUTLIER_CUT > s_eff))
+        if n_out == 0:
+            budget = 0
+        else:
+            budget = next(
+                (b for b in budgets if b >= n_out * budget_margin + 64), None
+            )
+            if budget is None:
+                continue
+        c = np.clip((pos_code + half) // s_eff, 0, grid - 1).astype(np.int64)
+        cells = (c[:, 2] * grid + c[:, 1]) * grid + c[:, 0]
+        cmax = int(np.bincount(cells, minlength=grid**3).max())
+        cap = max(32, int(-(-headroom * cmax // 32)) * 32)
+        if cap > cap_max or grid**3 * cap > slots_max:
+            continue
+        cost = (
+            grid**3 * float(cap) ** 2 * 27.0 * C_TILE
+            + n * float(budget) * C_SWEEP
+        )
+        if best is None or cost < best[0]:
+            best = (cost, grid, cap, budget)
+    if best is None:
+        return None
+    return best[1], best[2], best[3]
 
 
 def tile_params_still_ok(
@@ -323,40 +408,116 @@ def tile_sph_forces(
     mesh_factor > 0 (P3M mode): phase C adds (Newtonian - mesh shape) over
     the (2W+1)^3 stencil, W = tail_halfwidth(mesh_factor, sigma_cells), so
     mesh + corrections is the softened interaction up to the ~1e-4
-    Gaussian tail beyond W cells. No host synchronisation: ok is a device
-    scalar. device=None means the card."""
-    if outlier_budget:
-        raise NotImplementedError(
-            "the outlier lane of the mono-tile engine arrives with slice 4 of the port"
-        )
+    Gaussian tail beyond W cells.
+
+    outlier_budget > 0: the two-species split of the reference. Rows with
+    h_hint * OUTLIER_CUT > cell edge are outliers; ok also needs their
+    count <= outlier_budget. The lane runs on the real rows only, so the
+    host reads that count, and then, in each block of the two gravity
+    sweeps (physics/outliers.py), the block's kept-pair count; with no
+    outlier row the evaluation is the one without a budget. Without a
+    budget there is no host synchronisation: ok is a device scalar.
+    device=None means the card."""
     require_on(resolve_device(device), pos, vel)
-    del h_hint  # the outlier lane's species hint; unused without it
+    dtype = pos.dtype
     n_cells = grid**3
-    st = _tile_stack(pos, vel, grid, cap)
+    with stage("tiles_bin"):
+        st = _tile_stack(pos, vel, grid, cap)
+
+    # two-species split (physics/outliers.py): rows whose hinted h cannot
+    # certify on this grid take the exact outlier lane. The hint only
+    # SELECTS the species; bulk-row exactness is still certified from the
+    # found r_k <= s, and the lane is exact regardless.
+    out_rows, budget_ok = None, True
+    if outlier_budget > 0:
+        out_mask = h_hint.to(dtype) * OUTLIER_CUT > st.s
+        rows = torch.nonzero(out_mask).flatten()  # the host read of n_out
+        if rows.numel() > 0:
+            budget_ok = rows.numel() <= outlier_budget
+            out_rows = rows[:outlier_budget]  # the reference's padded rows, real ones only
+            # a mask of 2 marks an outlier's slot for phase B's outlier masks
+            st.planes[MASK, st.pz, st.py, st.px] += out_mask.to(dtype)
+            _fill(st, MASK, MASK + 1)
 
     # phase A: exact k-th distance + density, queries = each row's centre cell
-    cands = tuple(st.pre_rows[f, :n_cells] for f in (X, Y, Z, MASK))
-    Hq, RHOq, OKq = phase_a_tile(cands, st.s * st.s, m, kh=kh, cap=cap)
-    rows_ok = torch.all(OKq > 0)
-    CSq = _stack_sph_fields(st, Hq, RHOq, K, eos=eos, gamma=gamma, cs0=cs0)
-
-    # phase B: the pair kernel over every cell row at the full capacity
-    outs = torch.stack(
-        phase_b_tiles(
-            tuple(st.qpl[f, :n_cells] for f in range(11)),
-            tuple(st.pre_rows[f, :n_cells] for f in range(11)),
-            m, alpha, beta, None, eos=eos, p3m=False, cap=cap,
+    with stage("phase_a"):
+        cands = tuple(st.pre_rows[f, :n_cells] for f in (X, Y, Z, MASK))
+        Hq, RHOq, OKq = phase_a_tile(cands, st.s * st.s, m, kh=kh, cap=cap)
+    if out_rows is not None:
+        # the outlier rows' exact kNN pass overwrites their slots, so that
+        # P/rho^2, cs and the prestack see the merged values; outlier rows
+        # are exempt from phase A's certificate
+        with stage("outlier_knn"):
+            out_idx, h_out, rho_out = outlier_knn(pos, out_rows, m, kh)
+            oc, orank = st.cell_row[out_rows], st.rank[out_rows]
+            Hq[oc, orank] = h_out.to(dtype)
+            RHOq[oc, orank] = rho_out.to(dtype)
+            OKq[oc, orank] = 1.0
+    rows_ok = torch.all(OKq > 0) & budget_ok
+    with stage("phase_b"):
+        CSq = _stack_sph_fields(st, Hq, RHOq, K, eos=eos, gamma=gamma, cs0=cs0)
+        # phase B: the pair kernel over every cell row at the full capacity;
+        # with the lane, outlier queries leave its forward mask and outlier
+        # candidates its reverse mask
+        outs = torch.stack(
+            phase_b_tiles(
+                tuple(st.qpl[f, :n_cells] for f in range(11)),
+                tuple(st.pre_rows[f, :n_cells] for f in range(11)),
+                m, alpha, beta, None, eos=eos, p3m=False, cap=cap,
+                outlier=out_rows is not None,
+            )
         )
-    )
 
     if mesh_factor > 0:
         # phase C: the P3M tail, term 2 (Newtonian - mesh shape)
-        w = tail_halfwidth(mesh_factor, sigma_cells)
-        sigma = (st.s / mesh_factor) * sigma_cells
-        outs[6:] += p3m_tail(
-            _tail_planes(pos, st, w), m, sigma, grid=grid, cap=cap, halfwidth=w
-        )
+        with stage("phase_c"):
+            w = tail_halfwidth(mesh_factor, sigma_cells)
+            sigma = (st.s / mesh_factor) * sigma_cells
+            outs[6:] += p3m_tail(
+                _tail_planes(pos, st, w), m, sigma, grid=grid, cap=cap, halfwidth=w
+            )
 
     red, gcorr = _extract(st, outs, Hq, RHOq, CSq, eos=eos, cs0=cs0)
+    if out_rows is not None:
+        red, gcorr = _add_outlier_lane(
+            pos, vel, m, K, red, gcorr, out_rows, out_idx, st,
+            eos=eos, gamma=gamma, cs0=cs0, alpha=alpha, beta=beta,
+        )
     return red, gcorr, (~st.overflow) & rows_ok
 
+
+def _add_outlier_lane(
+    pos, vel, m, K, red, gcorr, out_rows, out_idx, st,
+    *, eos, gamma, cs0, alpha, beta,
+):
+    """The outlier rows' exact pair forces (the reference's scatter
+    semantics) and the softened-gravity corrections their long reach needs
+    beyond the 27-cell stencil, added to the tile engine's per-particle
+    results as the reference adds them."""
+    rho_p = red.rho
+    rho_safe = torch.where(rho_p > 0, rho_p, torch.ones_like(rho_p))
+    if eos == "polytropic":
+        por2_p = K.to(pos.dtype) * rho_safe ** (gamma - 2.0)
+    else:
+        por2_p = cs0**2 / rho_safe
+    with stage("outlier_forces"):
+        row, scat = outlier_forces(
+            pos, vel, out_rows, out_idx, red.h, rho_p, por2_p, red.cs, m,
+            eos=eos, alpha=alpha, beta=beta,
+        )
+        # additive: outlier slots keep their in-tile reverse terms (their
+        # dropped forward terms are the lane's); the forward-only
+        # reductions (mu_max, div) are replaced
+        acc = red.acc.index_add(0, out_rows, row["acc"])
+        visc = red.visc_dk.index_add(0, out_rows, row["visc_dk"])
+        mu = red.mu_max.index_copy(0, out_rows, row["mu_max"])
+        div = red.div_sum.index_copy(0, out_rows, row["div_sum"])
+        acc = acc + torch.stack([scat["ax"], scat["ay"], scat["az"]], dim=1)
+        visc = visc + scat["visc"]
+    with stage("outlier_gravity"):
+        half = _domain_half(pos)
+        dg, dphi = outlier_gravity_corr(pos, red.h, out_rows, m, half, st.s, st.grid)
+        gcorr = (gcorr[0] + dg[:, 0], gcorr[1] + dg[:, 1], gcorr[2] + dg[:, 2],
+                 gcorr[3] + dphi)
+    red = red._replace(acc=acc, visc_dk=visc, mu_max=mu, div_sum=div)
+    return red, gcorr

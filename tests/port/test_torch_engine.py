@@ -202,23 +202,19 @@ def test_chunk_freezes_at_t_end_and_pads_scan_length(scene):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(tile=(6, 64), outlier_budget=64), "slice 4"),
-        (dict(tile=(6, 64), gravity="p3m", outlier_budget=64), "slice 4"),
         (dict(blocks=((), (), (), 8)), "mlargs"),
         (dict(mlevel=((), 0, 0, ())), "mlargs"),
     ],
 )
 def test_unported_engines_raise(kw, match):
-    """Engines of later slices raise NotImplementedError naming the slice.
-    The block and multi-level engines are ported: without their BlockArgs
-    or MLArgs (mlargs) force_eval raises ValueError, as the reference
+    """Every engine of the single-device path is ported, the outlier lane
+    included: the block and multi-level engines without their BlockArgs or
+    MLArgs (mlargs) make force_eval raise ValueError, as the reference
     does."""
     cfg = EngineConfig(n=8, kh=4, eos="polytropic", dtype="float64", **kw)
     z = torch.zeros((8, 3), dtype=torch.float64)
     p = params_from_numpy(**PARAMS, dtype="float64", device="cpu")
-    ported = cfg.blocks is not None or cfg.mlevel is not None
-    exc = ValueError if ported else NotImplementedError
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match=match):
         force_eval(cfg, p, z, z, z[:, 0], z[:, 0], device="cpu")
 
 

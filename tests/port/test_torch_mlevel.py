@@ -326,9 +326,7 @@ def test_force_eval_p3m_tracks_exact():
 @pytest.mark.parametrize("gravity", ["exact", "p3m"])
 def test_plan_engine_reaches_mlevel_when_blocks_decline(gravity, monkeypatch):
     """plan_engine's ladder: where the tile engines and plan_blocks decline,
-    the multi-level rung plans, with the reference's spec and MLArgs; the
-    rung is no longer among those not ported."""
-    assert "multi-level engine" not in driver.RUNGS_NOT_PORTED
+    the multi-level rung plans, with the reference's spec and MLArgs."""
     monkeypatch.setattr(driver, "choose_tile_classes", lambda *a, **k: None)
     monkeypatch.setattr(driver, "choose_tile_params", lambda *a, **k: None)
     monkeypatch.setattr(driver, "plan_blocks", lambda *a, **k: None)

@@ -247,11 +247,3 @@ def test_tile_certification_fails_on_bad_grid(grid, cap):
     )
     assert not bool(ok)
 
-
-def test_outlier_lane_is_not_ported():
-    pos, vel, K, h0, (g, cap) = _scene("float64")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tile_sph_forces(
-            t(pos), t(vel), 1.0 / N, t(K), t(h0), eos="polytropic", grid=g,
-            cap=cap, outlier_budget=64, device="cpu", **PHYS,
-        )

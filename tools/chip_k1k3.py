@@ -7,7 +7,9 @@ compared in one run.
 
 `capture` builds the inputs of one force evaluation on each path and saves
 them to FILE: K1's 12 launches and K5's launch on the collapse path
-(bench_data/bb_collapsed.npz, contrast 395, block engine), K5's launch under
+(bench_data/bb_collapsed.npz, contrast 395, block engine), K2's launch with
+its outlier masks on the same state on the outlier rung (timed only for a
+tree whose K2 takes them), K5's launch under
 P3M on bench_data/bb_collapsed_deep.npz (contrast 1001), K1's and K2's
 launches on the class path (boss_bodenheimer N = 100 000, Kh = 32: one
 each a class), K4's and K2's launch on the exact path (the same scene at
@@ -86,6 +88,12 @@ def capture(path: str) -> None:
     out["k1_collapse"], out["k5_collapse"] = eval_calls(
         cfg, state, params, cs.dev(h0, torch.float32), blocks,
         ("phase_a_cells", "phase_b_grouped"), bargs)
+    # K2 with its outlier masks: the same state on the outlier rung
+    # (choose_tile_params_ml with the driver's arguments, k = 50 KD-tree h)
+    pos_o, _, h_o, st_o, p_o, h_o_dev = cs.collapse_state(cs.COLLAPSE)
+    grid, cap, budget, _ = cs.outlier_plan(pos_o, h_o)
+    cfg_o = cs.EngineConfig(**base, tile=(grid, cap), outlier_budget=budget)
+    out["k2_outlier"], = eval_calls(cfg_o, st_o, p_o, h_o_dev, tiles, ("phase_b_tiles",))
     # the plan's work units stay out of the file: a parent tree's wrapper
     # does not take them, and `time` builds them for a tree that does
     # K5 under P3M: the block engine on bb_collapsed_deep.npz (contrast
@@ -189,7 +197,10 @@ def time_tree(tree: str, path: str, sweep: bool, kernels=("k1", "k2", "k3", "k4"
         return sum(per) / iters, launches
 
     def load(keys):
-        return {key: [(to_dev(a), kw) for a, kw in data[key]] for key in keys}
+        # a mono launch's `outlier=False` is dropped: a parent tree's K2 has no such keyword
+        return {key: [(to_dev(a), {k: v for k, v in kw.items() if k != "outlier" or v})
+                      for a, kw in data[key]]
+                for key in keys}
 
     pos = data["k3_pos"].to(dev)
     m = 1.0 / pos.shape[0]
@@ -200,6 +211,8 @@ def time_tree(tree: str, path: str, sweep: bool, kernels=("k1", "k2", "k3", "k4"
         timed += [(key, cuda_strip_knn.phase_a_cells, calls) for key, calls in k1.items()]
     if "k2" in kernels:
         k2 = load(("k2_class", "k2_exact", "k2_p3m"))
+        if "k2_outlier" in data and takes(cuda_tile_pairs.phase_b_tiles, "outlier"):
+            k2.update(load(("k2_outlier",)))
         timed += [(key, cuda_tile_pairs.phase_b_tiles, calls) for key, calls in k2.items()]
     if "k4" in kernels:
         k4 = load(("k4_exact", "k4_p3m"))
