@@ -41,7 +41,19 @@ just after:
     force error, a 2-step chunk with its certificate per evaluation; then
     four CLI steps with plan_blocks and plan_mlevel made to decline, so that
     the run loop's ladder plans the outlier rung; then dense_forces and
-    knn_celllist, off the production path, once each on the card.
+    knn_celllist, off the production path, once each on the card;
+*   the multi-device layer on four shards of the card: the headline scene
+    (exact gravity) and the P3M scene through run_simulation(n_devices=4,
+    devices=[cuda:0] * 4) for four steps, which plans the z-slab tile engine
+    (K4, K2, and K3's rows x columns entry in the ring or the tail kernel),
+    each with a 2-step slab chunk of its final state against the
+    single-device chunk and one evaluation split by stage, whose K4, K2
+    and tail launches (one a shard, at the slab's shapes) are held
+    against their plain versions in float32 and float64; then
+    bb_collapsed.npz the same way, where no slab plan certifies and the
+    work-sharded block engine carries every chunk (K1, K5, rows x columns),
+    one evaluation against the single-device block engine, and one
+    bb_collapsed_deep.npz evaluation on the work-sharded multi-level engine.
 
 Every phase prints one JSON line; any failure raises, so the process exits
 non-zero. There is no CPU continuation: with no CUDA device the script
@@ -53,7 +65,11 @@ K1 also on the multi-level path's exact chunk, under "on_mlevel_path";
 K2 also on the outlier path's exact chunk, with its outlier masks, under
 "on_outlier_path", with the share of occupied pairs its cull keeps;
 K4 and the tail: the P3M path; K5: the collapse path; K6: the collapse
-path's per-bucket step) and on every path (`launches_by_path`), its
+path's per-bucket step; K3's rows x columns entry, `newton_rows_cols`: the
+sharded exact path, on the ring's and the row-sharded inputs; K2, K4 and
+the tail also on the slab paths, under "on_slab_exact_path" and
+"on_slab_p3m_path") and on every
+path (`launches_by_path`), its
 error against the plain version and its time beside the plain version's
 and the card's bound, all on the inputs that one force evaluation of that
 path's final state gives it (K2 carries the exact and the P3M paths'
@@ -112,6 +128,7 @@ from sphtpu_torch.kernels import (
     build,
     cuda_block_pairs,
     cuda_gravity,
+    cuda_gravity_rc,
     cuda_grouped_pairs,
     cuda_knn,
     cuda_p3m_tail,
@@ -168,6 +185,7 @@ MODULES = {
     "p3m_tail": cuda_p3m_tail,
     "phase_b_grouped": cuda_grouped_pairs,
     "phase_b_blocks": cuda_block_pairs,
+    "newton_rows_cols": cuda_gravity_rc,
 }
 KERNEL_INFO = {
     "phase_a_cells": (
@@ -197,6 +215,11 @@ KERNEL_INFO = {
     "phase_b_blocks": (
         "sphtpu_torch/kernels/csrc/phase_b_grouped.cu",
         "sphtpu/kernels/pallas_block_pairs.py:230",
+    ),
+    "newton_rows_cols": (
+        "sphtpu_torch/kernels/csrc/newton_sweep.cu",
+        "sphtpu/kernels/pallas_gravity.py:99 (K3's function, rows x columns: the sharded "
+        "sweeps sphtpu/shard/tiles.py:862 and sphtpu/shard/mlevel.py:60 are XLA)",
     ),
 }
 
@@ -968,6 +991,14 @@ def drive_cli(root: str, n: int, kh: int = 50, generate: bool = True):
     res = cli.LAST_RUN
     if rc != 0 or res is None:
         raise AssertionError("--run failed")
+    checks, drift = run_checks(root, res, n)
+    return res, counts, checks, drift
+
+
+def run_checks(root: str, res, n: int):
+    """The checks every 4-step path's run must pass (steps, no fallback,
+    the stats file, the energy drift, the snapshots read back): (checks,
+    energy drift)."""
     checks = {
         "float32": res["state"].pos.dtype == torch.float32,
         "on the card": res["state"].pos.device.type == DEVICE,
@@ -994,7 +1025,7 @@ def drive_cli(root: str, n: int, kh: int = 50, generate: bool = True):
             and snap["K"].shape == (n,)
         )
     checks["snapshots 1, 3, 4"] = res["snapshot_ids"] == [1, 3, 4]
-    return res, counts, checks, drift
+    return checks, drift
 
 
 def walls_summary(res, n):
@@ -1022,11 +1053,13 @@ def phase_exact_path(tmp: str, gpu_line: str, kh: int):
     if kh == 50:
         engine = {"one config, mono-tile": len(res["configs"]) == 1 and n_cls == 0}
         want = {"phase_a_cells": 0, "phase_b_tiles": 8, "newton_sweep": 8,
-                "phase_a_tile": 8, "p3m_tail": 0, "phase_b_grouped": 0, "phase_b_blocks": 0}
+                "phase_a_tile": 8, "p3m_tail": 0, "phase_b_grouped": 0, "phase_b_blocks": 0,
+                "newton_rows_cols": 0}
     else:
         engine = {"one config, with tile_classes": len(res["configs"]) == 1 and n_cls > 0}
         want = {"phase_a_cells": 8 * n_cls, "phase_b_tiles": 8 * n_cls, "newton_sweep": 8,
-                "phase_a_tile": 0, "p3m_tail": 0, "phase_b_grouped": 0, "phase_b_blocks": 0}
+                "phase_a_tile": 0, "p3m_tail": 0, "phase_b_grouped": 0, "phase_b_blocks": 0,
+                "newton_rows_cols": 0}
     checks = {
         **engine, "exact gravity": cfg.gravity == "exact", **checks,
         "kernel launches": counts == want,
@@ -1284,7 +1317,8 @@ def phase_p3m_path(tmp: str, gpu_line: str):
         "tail stencil W = 2": cfg.c_halfwidth == 2,
         "kernel launches": counts
         == {"phase_a_cells": 0, "phase_b_tiles": 8, "newton_sweep": 0,
-            "phase_a_tile": 8, "p3m_tail": 8, "phase_b_grouped": 0, "phase_b_blocks": 0},
+            "phase_a_tile": 8, "p3m_tail": 8, "phase_b_grouped": 0, "phase_b_blocks": 0,
+                "newton_rows_cols": 0},
     })
     failed = [k for k, v in checks.items() if not v]
     walls = walls_summary(res, N_P3M)
@@ -2408,6 +2442,426 @@ def phase_offpath(gpu_line):
         raise AssertionError(f"off-path checks failed: {failed}")
 
 
+# --------------------------------------------------------------------------
+# the multi-device layer: four shards of the one card
+# --------------------------------------------------------------------------
+
+SHARDS = 4  # shards of the sharded paths, all on cuda:0
+# float32 bars of a sharded chunk or evaluation against the single-device
+# one on the same state (the summation orders differ): positions over the
+# position scale, stats over the largest stat, h and rho relative, forces
+# over the largest force
+SHARD_POS_TOL, SHARD_STATS_TOL, SHARD_ROW_TOL, SHARD_ACC_TOL = 1e-5, 1e-4, 1e-5, 1e-4
+
+
+def shard_mesh():
+    return [torch.device(DEVICE, 0)] * SHARDS
+
+
+def drive_sharded(root: str, n: int, generate: bool = True):
+    """boss_bodenheimer at N = n, Kh = 50 (generated unless snapshot 1 is
+    written) run four steps through run_simulation over SHARDS shards of
+    the card, launch counts set to 0 just before the run and read just
+    after: (summary, counts, checks, energy drift)."""
+    from sphtpu_torch.engine.driver import run_simulation
+
+    common = ["--EOS", "polytropic", "--ic_type", "boss_bodenheimer", "--root", root]
+    if generate and cli.main(["--generate", *common, "--kwargs", f"N={n},Kh=50"]) != 0:
+        raise AssertionError("--generate failed")
+    reset_counts()
+    res = run_simulation(
+        "polytropic", "boss_bodenheimer", snap_id=1, snap_interval=2, keep_snaps=True,
+        show_plots=False, root=root, n_devices=SHARDS, devices=shard_mesh(), max_steps=4,
+        verbose=False,
+    )
+    sync()
+    counts = {name: mod.launches for name, mod in MODULES.items()}
+    checks, drift = run_checks(root, res, n)
+    checks.update({
+        "sharded chunks >= 1": res["sharded_chunks"] >= 1,
+        "0 single-device chunks": res["single_chunks"] == 0,
+        "0 failed certificates": res["shard_replans"] == 0,
+    })
+    return res, counts, checks, drift
+
+
+def slab_counts_want(p3m: bool, evals: int = 8) -> dict:
+    """Launches of `evals` slab evaluations over SHARDS shards: K4 and K2
+    once a shard; under P3M the tail once a shard, else K3's rows x columns
+    entry once a shard and ring round."""
+    want = {name: 0 for name in MODULES}
+    want.update(phase_a_tile=evals * SHARDS, phase_b_tiles=evals * SHARDS)
+    if p3m:
+        want["p3m_tail"] = evals * SHARDS
+    else:
+        want["newton_rows_cols"] = evals * SHARDS * SHARDS
+    return want
+
+
+def host64(t):
+    return t.detach().double().cpu().numpy()
+
+
+def chunk_errors(pos, stats, h, pos_r, stats_r, h_r):
+    """(pos error over the position scale, stats error over the largest
+    stat, largest relative h error) of a chunk against a reference chunk."""
+    scale = np.abs(pos_r).max()
+    return (float(np.abs(pos - pos_r).max() / scale),
+            float(np.abs(stats - stats_r).max() / (np.abs(stats_r).max() + 1e-30)),
+            float((np.abs(h - h_r) / np.abs(h_r)).max()))
+
+
+def timed(fn):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def phase_shard_slabs(tmp: str, gpu_line: str, p3m: bool):
+    """The headline scene (N = 1e5, exact gravity) or the P3M scene (N =
+    2e5, gravity "auto") through run_simulation over SHARDS shards of the
+    card: the z-slab tile engine (K4, K2 on every shard; K3's rows x
+    columns entry in the ring, or the tail kernel under P3M). Then one
+    2-step slab chunk of the run's final state against the single-device
+    mono-tile chunk on the same state and the same (grid, cap), both timed
+    here; and one evaluation whose K4, K2 and tail launches are held
+    against their plain versions (`slab_kernel_checks`) and whose ring's
+    K3 launches are captured for the kernels line. Returns (the run's
+    launch counts, the ring's K3 calls, the slab kernels' report)."""
+    from sphtpu_torch.shard import tiles as shard_tiles
+    from sphtpu_torch.shard.collectives import particle_mesh, run_spmd
+    from sphtpu_torch.shard.step import replicate
+
+    n = N_P3M if p3m else N_MAIN
+    name = "slab_p3m_n2e5_x4" if p3m else "slab_exact_n1e5_x4"
+    res, counts, checks, drift = drive_sharded(os.path.join(tmp, name), n)
+    grav = "p3m" if p3m else "exact"
+    checks["every chunk on slabs"] = set(res["chunk_engines"]) == {"slabs"}
+    checks["kernel launches"] = counts == slab_counts_want(p3m)
+
+    st, p = res["state"], res["params"]
+    pos_h, h_h = host64(st.pos), host64(res["h_last"])
+    plan = shard_tiles.plan_slabs(pos_h, h_h, 50, SHARDS, chunk_steps=2)
+    if plan is None:
+        raise AssertionError(f"{name}: no slab plan on the final state")
+    cfg = EngineConfig(n=n, kh=50, eos="polytropic", tile=(plan.grid, plan.cap), gravity=grav)
+    mesh = particle_mesh(shard_mesh())
+    slab_run = shard_tiles.make_slab_chunk_runner(cfg, plan, mesh)
+    mono_run = make_chunk_runner(cfg, device=DEVICE)
+    slab_run(shard_tiles.pack_state(st, plan, mesh), p, 1)  # warm-up of both
+    mono_run(st, p, res["h_last"], 1)
+    (sl2, stats_s, valid_s, cert_s, h_rows, _), t_slab = timed(
+        lambda: slab_run(shard_tiles.pack_state(st, plan, mesh), p, 2))
+    (st_m, stats_m, valid_m, h_m, _, nfb_m), t_mono = timed(
+        lambda: mono_run(st, p, res["h_last"], 2))
+    pos_s = host64(shard_tiles.unpack_state(sl2, plan, n).pos)
+    h_s = shard_tiles.unpack_rows(np.concatenate([host64(x) for x in h_rows]), plan, n)
+    errs = chunk_errors(pos_s, host64(stats_s), h_s, host64(st_m.pos), host64(stats_m),
+                        host64(h_m))
+    checks.update({
+        "slab chunk certified": bool(valid_s.all()) and not bool(cert_s.any()),
+        "single-device chunk certified": bool(valid_m.all()) and int(nfb_m.sum()) == 0,
+        "pos vs single device": errs[0] <= SHARD_POS_TOL,
+        "stats vs single device": errs[1] <= SHARD_STATS_TOL,
+        "h vs single device": errs[2] <= SHARD_ROW_TOL,
+    })
+
+    # one evaluation of the final state split by stage (the card synchronised
+    # at each stage's ends), recording its launches of K4, K2, the tail and
+    # the ring's K3 rows x columns entry
+    caught = {name: [] for name in SLAB_KERNELS}
+
+    def rec(name):
+        def wrap(orig):
+            def run(*a, **kw):
+                caught[name].append((a, kw))
+                return orig(*a, **kw)
+            return run
+        return wrap
+
+    ev = shard_tiles.make_slab_force_eval(cfg, plan)
+    ghat = (greens_hat(cfg.mesh_pad, cfg.sigma_cells, torch.float32, DEVICE) if p3m else None)
+    packed = shard_tiles.pack_state(st, plan, mesh)
+    ps = replicate(p, mesh)
+    ghats = [None if ghat is None else ghat.to(d) for d in mesh]
+    with contextlib.ExitStack() as patches:
+        for kname in SLAB_KERNELS:
+            patches.enter_context(patched(shard_tiles, kname, rec(kname)))
+        out, stage_s = timed_eval(lambda clock: _with_stage(shard_tiles, clock, lambda: run_spmd(
+            [ev(ps[k], k, s.pos, s.vel, s.K, s.valid, ghats[k])
+             for k, s in enumerate(packed)])))
+    checks["captured evaluation certified"] = all(bool(o[2]) for o in out)
+    del out
+    calls = caught.pop("newton_rows_cols")
+    slab_kernels = slab_kernel_checks(caught)
+    checks["the slab's K4, K2 (and tail) launches held against their plain versions"] = (
+        all(v["launches_checked"] == SHARDS for v in slab_kernels.values())
+        and set(slab_kernels) == ({"phase_a_tile", "phase_b_tiles", "p3m_tail"} if p3m
+                                  else {"phase_a_tile", "phase_b_tiles"}))
+    del caught
+    failed = [k for k, v in checks.items() if not v]
+    walls = walls_summary(res, n)
+    say(name, card=gpu_line, shards=SHARDS, devices=[str(d) for d in mesh],
+        scene=f"boss_bodenheimer polytropic N={n} Kh=50 float32 gravity={grav}",
+        plan_of_run=[{"grid": c.tile[0], "cap": c.tile[1]} for c in res["configs"]],
+        plan_final_state={"grid": plan.grid, "cap": plan.cap, "lz_max": plan.lz_max,
+                          "halo": plan.halo, "hops": plan.hops, "budget": plan.budget,
+                          "n_loc": plan.n_loc, "z0s": [int(z) for z in plan.z0s],
+                          "real_rows": shard_tiles.real_rows(plan)},
+        steps=res["steps"], fallback_evals=res["fallback_evals"],
+        sharded_chunks=res["sharded_chunks"], single_chunks=res["single_chunks"],
+        shard_replans=res["shard_replans"], chunk_engines=res["chunk_engines"],
+        launches=counts, energy_drift=drift, **walls,
+        chunk_2_steps_s={"slabs_x4": t_slab, "single_device": t_mono,
+                         "s_per_step_slabs_x4": t_slab / 2, "s_per_step_single": t_mono / 2},
+        errors_vs_single={"pos_over_scale": errs[0], "stats_over_max": errs[1],
+                          "h_rel": errs[2]},
+        eval_seconds_by_stage=stage_s, slab_kernels_vs_plain=slab_kernels,
+        tolerances=[SHARD_POS_TOL, SHARD_STATS_TOL, SHARD_ROW_TOL],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        snapshot_ids=res["snapshot_ids"], runtime_s=res["runtime_s"], failed=failed)
+    if failed:
+        raise AssertionError(f"{name} checks failed: {failed}")
+    return counts, calls, slab_kernels
+
+
+SLAB_KERNELS = ("phase_a_tile", "phase_b_tiles", "p3m_tail", "newton_rows_cols")
+
+
+def slab_kernel_checks(caught):
+    """A slab evaluation's K4, K2 and tail launches (one a shard, at the
+    slab's shapes: n_cells = qz * grid^2 query cell rows, the tail over nz
+    = qz layers) against their plain versions: every shard's launch as the
+    run made it (float32) and shard 0's cast to float64, with
+    check_phase_a's and check_phase_b's bars; two launches on the same
+    inputs give the same bits. Returns, per kernel: the launches checked,
+    the largest error (absolute, and over its output's scale for K2 and
+    the tail), K4's tie rows, and ms and plain ms summed over the shards'
+    float32 launches. Raises on a failed check."""
+    report = {}
+    for name, calls in caught.items():
+        if not calls:
+            continue
+        d = report.setdefault(name, dict(launches_checked=0, max_abs_err=0.0,
+                                         max_err_over_scale=0.0, tie_rows=0, ms=0.0,
+                                         plain_ms=0.0, n_cells=[], float64_max_abs_err=0.0))
+        for k, (args, kw) in enumerate(calls):
+            for dtype in (torch.float32, torch.float64) if k == 0 else (torch.float32,):
+                a = args if dtype == torch.float32 else cast_args(args, dtype)
+                if name == "phase_a_tile":
+                    fn, plain = cuda_knn.phase_a_tile, cuda_knn.phase_a_tile_plain
+                elif name == "phase_b_tiles":
+                    fn, plain = cuda_tile_pairs.phase_b_tiles, cuda_tile_pairs.phase_b_tiles_plain
+                else:
+                    fn, plain = cuda_p3m_tail.p3m_tail, cuda_p3m_tail.p3m_tail_plain
+                out_k = fn(*a, **kw)
+                if not same_bits(out_k, fn(*a, **kw)):
+                    raise AssertionError(f"{name} (slab shard {k}, {dtype}): two launches differ")
+                out_p, plain_s = timed(lambda: plain(*a, **kw))
+                if name == "phase_a_tile":
+                    cands, s2, cap = a[0], a[1], kw["cap"]
+                    queries = tuple(c[:, 13 * cap : 14 * cap] for c in cands)
+                    reach2 = torch.as_tensor(s2, dtype=dtype, device=cands[0].device).expand(
+                        cands[0].shape[0], cap)
+                    err, ties = check_phase_a(*out_k, *out_p, queries, reach2, cands,
+                                              2e-5 if dtype == torch.float32 else 1e-12)
+                    d["tie_rows"] += ties
+                    rel = 0.0
+                else:
+                    rel = check_phase_b(out_k, out_p, dtype, **(
+                        {} if name == "phase_b_tiles"
+                        else dict(names=TAIL_OUTPUTS, kernel="p3m_tail")))[0]
+                    err = max(float((x - y).abs().max()) for x, y in zip(out_k, out_p))
+                if dtype == torch.float64:
+                    d["float64_max_abs_err"] = max(d["float64_max_abs_err"], err)
+                    continue
+                d["launches_checked"] += 1
+                d["max_abs_err"] = max(d["max_abs_err"], err)
+                d["max_err_over_scale"] = max(d["max_err_over_scale"], rel)
+                d["plain_ms"] += plain_s * 1e3
+                d["ms"] += time_ms(lambda: fn(*a, **kw))
+                d["n_cells"].append(int(a[1][0].shape[0] if name == "phase_b_tiles"
+                                        else a[0][0].shape[0] if name == "phase_a_tile"
+                                        else kw.get("nz") * kw["grid"] ** 2))
+                del out_k, out_p
+        d["nz"] = [kw.get("nz") for _, kw in calls] if name == "p3m_tail" else None
+        d["runs_bit_identical"] = True
+    return report
+
+
+def _with_stage(module, clock, fn):
+    """fn() with module.stage timed by clock."""
+    with patched(module, "stage", lambda orig: clock):
+        return fn()
+
+
+def rc_cases(calls, row_sharded):
+    """The rows x columns launches to hold against the plain version: the
+    ring's captured calls, and the work-sharded row split of a state
+    (`row_sharded`: (pos, m); 1/SHARDS of the rows against all N)."""
+    from sphtpu_torch.shard.mlevel import _ceil_to
+
+    cases = [("ring", a, kw) for a, kw in calls]
+    pos, m = row_sharded
+    n = pos.shape[0]
+    per = _ceil_to(n, 8 * SHARDS) // SHARDS
+    for k in range(SHARDS):
+        r0, r1 = min(k * per, n), min((k + 1) * per, n)
+        cases.append(("row_sharded", (pos[r0:r1], pos, None, m), {}))
+    return cases
+
+
+def rc_entry(calls, row_sharded, counts):
+    """K3's rows x columns entry against its plain version on the ring's and
+    the row-sharded inputs, in float32 (g within 2e-4 of the largest |g|,
+    phi relative 2e-4, K3's bars) and float64 (1e-10), with two launches
+    bit-identical. The entry's time is the ring's launches of one
+    evaluation (CUDA events around each wrapper, summed) beside the plain
+    version's and the bound: n_rows x n_cols x 20 operations at 67 TFLOP/s,
+    or the bytes (rows and g, phi: 7 values a row; columns and weights: 4 a
+    column), whichever is larger."""
+    err = 0.0
+    by_kind = {}
+    for kind, args, kw in rc_cases(calls, row_sharded):
+        for dtype in (torch.float32, torch.float64):
+            a = tuple(x.to(dtype) if isinstance(x, torch.Tensor) else x for x in args)
+            g_k, p_k = cuda_gravity_rc.newton_rows_cols(*a, **kw)
+            g_k2, p_k2 = cuda_gravity_rc.newton_rows_cols(*a, **kw)
+            sync()
+            g_p, p_p = cuda_gravity_rc.newton_rows_cols_plain(*a, **kw)
+            rtol = 2e-4 if dtype == torch.float32 else 1e-10
+            g_err = float((g_k - g_p).abs().max())
+            live = p_p != 0
+            p_err = float(((p_k - p_p).abs()[live] / p_p.abs()[live]).max()) if live.any() else 0.0
+            if g_err > rtol * float(g_p.abs().max()) or p_err > rtol:
+                raise AssertionError(f"newton_rows_cols {kind} {dtype}: g {g_err}, phi {p_err}")
+            if not (torch.equal(g_k, g_k2) and torch.equal(p_k, p_k2)):
+                raise AssertionError("newton_rows_cols: two launches on the same input differ")
+            if dtype == torch.float32:
+                err = max(err, g_err, float((p_k - p_p).abs().max()))
+        nr = kw.get("n_rows") or args[0].shape[0]
+        nc = kw.get("n_cols") or args[1].shape[0]
+        d = by_kind.setdefault(kind, dict(launches=0, pairs=0.0, bytes=0.0, ms=0.0,
+                                          plain_ms=0.0, plans=[]))
+        d["launches"] += 1
+        d["pairs"] += float(nr) * nc
+        d["bytes"] += (7.0 * nr + 4.0 * nc) * 4
+        d["ms"] += time_ms(lambda: cuda_gravity_rc.newton_rows_cols(*args, **kw))
+        d["plain_ms"] += time_ms(lambda: cuda_gravity_rc.newton_rows_cols_plain(*args, **kw),
+                                 iters=1, warmup=0)
+        d["plans"].append(list(cuda_gravity_rc.split_plan(
+            nr, nc, build.device_limits(DEVICE)[0], torch.float32)))
+    peak = PEAK_FLOPS[torch.float32]
+    for v in by_kind.values():
+        v.update(bound(v["pairs"] * K3_FLOPS_PER_PAIR, v["bytes"], peak))
+    ring = by_kind["ring"]
+    return kernel_entry(
+        "newton_rows_cols", counts, err, ring["ms"], ring["plain_ms"],
+        ring["pairs"] * K3_FLOPS_PER_PAIR, ring["bytes"], peak,
+        inputs="the ring's launches of one evaluation of the headline scene's final state "
+               "over 4 shards (n_rows x n_cols: the shards' real rows)",
+        runs_bit_identical=True, rtol_of_max={"float32": 2e-4, "float64": 1e-10},
+        by_input=by_kind)
+
+
+def phase_shard_work(tmp: str, gpu_line: str):
+    """bb_collapsed.npz through run_simulation over SHARDS shards of the
+    card: no slab plan certifies, so the work-sharded block engine carries
+    every chunk (K1 once a bucket and shard, K5 once a shard, K3's rows x
+    columns entry once a shard, an evaluation). One evaluation of the final
+    state work-sharded against the single-device block engine; then one
+    bb_collapsed_deep.npz evaluation on the work-sharded multi-level engine
+    against the single-device one. Returns (counts of the run, the
+    row-sharded K3 inputs, the counts of the multi-level evaluation)."""
+    from sphtpu_torch.shard.collectives import run_spmd
+    from sphtpu_torch.shard.mlevel import _newton_rows_sharded
+
+    root = os.path.join(tmp, "shard_work")
+    write_collapse_snapshot(root, COLLAPSE)
+    res, counts, checks, drift = drive_sharded(root, N_MAIN, generate=False)
+    cfgs = res["chunk_configs"]
+    n_buckets = len(cfgs[0].blocks[0]) if cfgs and cfgs[0].blocks is not None else 0
+    want = {name: 0 for name in MODULES}
+    want.update(phase_a_cells=8 * n_buckets * SHARDS, phase_b_grouped=8 * SHARDS,
+                newton_rows_cols=8 * SHARDS)
+    checks.update({
+        "every chunk on the work-sharded block engine":
+            set(res["chunk_engines"]) == {"blocks_sharded"},
+        "exact gravity": all(c.gravity == "exact" for c in cfgs),
+        "kernel launches": counts == want,
+    })
+
+    st, p = res["state"], res["params"]
+    pos_h, h_h = host64(st.pos), host64(res["h_last"])
+    n = pos_h.shape[0]
+
+    def compare(engine, plan_fn, body, single, st, p, h, pos_h, h_h):
+        planned = plan_fn(pos_h, h_h, KH_COLLAPSE, gravity="exact", shards=SHARDS)
+        if planned is None:
+            raise AssertionError(f"{engine}: no plan on the state")
+        spec, args = planned
+        cfg = EngineConfig(n=n, kh=KH_COLLAPSE, eos="polytropic", gravity="exact",
+                           **{engine: spec})
+        dev_args = (blocks.block_args_to_device(args, torch.float32, DEVICE)
+                    if engine == "blocks" else mlevel.mlevel_args_to_device(args, DEVICE))
+        kw = dict(eos=cfg.eos, gamma=p.gamma, cs0=p.cs0, alpha=p.alpha, beta=p.beta,
+                  kh=cfg.kh, spec=spec, mesh_factor=cfg.mesh_factor, sigma_cells=cfg.sigma_cells)
+        if engine == "blocks":
+            kw["gravity"] = "exact"
+        (red1, gc1, ok1), t1 = timed(lambda: single(st.pos, st.vel, p.m, st.K, h, dev_args, **kw))
+        reset_counts()
+        outs, t4 = timed(lambda: run_spmd([
+            body(st.pos, st.vel, p.m, st.K, h, dev_args, shard=k, n_shards=SHARDS, **kw)
+            for k in range(SHARDS)]))
+        sync()
+        ev_counts = {name: mod.launches for name, mod in MODULES.items()}
+        red4, gc4, ok4 = outs[0]
+        acc1 = red1.acc - torch.stack(gc1[:3], 1)
+        acc4 = red4.acc - torch.stack(gc4[:3], 1)
+        errs = {
+            "acc_over_max": float((acc4 - acc1).abs().max() / acc1.abs().max()),
+            "h_rel": float(((red4.h - red1.h).abs() / red1.h).max()),
+            "rho_rel": float(((red4.rho - red1.rho).abs() / red1.rho).max()),
+        }
+        ok = (bool(ok1) and all(bool(o[2]) for o in outs)
+              and errs["acc_over_max"] <= SHARD_ACC_TOL and errs["h_rel"] <= SHARD_ROW_TOL
+              and errs["rho_rel"] <= SHARD_ROW_TOL)
+        return ok, dict(errors=errs, seconds_single=t1, seconds_x4=t4, launches=ev_counts,
+                        plan=[list(b) for b in spec[0]] if engine == "blocks"
+                        else [[g, c, [list(b) for b in bk]] for g, c, bk in spec[0]])
+
+    ok_b, blk = compare("blocks", blocks.plan_blocks, blocks.block_forces_body,
+                        blocks.block_sph_forces, st, p, res["h_last"], pos_h, h_h)
+    checks["block evaluation vs single device"] = ok_b
+    # the far field of the work-sharded engines against K3's whole sweep
+    g4 = run_spmd([_newton_rows_sharded(st.pos, p.m, k, SHARDS) for k in range(SHARDS)])[0][0]
+    g1, _ = cuda_gravity.newton_sweep(st.pos, p.m)
+    g_err = float((g4 - g1).abs().max() / g1.abs().max())
+    checks["row-sharded far field vs K3"] = g_err <= 2e-4
+
+    pos_d, h_d, st_d, p_d, h_dev = deep_state()
+    ok_m, ml = compare("mlevel", mlevel.plan_mlevel, mlevel.mlevel_forces_body,
+                       mlevel.mlevel_sph_forces, st_d, p_d, h_dev, pos_d, h_d)
+    checks["multi-level evaluation vs single device"] = ok_m
+    failed = [k for k, v in checks.items() if not v]
+    say("shard_work", card=gpu_line, shards=SHARDS,
+        scene=f"bb_collapsed.npz (contrast 395) polytropic N={N_MAIN} Kh={KH_COLLAPSE} float32",
+        slab_plan_declines=True, steps=res["steps"], fallback_evals=res["fallback_evals"],
+        sharded_chunks=res["sharded_chunks"], single_chunks=res["single_chunks"],
+        shard_replans=res["shard_replans"], chunk_engines=res["chunk_engines"],
+        buckets=[list(b) for b in cfgs[0].blocks[0]] if n_buckets else None,
+        launches=counts, energy_drift=drift, **walls_summary(res, N_MAIN),
+        block_eval_vs_single=blk, far_field_rel_err_vs_k3=g_err,
+        mlevel_deep_eval_vs_single=ml,
+        tolerances={"acc": SHARD_ACC_TOL, "h_rho": SHARD_ROW_TOL, "far_field": 2e-4},
+        snapshot_ids=res["snapshot_ids"], runtime_s=res["runtime_s"], failed=failed)
+    if failed:
+        raise AssertionError(f"shard_work checks failed: {failed}")
+    return counts, (st.pos, p.m), ml["launches"]
+
+
 def kernel_entry(name, counts, err, ms, plain_ms, flops, byts, peak, **extra):
     source, replaces = KERNEL_INFO[name]
     return {
@@ -2551,6 +3005,16 @@ def main() -> int:
         by_path.update(counts_out)
         by_path["outlier_ladder"] = phase_outlier_ladder(tmp, gpu_line)
         phase_offpath(gpu_line)
+        torch.cuda.empty_cache()
+        by_path["slab_exact_n1e5_x4"], ring_calls, slab_exact = phase_shard_slabs(
+            tmp, gpu_line, p3m=False)
+        torch.cuda.empty_cache()
+        by_path["slab_p3m_n2e5_x4"], _, slab_p3m = phase_shard_slabs(tmp, gpu_line, p3m=True)
+        torch.cuda.empty_cache()
+        (by_path["blocks_sharded_collapse_x4"], row_sharded,
+         by_path["mlevel_sharded_deep_eval_x4"]) = phase_shard_work(tmp, gpu_line)
+        rc = rc_entry(ring_calls, row_sharded, by_path["slab_exact_n1e5_x4"])
+        del ring_calls, row_sharded
     entries[0]["on_collapse_path"] = k1_blk
     entries[0]["on_mlevel_path"] = k1_ml
     entries[1]["on_exact_path"] = k2_exact
@@ -2564,7 +3028,12 @@ def main() -> int:
         "rows", "cap", "occupied_pairs", "pairs_in_radius", "valid_queries", "overflowed",
         "overflow_share", "forced_overflow_share", "forced_overflow_h_ok_equal",
         "streamed_equal", "list_len_stage")}
-    entries += [k4, tail, k5, k6]
+    k4["on_slab_exact_path"] = slab_exact["phase_a_tile"]
+    k4["on_slab_p3m_path"] = slab_p3m["phase_a_tile"]
+    entries[1]["on_slab_exact_path"] = slab_exact["phase_b_tiles"]
+    entries[1]["on_slab_p3m_path"] = slab_p3m["phase_b_tiles"]
+    tail["on_slab_p3m_path"] = slab_p3m["p3m_tail"]
+    entries += [k4, tail, k5, k6, rc]
     for e in entries:
         e["launches_by_path"] = {path: c[e["name"]] for path, c in by_path.items()}
     side = (k2_exact, k2_p3m, k4["on_exact_path"], k1_blk, entries[2]["on_exact_path"], k1_ml,

@@ -83,7 +83,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tile-path far field: exact N^2 sweep or P3M FFT "
                         "mesh (auto: P3M from N = 150 000 on)")
     p.add_argument("--n-devices", type=int, default=1,
-                   help="Devices to shard over; only 1 is ported so far")
+                   help="Shards of the sharded engines (z-slab tile engine, "
+                        "work-sharded block and multi-level engines): the "
+                        "first N CUDA devices, or N CPU shards with "
+                        "--device cpu")
     p.add_argument("--device", default=None,
                    help="torch device of the run; default: cuda (an error "
                         "if there is none). 'cpu' runs the plain PyTorch "

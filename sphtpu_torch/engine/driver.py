@@ -14,7 +14,14 @@ final snapshot; showPlots additionally renders PNG figures.
 A chunk runs to the next snapshot boundary: there is no cap on the steps
 of one dispatch, except on the block-compact and the multi-level engines,
 whose chunks are ML_SUBCHUNK steps long (their plans are refreshed between
-them).
+them), and on the sharded path (n_devices > 1), whose chunks are at most
+MAX_SCAN_STEPS long and sized by `_wall_cap` as the reference's are.
+
+n_devices > 1 runs the multi-device layer (sphtpu_torch/shard/) over a mesh
+of shards in one process: the z-slab tile engine when a slab plan
+certifies, else the work-sharded block engine, else the work-sharded
+multi-level engine, else the chunk runs on one device
+(`run_chunk_sharded`).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ..physics.mlevel import mlevel_args_still_ok, plan_mlevel
 from ..physics.tiles import choose_tile_params, choose_tile_params_ml, tile_params_still_ok
 from ..profiling import StageTimer
 from ..units import UnitSystem
+from ..shard.collectives import particle_mesh
 from .config import EngineConfig, params_from_numpy, state_from_numpy
 from .step import make_chunk_runner
 
@@ -51,6 +59,15 @@ P3M_MIN_N = 150_000
 # and refreshing them between short chunks (`block_args_for_spec`,
 # `mlevel_args_still_ok`) is a host pass that keeps the spec.
 ML_SUBCHUNK = 2
+
+# The sharded path's dispatch limits, the reference's: at most
+# MAX_SCAN_STEPS steps a chunk (the slab plan's halo is sized for the
+# chunk's length: plan_slabs(chunk_steps=...)), and chunks sized under
+# DISPATCH_WALL_BUDGET_S of wall from the measured s/step (`_wall_cap`).
+MAX_SCAN_STEPS = 10
+DISPATCH_WALL_BUDGET_S = 40.0
+# slab plans kept for reuse (hysteresis), most recent first
+MAX_SLAB_PLANS = 8
 
 
 def plan_engine(pos_host, h_host, *, n: int, kh: int, eos: str, dtype: str,
@@ -193,6 +210,7 @@ def run_simulation(
     max_steps: Optional[int] = None,
     verbose: bool = True,
     device=None,
+    devices=None,
 ) -> dict:
     """Run from snapshot `snap_id` until tEnd (or max_steps). Returns a
     summary dict (steps run, final time, last stats row, snapshot ids).
@@ -208,13 +226,45 @@ def run_simulation(
     correction; "auto" is p3m at N >= P3M_MIN_N, else exact. The gather
     engine's gravity is always the exact softened all-pairs sum.
     device: None means the card ("cuda"); only an explicit "cpu" runs on
-    the CPU."""
+    the CPU.
+
+    n_devices > 1 runs the sharded engines over a mesh of n_devices shards
+    in this process (sphtpu_torch/shard/): with devices=None the first
+    n_devices CUDA devices (ValueError when fewer are visible), or
+    n_devices CPU shards when device="cpu"; an explicit `devices` list
+    (four "cuda:0", say: shards may share a device) sets the mesh itself.
+    The result counts `sharded_chunks`, `shard_replans` (chunks whose
+    collective certificate failed and froze) and `single_chunks` (chunks
+    no sharded engine planned, run on one device). multihost (one mesh
+    across processes) is slice 5b of the port and raises."""
     start_wall = time.time()
-    dev = resolve_device(device)
-    if n_devices > 1 or multihost:
+    if multihost:
         raise NotImplementedError(
-            "the multi-device layer arrives with slice 5 of the port"
+            "multihost runs (one mesh across processes, torch.distributed) "
+            "arrive with slice 5b of the port"
         )
+    mesh = None
+    if devices is not None:
+        mesh = particle_mesh(devices)
+        if len(mesh) != n_devices:
+            raise ValueError(f"n_devices={n_devices} but {len(mesh)} devices given")
+        for d in mesh:
+            resolve_device(d)
+        if len({d.type for d in mesh}) != 1:
+            raise ValueError("the shards of one mesh must be of one device type")
+    elif n_devices > 1:
+        if device is not None and torch.device(device).type == "cpu":
+            mesh = particle_mesh(["cpu"] * n_devices)
+        else:
+            visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if visible < n_devices:
+                raise ValueError(
+                    f"n_devices={n_devices} but only {visible} devices visible"
+                )
+            mesh = particle_mesh([f"cuda:{i}" for i in range(n_devices)])
+    if mesh is not None and len(mesh) < 2:
+        mesh = None
+    dev = mesh[0] if mesh is not None else resolve_device(device)
     snap = read_snapshot(snapshot_path(root, ic_type, str(snap_id)))
     c = dict(snap["constants"])
     n = int(c["N"])
@@ -305,6 +355,118 @@ def run_simulation(
             pos_host, h_host, n=n, kh=kh, eos=eos, dtype=dtype, gravity=grav
         )
         return plan if plan is not None else (base_cfg, None)
+
+    if mesh is not None:
+        from ..shard.blocks import make_blocks_chunk_runner
+        from ..shard.mlevel import make_ml_chunk_runner
+        from ..shard.tiles import (
+            make_slab_chunk_runner,
+            pack_state,
+            plan_slabs,
+            slab_plan_still_ok,
+            unpack_rows,
+            unpack_state,
+        )
+
+        # the sharded engines (sphtpu_torch/shard/): slab plans kept for
+        # reuse as [(cfg, plan, runner)], most recent first; block and
+        # multi-level runners by config
+        _slab_plans = []
+        _blk_cache = {}
+        _ml_cache = {}
+
+    def _fresh_h(state2):
+        """A failed certificate leaves h/rho at pre-freeze values: recompute
+        the planning h on the host so the re-plan sees the real state."""
+        pos2 = _host(state2.pos)
+        d_knn, _ = cKDTree(pos2).query(pos2, k=kh)
+        return d_knn[:, -1] / 2.0
+
+    def run_chunk_sharded(state, h_host, n_steps):
+        """One sharded chunk: (state', stats, valid, h_host', rho_host,
+        cert_fired, cfg, engine name), or None when neither a slab plan
+        (the z-slab tile engine) nor a work-sharded plan (block engine,
+        then multi-level engine) certifies; the caller then runs the chunk
+        on one device. Hysteresis: a kept slab plan, or a cached block or
+        multi-level spec, that still certifies on the current state (host
+        forecast) is reused before a fresh one is planned."""
+        pos_host = _host(state.pos)
+        hit = None
+        for entry in _slab_plans:
+            if entry[0].gravity == grav and slab_plan_still_ok(entry[1], pos_host, h_host):
+                hit = entry
+                break
+        if hit is None:
+            plan = plan_slabs(pos_host, h_host, kh, n_devices, chunk_steps=n_steps)
+            if plan is not None:
+                cfg_s = EngineConfig(
+                    n=n, kh=kh, eos=eos, dtype=dtype, tile=(plan.grid, plan.cap),
+                    gravity=grav,
+                )
+                hit = (cfg_s, plan, make_slab_chunk_runner(cfg_s, plan, mesh))
+                _slab_plans.insert(0, hit)
+                del _slab_plans[MAX_SLAB_PLANS:]
+        if hit is not None:
+            cfg_s, plan, chunk = hit
+            states, stats, valid, cert, h_rows, rho_rows = chunk(
+                pack_state(state, plan, mesh), params, n_steps
+            )
+            state2 = unpack_state(states, plan, n)
+            h2 = unpack_rows(np.concatenate([_host(h) for h in h_rows]), plan, n)
+            rho2 = unpack_rows(np.concatenate([_host(r) for r in rho_rows]), plan, n)
+            cert_fired = bool(cert.any())
+            if cert_fired:
+                h2 = _fresh_h(state2)
+                # a geometry the engine itself rejected is not re-picked
+                _slab_plans[:] = [e for e in _slab_plans if e is not hit]
+            return state2, stats, valid, h2, rho2, cert_fired, cfg_s, "slabs"
+
+        # no certifiable slab decomposition (deep collapse): the
+        # work-sharded engines, block-compact first, multi-level next
+        cfg_w = args = chunk = None
+        for c_, ch in _blk_cache.items():
+            if c_.gravity == grav:
+                a = block_args_for_spec(pos_host, h_host, c_.blocks, gravity=grav)
+                if a is not None:
+                    cfg_w, args, chunk = c_, a, ch
+                    break
+        if cfg_w is None:
+            blk = plan_blocks(pos_host, h_host, kh, gravity=grav, shards=n_devices)
+            if blk is not None:
+                spec, args = blk
+                cfg_w = EngineConfig(
+                    n=n, kh=kh, eos=eos, dtype=dtype, blocks=spec, gravity=grav
+                )
+                if cfg_w not in _blk_cache:
+                    _blk_cache[cfg_w] = make_blocks_chunk_runner(cfg_w, mesh)
+                chunk = _blk_cache[cfg_w]
+        if cfg_w is None:
+            for c_, ch in _ml_cache.items():
+                if c_.gravity == grav:
+                    a = mlevel_args_still_ok(pos_host, h_host, c_.mlevel)
+                    if a is not None:
+                        cfg_w, args, chunk = c_, a, ch
+                        break
+        if cfg_w is None:
+            ml = plan_mlevel(pos_host, h_host, kh, gravity=grav, shards=n_devices)
+            if ml is None:
+                return None
+            spec, args = ml
+            cfg_w = EngineConfig(n=n, kh=kh, eos=eos, dtype=dtype, mlevel=spec, gravity=grav)
+            if cfg_w not in _ml_cache:
+                _ml_cache[cfg_w] = make_ml_chunk_runner(cfg_w, mesh)
+            chunk = _ml_cache[cfg_w]
+        # short sub-chunks keep the plan's boxes and strip lists fresh
+        state2, stats, valid, cert, h_rows, rho_rows = chunk(
+            state, params, torch.as_tensor(h_host).to(device=dev, dtype=state.pos.dtype),
+            args, min(n_steps, ML_SUBCHUNK),
+        )
+        h2, rho2 = _host(h_rows), _host(rho_rows)
+        cert_fired = bool(cert.any())
+        if cert_fired:
+            h2 = _fresh_h(state2)
+        name = "blocks_sharded" if cfg_w.blocks is not None else "mlevel_sharded"
+        return state2, stats, valid, h2, rho2, cert_fired, cfg_w, name
 
     # bootstrap h for grid sizing (host KD-tree, code units)
     if engine == "auto":
@@ -443,6 +605,26 @@ def run_simulation(
 
     timer = StageTimer()
     total_fallbacks = 0
+    total_replans = 0  # sharded chunks whose collective certificate failed
+    total_sharded = 0  # chunks run by a sharded engine
+    total_single = 0  # chunks of a sharded run that ran on one device
+    consec_fail = 0
+    force_single = 0  # chunks to force onto the single-device path
+    # measured s/step of the sharded path: sizes its dispatches under
+    # DISPATCH_WALL_BUDGET_S (the first probe is stored as 0.0)
+    step_wall: dict = {}
+
+    def _wall_cap(key, n_steps):
+        """An unmeasured path is probed twice at ML_SUBCHUNK steps (the
+        first probe's wall is set-up dominated and stored as 0.0), then
+        the dispatch is sized from the measured s/step."""
+        sps = step_wall.get(key)
+        if sps is None or sps == 0.0:
+            return min(n_steps, ML_SUBCHUNK)
+        return max(min(n_steps, int(DISPATCH_WALL_BUDGET_S / sps)), 1)
+
+    def _wall_record(key, wall, n_steps):
+        step_wall[key] = 0.0 if key not in step_wall else wall / max(n_steps, 1)
     picked = []  # distinct configs in the order they were first used
     chunk_walls = []  # (steps run, wall seconds, fallback evals) per chunk
     pick_walls = []  # host planning (plan or refit) wall seconds before each chunk
@@ -460,26 +642,52 @@ def run_simulation(
         if max_steps is not None:
             n_steps = min(n_steps, max_steps - total_steps)
 
-        with timer("pick_grid"):
-            t_pick = time.perf_counter()
-            cfg, mlargs = pick_cfg(h_host, _host(state.pos))
-            chunk = get_chunk(cfg)
-            if cfg not in picked:
-                picked.append(cfg)
-            pick_walls.append(time.perf_counter() - t_pick)
-        if cfg.blocks is not None or cfg.mlevel is not None:
-            # the plan's boxes or strip lists drift with the state: short
-            # chunks keep them fresh (a host refit, same spec)
-            n_steps = min(n_steps, ML_SUBCHUNK)
-        with timer("chunk_steps"):
-            t_chunk = time.perf_counter()
-            state, stats_code, valid, h_dev, rho_dev, nfb = chunk(
-                state, params, h_dev, n_steps, mlargs
-            )
-            h_host = _host(h_dev)  # device -> host: the chunk has finished
-            rho_host = _host(rho_dev)
-            t_chunk = time.perf_counter() - t_chunk
-        n_fb = int(nfb.sum())
+        res = None
+        cert_fired = False
+        n_fb = 0
+        if mesh is not None and not force_single:
+            n_steps = _wall_cap("sharded", min(n_steps, MAX_SCAN_STEPS))
+            with timer("chunk_steps_sharded"):
+                t_chunk = time.perf_counter()
+                res = run_chunk_sharded(state, h_host, n_steps)
+                t_chunk = time.perf_counter() - t_chunk
+            if res is not None:
+                _wall_record("sharded", t_chunk, n_steps)
+        if res is not None:
+            state, stats_code, valid, h_host, rho_host, cert_fired, cfg, eng = res
+            h_dev = torch.as_tensor(h_host).to(device=dev, dtype=base_cfg.torch_dtype)
+            total_sharded += 1
+            if cert_fired:
+                total_replans += 1
+                if verbose:
+                    print("[shard] certification tripped; re-planning")
+        else:
+            if mesh is not None:
+                # no sharded plan (or forced off): this chunk runs on one
+                # device, correctness first
+                force_single = max(force_single - 1, 0)
+                total_single += 1
+            with timer("pick_grid"):
+                t_pick = time.perf_counter()
+                cfg, mlargs = pick_cfg(h_host, _host(state.pos))
+                chunk = get_chunk(cfg)
+                pick_walls.append(time.perf_counter() - t_pick)
+            if cfg.blocks is not None or cfg.mlevel is not None:
+                # the plan's boxes or strip lists drift with the state: short
+                # chunks keep them fresh (a host refit, same spec)
+                n_steps = min(n_steps, ML_SUBCHUNK)
+            with timer("chunk_steps"):
+                t_chunk = time.perf_counter()
+                state, stats_code, valid, h_dev, rho_dev, nfb = chunk(
+                    state, params, h_dev, n_steps, mlargs
+                )
+                h_host = _host(h_dev)  # device -> host: the chunk has finished
+                rho_host = _host(rho_dev)
+                t_chunk = time.perf_counter() - t_chunk
+            n_fb = int(nfb.sum())
+            eng = engine_name(cfg)
+        if cfg not in picked:
+            picked.append(cfg)
         total_fallbacks += n_fb
         if n_fb:
             # a plan the engine itself rejected is planned afresh
@@ -492,10 +700,19 @@ def run_simulation(
         valid = valid.cpu().numpy()
         n_valid = int(valid.sum())
         chunk_walls.append((n_valid, t_chunk, n_fb))
-        chunk_engines.append(engine_name(cfg))
+        chunk_engines.append(eng)
         chunk_configs.append(cfg)
         if n_valid == 0:
+            if cert_fired:
+                # no progress from a failed sharded chunk: the re-plan has
+                # fresh h; a second failure in a row sends the next chunk
+                # to the single-device path
+                consec_fail += 1
+                if consec_fail >= 2:
+                    force_single = 1
+                continue
             break
+        consec_fail = 0
         stats_cgs = _stats_to_cgs(stats_code[:n_valid], u)
         for j in range(n_valid):
             stats_file.update_row(iter_id + j, stats_cgs[j])
@@ -543,8 +760,10 @@ def run_simulation(
     return {
         "steps": total_steps,
         "fallback_evals": total_fallbacks,
-        "shard_replans": 0,
-        "sharded_chunks": 0,
+        "shard_replans": total_replans,
+        "sharded_chunks": total_sharded,
+        "single_chunks": total_single,
+        "n_devices": len(mesh) if mesh is not None else 1,
         "configs": picked,
         "chunk_walls": chunk_walls,
         "pick_walls": pick_walls,

@@ -221,54 +221,61 @@ def _diagnostics(cfg: EngineConfig, p: Params, state: State, sf, phi, vel_r2):
     )
 
 
+def kdk_body(cfg: EngineConfig, p: Params, state: State, h_hint, force):
+    """One step as a generator body (shard/collectives.py): force(pos, vel,
+    K, h_hint) is a generator body that returns (acc, reduced, phi,
+    fell_back), or None when the evaluation failed its certificate and the
+    step must not be taken. Returns (state', stats_row, h_new, rho_new,
+    n_fallbacks), or None after such a failure. make_step runs it on one
+    device, the work-sharded chunk runner (shard/mlevel.py) on every shard."""
+    pos, vel, K = state.pos, state.vel, state.K
+    out = yield from force(pos, vel, K, h_hint)
+    if out is None:
+        return None
+    acc, sf, phi, fb1 = out
+    dt = _adaptive_dt(p, sf, acc, vel)
+    vel_r2 = torch.sum(vel * vel, dim=1)
+    stats = _diagnostics(cfg, p, state, sf, phi, vel_r2)
+
+    # Leapfrog KDK with predictor-corrector (polytrope_sim.jl:208-227)
+    pos_half = pos + vel * (dt / 2.0)
+    vel_half = vel + acc * (dt / 2.0)
+    if cfg.eos == "polytropic":
+        K = evolve_K(K, sf.visc_dk, p.gamma, sf.rho, dt)
+    out2 = yield from force(pos_half, vel_half, K, sf.h)
+    if out2 is None:
+        return None
+    acc2, sf2, _, fb2 = out2
+    if cfg.eos == "polytropic":
+        K = evolve_K(K, sf2.visc_dk, p.gamma, sf2.rho, dt)
+    vel_new = vel + acc2 * dt
+    pos_new = pos + vel_new * dt - 0.5 * acc2 * dt**2
+    return State(pos_new, vel_new, K, state.t + dt), stats, sf2.h, sf2.rho, int(fb1) + int(fb2)
+
+
 def make_step(cfg: EngineConfig, *, device=None, grouped=True):
     """Returns step(state, params, h_hint, ghat=None, mlargs=None, aux=None)
     -> (state', stats_row, h_new, rho_new, n_fallbacks). n_fallbacks is a
     python int; ghat, mlargs, aux and grouped are force_eval's. device=None
     means the card."""
+    from ..shard.collectives import run_local
+
     dev = resolve_device(device)
 
     def step(state: State, p: Params, h_hint, ghat=None, mlargs=None, aux=None) -> Tuple:
-        pos, vel, K = state.pos, state.vel, state.K
-        acc, sf, phi, fb1 = force_eval(
-            cfg, p, pos, vel, K, h_hint, ghat, mlargs, aux, device=dev, grouped=grouped
-        )
-        dt = _adaptive_dt(p, sf, acc, vel)
-        vel_r2 = torch.sum(vel * vel, dim=1)
-        stats = _diagnostics(cfg, p, state, sf, phi, vel_r2)
+        def force(pos, vel, K, h):
+            return force_eval(
+                cfg, p, pos, vel, K, h, ghat, mlargs, aux, device=dev, grouped=grouped
+            )
+            yield  # a body with no collective
 
-        # Leapfrog KDK with predictor-corrector (polytrope_sim.jl:208-227)
-        pos_half = pos + vel * (dt / 2.0)
-        vel_half = vel + acc * (dt / 2.0)
-        if cfg.eos == "polytropic":
-            K = evolve_K(K, sf.visc_dk, p.gamma, sf.rho, dt)
-        acc2, sf2, _, fb2 = force_eval(
-            cfg, p, pos_half, vel_half, K, sf.h, ghat, mlargs, aux, device=dev,
-            grouped=grouped,
-        )
-        if cfg.eos == "polytropic":
-            K = evolve_K(K, sf2.visc_dk, p.gamma, sf2.rho, dt)
-        vel_new = vel + acc2 * dt
-        pos_new = pos + vel_new * dt - 0.5 * acc2 * dt**2
-        n_fb = int(fb1) + int(fb2)
+        new, stats, h, rho, n_fb = run_local(kdk_body(cfg, p, state, h_hint, force))
         if cfg.fallback == "none" and n_fb:
             # a failed certificate means the (uncertified) forces above
             # are not trusted: DISCARD the step — state unchanged, stats
             # zeroed, n_fb tells the caller to replan and re-dispatch.
-            return (
-                state,
-                torch.zeros_like(stats),
-                h_hint,
-                torch.zeros_like(sf2.rho),
-                n_fb,
-            )
-        return (
-            State(pos_new, vel_new, K, state.t + dt),
-            stats,
-            sf2.h,
-            sf2.rho,
-            n_fb,
-        )
+            return state, torch.zeros_like(stats), h_hint, torch.zeros_like(rho), n_fb
+        return new, stats, h, rho, n_fb
 
     return step
 

@@ -72,7 +72,9 @@ def _declare(libs) -> None:
         ("phase_b_tiles", "sph_phase_b_tiles",
          [pp, pp, vp, pp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]),
         ("newton_sweep", "sph_newton_sweep", [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]),
-        ("p3m_tail", "sph_p3m_tail", [pp, vp, pp, vp, vp, ci, ci, ci, ci, ci, vp]),
+        ("newton_sweep", "sph_newton_rows_cols",
+         [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]),
+        ("p3m_tail", "sph_p3m_tail", [pp, vp, pp, vp, vp, ci, ci, ci, ci, ci, ci, vp]),
         ("phase_b_grouped", "sph_phase_b_grouped",
          [pp, vp, vp, vp, vp, pp, vp, vp, ci, ci, ci, ci, ci, vp]),
         ("phase_b_grouped", "sph_phase_b_blocks", [pp, pp, vp, pp, pp, ci, ci, ci, ci, ci, vp]),

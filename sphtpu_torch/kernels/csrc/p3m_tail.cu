@@ -321,8 +321,9 @@ __global__ void __launch_bounds__(TAIL_THREADS) tail_kernel(TailArgs<T> a) {
 
 template <typename T>
 int p3m_tail_from_ptrs(void* const* planes, const void* scal, void* const* out, void* packed,
-                       void* count, int grid, int cap, int w, int chunk, cudaStream_t stream) {
-  if (grid <= 0) return 0;
+                       void* count, int grid, int nz, int cap, int w, int chunk,
+                       cudaStream_t stream) {
+  if (grid <= 0 || nz <= 0) return 0;
   if (cap > TAIL_THREADS || w < 1 || chunk < 4 * TAIL_THREADS) return ERR_BUDGET;
   TailArgs<T> a;
   for (int k = 0; k < 4; ++k) {
@@ -342,28 +343,31 @@ int p3m_tail_from_ptrs(void* const* planes, const void* scal, void* const* out, 
   err = fits_one_cta(tail_kernel<T>, TAIL_THREADS, smem);
   if (err) return err;
   const long gpc = grid + 2 * w;
-  const long n_pad = gpc * gpc * gpc;
+  const long n_pad = (nz + 2L * w) * gpc * gpc;
   SPH_LAUNCH((tail_pack_kernel<T>), unsigned((n_pad + TAIL_WARPS - 1) / TAIL_WARPS), TAIL_THREADS,
              0, stream, a, n_pad);
-  SPH_LAUNCH((tail_kernel<T>), unsigned(grid) * grid * grid, TAIL_THREADS, smem, stream, a);
+  SPH_LAUNCH((tail_kernel<T>), unsigned(nz) * grid * grid, TAIL_THREADS, smem, stream, a);
   return int(cudaGetLastError());
 }
 
 }  // namespace sph
 
-// planes: 4 device pointers (x y z mask, each (grid + 2w)^2 * (grid + 2w) * cap,
-// the particles at their slots with a w-cell halo of zeros); scal: device
-// pointer to (m, sigma); out: 4 device pointers (gx gy gz gphi, each
-// (grid^3, cap)); packed: (grid + 2w)^3 * cap records of 4 values, count:
-// (grid + 2w)^3 int32, both scratch; chunk: records staged at a time
-// (>= 1024). Returns ERR_BUDGET for cap > 256 or where the shared memory of
-// (w, chunk) does not fit one CTA.
+// planes: 4 device pointers (x y z mask, each (nz + 2w) * (grid + 2w) *
+// (grid + 2w) * cap, the particles at their slots with a w-cell halo of
+// zeros); the query cells are nz layers of grid x grid (nz = grid on the
+// mono-tile engine's cube, the slab's query layers on the z-slab engine);
+// scal: device pointer to (m, sigma); out: 4 device pointers (gx gy gz
+// gphi, each (nz * grid^2, cap)); packed: (nz + 2w) (grid + 2w)^2 * cap
+// records of 4 values, count: (nz + 2w) (grid + 2w)^2 int32, both
+// scratch; chunk: records staged at a time (>= 1024). Returns ERR_BUDGET
+// for cap > 256 or where the shared memory of (w, chunk) does not fit one
+// CTA.
 extern "C" int sph_p3m_tail(void* const* planes, const void* scal, void* const* out, void* packed,
-                            void* count, int grid, int cap, int w, int chunk, int is_double,
-                            void* stream) {
+                            void* count, int grid, int nz, int cap, int w, int chunk,
+                            int is_double, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? sph::p3m_tail_from_ptrs<double>(planes, scal, out, packed, count, grid, cap,
-                                                     w, chunk, s)
-                   : sph::p3m_tail_from_ptrs<float>(planes, scal, out, packed, count, grid, cap, w,
-                                                    chunk, s);
+  return is_double ? sph::p3m_tail_from_ptrs<double>(planes, scal, out, packed, count, grid, nz,
+                                                     cap, w, chunk, s)
+                   : sph::p3m_tail_from_ptrs<float>(planes, scal, out, packed, count, grid, nz,
+                                                    cap, w, chunk, s);
 }

@@ -10,6 +10,9 @@ On the card each thread sums R rows, a CTA `threads * R` of them, and the
 columns are split into S slices whose partial sums a second kernel adds in
 the order s = 0 .. S - 1 (`split_plan`, `column_slices`): the grid fills
 the card and the outputs repeat from run to run.
+
+kernels/cuda_gravity_rc.py holds the same kernel with the rows and the
+columns apart (the sharded engines' far field).
 """
 
 from __future__ import annotations
@@ -121,3 +124,4 @@ def newton_sweep(pos: torch.Tensor, m, *, plan=None):
     build.check("newton_sweep", code)
     launches += 1
     return g, phi
+

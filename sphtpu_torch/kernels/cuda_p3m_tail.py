@@ -81,12 +81,14 @@ def tail_budget(cap: int, halfwidth: int, dtype, smem_optin: int,
     return chunk
 
 
-def stencil_index(grid: int, cap: int, halfwidth: int, device):
+def stencil_index(grid: int, cap: int, halfwidth: int, device, nz: int = None):
     """(corner (n_cells,), offsets (cwc,), centre (n_cells,)): flat plane
     index of each cell's stencil corner, the offsets of the (2W+1)^3 * cap
     stencil slots from it in (dz, dy, x-slot) order, and the flat index of
-    each cell's first own slot."""
+    each cell's first own slot. The query cells are nz (default grid)
+    layers of grid x grid."""
     g, w = grid, halfwidth
+    nz = g if nz is None else nz
     gpc = g + 2 * w
     xs = gpc * cap
     span = 2 * w + 1
@@ -95,7 +97,7 @@ def stencil_index(grid: int, cap: int, halfwidth: int, device):
         (a[:, None, None] * gpc + a[None, :, None]) * xs
         + torch.arange(span * cap, device=device)[None, None, :]
     ).reshape(-1)
-    rows = torch.arange(g**3, device=device)
+    rows = torch.arange(nz * g * g, device=device)
     ix, iy, iz = rows % g, (rows // g) % g, rows // (g * g)
     corner = (iz * gpc + iy) * xs + ix * cap
     centre = ((iz + w) * gpc + (iy + w)) * xs + (ix + w) * cap
@@ -103,14 +105,15 @@ def stencil_index(grid: int, cap: int, halfwidth: int, device):
 
 
 def p3m_tail_plain(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
-                   row_chunk: int = 0):
+                   row_chunk: int = 0, nz: int = None):
     """Plain PyTorch version: per chunk of cell rows, gather the stencil's
     slots and broadcast (rows, cap', 1) against (rows, 1, cwc') over the
     chunk's occupied query and stencil columns only
     (`build.occupied_columns`)."""
     dtype, device = planes.dtype, planes.device
-    n_cells = grid**3
-    corner, offsets, centre = stencil_index(grid, cap, halfwidth, device)
+    nz = grid if nz is None else nz
+    n_cells = nz * grid * grid
+    corner, offsets, centre = stencil_index(grid, cap, halfwidth, device, nz)
     cwc = offsets.numel()
     if not row_chunk:
         row_chunk = max(1, 2_000_000 // max(cap * cwc, 1))
@@ -147,28 +150,32 @@ def p3m_tail_plain(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
 
 
 def p3m_tail(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
-             chunk: int = TAIL_CHUNK):
-    """Returns (4, grid^3, cap): gx, gy, gz, gphi of the tail correction at
-    every query slot (zeros at unoccupied slots). planes: (4, gpc, gpc,
-    gpc * cap) x, y, z, mask with gpc = grid + 2 * halfwidth. On the card,
+             chunk: int = TAIL_CHUNK, nz: int = None):
+    """Returns (4, nz * grid^2, cap): gx, gy, gz, gphi of the tail
+    correction at every query slot (zeros at unoccupied slots). planes:
+    (4, nz + 2 * halfwidth, gpc, gpc * cap) x, y, z, mask with gpc = grid +
+    2 * halfwidth; nz (default grid, the mono-tile engine's cube) is the
+    number of query layers (the z-slab engine's slab). On the card,
     `chunk` sets the records staged at a time."""
+    nz = grid if nz is None else nz
     if planes.device.type != "cuda":
         return p3m_tail_plain(
-            planes, m, sigma, grid=grid, cap=cap, halfwidth=halfwidth
+            planes, m, sigma, grid=grid, cap=cap, halfwidth=halfwidth, nz=nz
         )
     global launches
     dtype, device = planes.dtype, planes.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"p3m_tail: unsupported dtype {dtype}")
     gpc = grid + 2 * halfwidth
-    build.check_tensor("planes", planes, (4, gpc, gpc, gpc * cap), dtype, device)
+    gpz = nz + 2 * halfwidth
+    build.check_tensor("planes", planes, (4, gpz, gpc, gpc * cap), dtype, device)
     chunk = tail_budget(cap, halfwidth, dtype, build.device_limits(device)[1], chunk)
     scal = build.scalar_tensor([m, sigma], dtype, device)
-    out = torch.empty((4, grid**3, cap), dtype=dtype, device=device)
-    if grid == 0:
+    out = torch.empty((4, nz * grid * grid, cap), dtype=dtype, device=device)
+    if grid == 0 or nz == 0:
         return out
-    packed = torch.empty((gpc**3 * cap * 4,), dtype=dtype, device=device)
-    count = torch.empty((gpc**3,), dtype=torch.int32, device=device)
+    packed = torch.empty((gpz * gpc * gpc * cap * 4,), dtype=dtype, device=device)
+    count = torch.empty((gpz * gpc * gpc,), dtype=torch.int32, device=device)
     lib = build.load_kernels()["p3m_tail"]
     with torch.cuda.device(device):
         code = lib.sph_p3m_tail(
@@ -176,7 +183,7 @@ def p3m_tail(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
             scal.data_ptr(),
             build.pointer_array(list(out.unbind(0))),
             packed.data_ptr(), count.data_ptr(),
-            grid, cap, halfwidth, chunk, int(dtype == torch.float64),
+            grid, nz, cap, halfwidth, chunk, int(dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check("p3m_tail", code)

@@ -49,6 +49,7 @@ from ..kernels.cuda_block_pairs import phase_b_blocks
 from ..kernels.cuda_grouped_pairs import CW, phase_b_grouped, unit_table
 from ..kernels.cuda_strip_knn import phase_a_cells
 from .mesh_gravity import _domain_half
+from ..shard.collectives import request
 from .tiles import ReducedForces
 
 # query rows per block: one (BQ, C_b) pair tile per block (the reference
@@ -665,33 +666,53 @@ class CandTables(NamedTuple):
 _RUNS_PER_BATCH = 1 << 22
 
 
-def build_cand_tables(bargs: BlockArgs, spec, n) -> CandTables:
-    """CandTables of every bucket's block list (one device). The tables
-    depend only on the plan (boxes + prefix tables), not on the state, so
-    the chunk runner builds them once a chunk and passes them to
-    block_sph_forces as idx_tables. bargs must be on the device
-    (`block_args_to_device`)."""
+def shard_slices(buckets, shard: int = 0, n_shards: int = 1):
+    """Per bucket, the (first block, blocks) of shard `shard`'s contiguous
+    1/n_shards slice of its block list (the whole list unsharded): the
+    reference's `_shard_slicer`. The planner pads every bucket to a
+    multiple of lcm(BLK_GRAN, shards), so the slices are exact."""
+    out = []
+    for _, nb in buckets:
+        if nb % n_shards:
+            raise ValueError(
+                f"bucket of {nb} blocks not divisible by {n_shards} shards; "
+                "plan with plan_blocks(shards=...)"
+            )
+        k = nb // n_shards
+        out.append((shard * k, k))
+    return out
+
+
+def build_cand_tables(bargs: BlockArgs, spec, n, *, shard: int = 0,
+                      n_shards: int = 1) -> CandTables:
+    """CandTables of shard `shard`'s slice of every bucket's block list (the
+    whole lists unsharded). The tables depend only on the plan (boxes +
+    prefix tables), not on the state, so the chunk runner builds them once
+    a chunk and passes them to block_sph_forces as idx_tables. bargs must
+    be on the device (`block_args_to_device`)."""
     buckets, oct_grids, runs_zy, _ = spec
     device = bargs.order_q.device
     oc_pad = torch.cat(
         [bargs.order_c, torch.full((1,), n, dtype=torch.int64, device=device)]
     )
+    slices = shard_slices(buckets, shard, n_shards)
     tables, rows = [], []
-    for (C_b, nb), bx, rz in zip(buckets, bargs.boxes, runs_zy):
+    for (C_b, _), (s0, nb_s), bx, rz in zip(buckets, slices, bargs.boxes, runs_zy):
         n_runs = sum(nx * ny for nx, ny in rz)
         per = max(1, _RUNS_PER_BATCH // max(n_runs, C_b))
         idx = torch.cat([
-            _cand_indices(bx[b0 : b0 + per], bargs.starts, rz, n, C_b)
-            for b0 in range(0, nb, per)
-        ]) if nb else torch.zeros((0, C_b), dtype=torch.int64, device=device)
+            _cand_indices(bx[s0 + b0 : s0 + min(b0 + per, nb_s)], bargs.starts, rz, n, C_b)
+            for b0 in range(0, nb_s, per)
+        ]) if nb_s else torch.zeros((0, C_b), dtype=torch.int64, device=device)
         tables.append(idx)
         rows.append(oc_pad[idx])
     oq = bargs.order_q
     keep = oq < n
     inv_oq = torch.zeros((n,), dtype=torch.int64, device=device)
     inv_oq[oq[keep]] = torch.arange(oq.shape[0], device=device)[keep]
-    qblk, first = _grouped_chunks(tuple(buckets))
-    units = unit_table(qblk, first, sum(nb for _, nb in buckets))
+    sliced = tuple((C_b, nb_s) for (C_b, _), (_, nb_s) in zip(buckets, slices))
+    qblk, first = _grouped_chunks(sliced)
+    units = unit_table(qblk, first, sum(nb for _, nb in sliced))
     return CandTables(tuple(tables), tuple(rows), inv_oq,
                       tuple(torch.as_tensor(a).to(device) for a in units))
 
@@ -712,7 +733,18 @@ def _grouped_chunks(buckets):
     return tuple(qblk), tuple(first)
 
 
-def block_sph_forces(
+def block_sph_forces(pos, vel, m, K, h_hint, bargs: BlockArgs, **kw):
+    """Block-compact force evaluation, one device. Same contract as
+    tile_sph_forces: (ReducedForces, (gx, gy, gz, phi) near-gravity
+    corrections, ok); ok is a 0-d bool tensor, False => the caller falls
+    back (gather engine). No host synchronisation happens here. Keywords
+    are `block_forces_body`'s (without shard / n_shards)."""
+    from ..shard.collectives import run_local
+
+    return run_local(block_forces_body(pos, vel, m, K, h_hint, bargs, **kw))
+
+
+def block_forces_body(
     pos,
     vel,
     m,
@@ -732,16 +764,22 @@ def block_sph_forces(
     sigma_cells: float = 2.2,
     grouped: bool = True,
     idx_tables: CandTables = None,
+    shard: int = 0,
+    n_shards: int = 1,
 ):
-    """Block-compact force evaluation, one device. Same contract as
-    tile_sph_forces: (ReducedForces, (gx, gy, gz, phi) near-gravity
-    corrections, ok); ok is a 0-d bool tensor, False => the caller falls
-    back (gather engine). No host synchronisation happens here.
+    """The block engine's evaluation as a generator body
+    (shard/collectives.py): under work-sharding the inputs are replicated,
+    shard `shard` of `n_shards` sweeps its contiguous slice of every
+    bucket's block list (`shard_slices`), and the per-row outputs are
+    psum-combined (each real row is written by exactly one shard; the
+    candidate-side sums by several, in shard order). With one shard every
+    collective is the identity.
 
     Phase A is kernel K1 at the block shape; phase B is kernel K5 (every
-    bucket in one launch), or K6 per bucket with grouped=False. On CPU tensors each runs its plain version.
-    idx_tables: build_cand_tables' output for these bargs (the chunk runner
-    builds it once a chunk); None rebuilds it here."""
+    bucket in one launch), or K6 per bucket with grouped=False. On CPU
+    tensors each runs its plain version. idx_tables: build_cand_tables'
+    output for these bargs and this shard (the chunk runner builds it once
+    a chunk); None rebuilds it here."""
     buckets, oct_grids, runs_zy, g_mesh = spec
     n = pos.shape[0]
     dtype = pos.dtype
@@ -803,7 +841,8 @@ def block_sph_forces(
         return torch.stack(covs, dim=-1)
 
     if idx_tables is None:
-        idx_tables = build_cand_tables(bargs, spec, n)
+        idx_tables = build_cand_tables(bargs, spec, n, shard=shard, n_shards=n_shards)
+    slices = shard_slices(buckets, shard, n_shards)
     # one fused candidate-position gather for all buckets
     idx_flat = torch.cat([t.reshape(-1) for t in idx_tables.idx])
     cpos_flat = padrow(pc)[idx_flat]  # (T, 3)
@@ -832,16 +871,17 @@ def block_sph_forces(
     r2 = (torch.minimum(torch.minimum(reach, diam), hcapq.reshape(n_blk, BQ)) ** 2).contiguous()
 
     # ---- phase A: exact r_k + rho per packed-query row (K1 per bucket) ----
-    geo = []  # per bucket: (C_b, nb, first block)
+    geo = []  # per bucket: (C_b, blocks swept, first block swept)
     h_parts, rho_parts, ok_parts = [], [], []
-    b0 = 0
+    b_first = 0
     t_base = 0
-    for C_b, nb in buckets:
-        t1 = t_base + nb * C_b
-        cands = tuple(cpos3[a, t_base:t1].reshape(nb, C_b) for a in range(3)) + (
-            cmask_flat[t_base:t1].reshape(nb, C_b),
+    for (C_b, nb), (s0, nb_s) in zip(buckets, slices):
+        t1 = t_base + nb_s * C_b
+        cands = tuple(cpos3[a, t_base:t1].reshape(nb_s, C_b) for a in range(3)) + (
+            cmask_flat[t_base:t1].reshape(nb_s, C_b),
         )
-        blk = slice(b0, b0 + nb)
+        b0 = b_first + s0
+        blk = slice(b0, b0 + nb_s)
         queries = tuple(a.reshape(n_blk, BQ)[blk] for a in (pqx, pqy, pqz, qmask))
         h_b, rho_b, ok_b = phase_a_cells(
             queries, r2[blk], cands, m, kh=kh, cap=BQ, n_bisect=n_bisect,
@@ -849,16 +889,16 @@ def block_sph_forces(
         h_parts.append(h_b.reshape(-1))
         rho_parts.append(rho_b.reshape(-1))
         ok_parts.append(torch.all(ok_b > 0).reshape(1))
-        geo.append((C_b, nb, b0))
-        b0, t_base = b0 + nb, t1
-    Hq = torch.cat(h_parts)
-    RHOq = torch.cat(rho_parts)
+        geo.append((C_b, nb_s, b0))
+        b_first, t_base = b_first + nb, t1
+    Hq = _to_packed(torch.cat(h_parts), geo, n_blk, 0.0)
+    RHOq = _to_packed(torch.cat(rho_parts), geo, n_blk, 0.0)
     rows_ok = torch.all(torch.cat(ok_parts))
 
-    # packed-query results to row space through the inverse packing
+    # packed-query results to row space through the inverse packing; a
+    # shard reads 0 at the rows it does not own and the psum fills them in
     inv_oq = idx_tables.inv_oq
-    Hrow = Hq[inv_oq]
-    RHOrow = RHOq[inv_oq]
+    Hrow, RHOrow = yield request("psum", (Hq[inv_oq], RHOq[inv_oq]))
 
     # EOS row fields
     rho_safe = torch.where(RHOrow > 0, RHOrow, torch.ones((), dtype=dtype, device=device))
@@ -898,8 +938,9 @@ def block_sph_forces(
         dyn_flat = padrow(dyn)[idx_flat]  # (T, 6)
         cstack = torch.cat([cpos_flat, dyn_flat, cmask_flat[:, None]], dim=1)
         cstack = cstack.reshape(-1, CW, 10).transpose(1, 2).contiguous()
-        qfields = tuple(a.reshape(-1, BQ) for a in qarrs)
-        qblk, first = _grouped_chunks(tuple(buckets))
+        own = _shard_blocks(geo, n_blk, device)
+        qfields = tuple(a.reshape(-1, BQ)[own] for a in qarrs)
+        qblk, first = _grouped_chunks(tuple((C_b, nb_s) for C_b, nb_s, _ in geo))
         qouts, couts = phase_b_grouped(
             qfields, cstack, m, alpha, beta, sigma, r_c_now,
             eos=eos, p3m=p3m, cap=BQ, qblk=qblk, first=first, units=idx_tables.units,
@@ -929,6 +970,10 @@ def block_sph_forces(
             cacc.index_add_(0, rows_t.reshape(-1), torch.stack([c.reshape(-1) for c in co], -1))
             t_base = t1
         packed = [torch.cat(p) for p in parts]
+    # a shard's swept blocks into the full packed-query arrays (a row a
+    # shard does not own reads 0, or -max for mu_max, for the combine)
+    packed = [_to_packed(a, geo, n_blk, -big if k == 4 else 0.0)
+              for k, a in enumerate(packed)]
 
     # phase-B certificate: the forward ball and the tail radius inside the
     # planned coverage minus the measured drift (reach, as in phase A)
@@ -945,14 +990,37 @@ def block_sph_forces(
         unpack(1) + cacc[:n, 1],
         unpack(2) + cacc[:n, 2],
     ], dim=1)
-    red = ReducedForces(
-        acc=acc, rho=RHOrow, h=Hrow, cs=cs_row, mu_max=unpack(4), div_sum=unpack(3),
-        visc_dk=unpack(5) + cacc[:n, 3],
-    )
+    div_row = unpack(3)
+    visc_row = unpack(5) + cacc[:n, 3]
     gcorr = (
         unpack(6) + cacc[:n, 4],
         unpack(7) + cacc[:n, 5],
         unpack(8) + cacc[:n, 6],
         unpack(9) + cacc[:n, 7],
     )
+    acc, div_row, visc_row, gcorr = yield request("psum", (acc, div_row, visc_row, gcorr))
+    mu_row = yield request("pmax", unpack(4))
+    rows_ok = (yield request("psum", rows_ok.to(torch.int64))) == n_shards
+    red = ReducedForces(
+        acc=acc, rho=RHOrow, h=Hrow, cs=cs_row, mu_max=mu_row, div_sum=div_row,
+        visc_dk=visc_row,
+    )
     return red, gcorr, rows_ok
+
+
+def _shard_blocks(geo, n_blk: int, device):
+    """The packed-query blocks a shard sweeps, bucket by bucket (None: all)."""
+    if sum(nb_s for _, nb_s, _ in geo) == n_blk:
+        return slice(None)
+    return torch.cat([torch.arange(b0, b0 + nb_s, device=device) for _, nb_s, b0 in geo])
+
+
+def _to_packed(a, geo, n_blk: int, fill):
+    """A shard's swept blocks' values (flat, bucket by bucket) at their
+    places in a full (n_blk * BQ) packed-query array, `fill` elsewhere
+    (the array itself when the shard sweeps every block)."""
+    if sum(nb_s for _, nb_s, _ in geo) == n_blk:
+        return a
+    out = torch.full((n_blk, BQ), fill, dtype=a.dtype, device=a.device)
+    out[_shard_blocks(geo, n_blk, a.device)] = a.reshape(-1, BQ)
+    return out.reshape(-1)

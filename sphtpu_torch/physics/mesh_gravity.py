@@ -215,18 +215,33 @@ def p3m_mesh_force(pos: torch.Tensor, m, greens_hat: torch.Tensor, *, gm: int, p
     (the in-tile correction subtracts its analytic value). Returns g (N,3)
     with g_i = grad phi_mesh(x_i), phi (N,), both including the source
     mass m (per unit G)."""
-    dtype = pos.dtype
     half = _domain_half(pos)
-    a = 2.0 * half / gm
+    rho, idx, w, a = mesh_deposit(pos, m, half, gm=gm, pad=pad)
+    return mesh_solve(rho, idx, w, a, greens_hat, pad=pad, dtype=pos.dtype)
 
+
+def mesh_deposit(pos: torch.Tensor, w_mass, half, *, gm: int, pad: int):
+    """CIC deposit of masses w_mass (a scalar or one a row) on the padded
+    mesh of the domain [-half, half]^3: (rho (pad^3,), idx, w, a), the last
+    three for `mesh_solve`'s interpolation at the same rows. The sharded
+    engines deposit each shard's rows and sum the meshes."""
+    a = 2.0 * half / gm
     idx, w = _cic(pos, half, a, pad)
-    rho = torch.zeros((pad * pad * pad,), dtype=dtype, device=pos.device)
-    rho.index_add_(0, idx.reshape(-1), (m * w).reshape(-1))
+    if isinstance(w_mass, torch.Tensor) and w_mass.dim() == 1:
+        w_mass = w_mass[:, None]
+    rho = torch.zeros((pad * pad * pad,), dtype=pos.dtype, device=pos.device)
+    rho.index_add_(0, idx.reshape(-1), (w_mass * w).reshape(-1))
+    return rho, idx, w, a
+
+
+def mesh_solve(rho, idx, w, a, greens_hat: torch.Tensor, *, pad: int, dtype):
+    """The mesh potential and its spectral gradient from the deposited
+    rho, interpolated at the rows of (idx, w): (g (rows, 3), phi (rows,))."""
     rho_hat = torch.fft.rfftn(rho.reshape(pad, pad, pad))
     phi_hat = rho_hat * greens_hat  # cell-unit kernel; 1/a applied below
 
     # spectral gradient: k in cell units (the extra 1/a folds into scale)
-    kfreq, krfreq = _kfreqs(pad, dtype, pos.device)
+    kfreq, krfreq = _kfreqs(pad, dtype, rho.device)
     kz = kfreq[:, None, None]
     ky = kfreq[None, :, None]
     kx = krfreq[None, None, :]

@@ -45,6 +45,7 @@ from ..kernels.cuda_strip_knn import N_BISECT, phase_a_cells
 from ..profiling import stage
 from .blocks import N_BISECT_F64
 from .mesh_gravity import _domain_half, newton_minus_mesh
+from ..shard.collectives import request
 from .tiles import ReducedForces
 
 # snapped menus keep distinct compiled configurations rare across a run
@@ -309,6 +310,7 @@ def plan_mlevel(
     slots_max: int = 12_000_000,
     mesh_factor: int = 5,
     sigma_cells: float = 2.2,
+    shards: int = 1,
 ):
     """Choose a multi-level spec for the current state.
 
@@ -320,6 +322,10 @@ def plan_mlevel(
     spec_tuple = (levels, res_budget, mesh_level, c_buckets) with
     levels = ((grid, cap, ((cap_b, na_b, nb_b), ...)), ...) — per-strip
     capacity buckets, smallest feasible class per strip.
+
+    shards > 1 sizes every active list and the residual budget to a
+    multiple of `shards`, so the work-sharded engine (shard/mlevel.py) can
+    split them evenly across the shards.
     """
     pos_code = np.asarray(pos_code)
     h = np.asarray(h)
@@ -384,7 +390,7 @@ def plan_mlevel(
                 act_slack=act_slack, slots_max=slots_max,
                 mesh_factor=mesh_factor, sigma_cells=sigma_cells,
                 cap_quantile=cap_q,
-                layout_cache=layout_cache,
+                layout_cache=layout_cache, shards=shards,
             )
             if cand is not None and (best is None or cand[0] < best[0]):
                 best = cand
@@ -397,9 +403,10 @@ def _plan_for_grids(
     pos_code, h, kh, grids, half, *,
     gravity, cap_max, res_budget_max, headroom, act_slack, slots_max,
     mesh_factor, sigma_cells=2.2, cap_quantile=0.985, layout_cache=None,
+    shards=1,
 ):
-    gran = ACT_GRAN
-    res_gran = 256
+    gran = math.lcm(ACT_GRAN, shards)
+    res_gran = math.lcm(256, shards)
     n = h.shape[0]
     levels0 = [(g, 0) for g in grids]
     s_edges, sp, cells, occ = _host_layout(
@@ -912,7 +919,16 @@ def _sweep_strips(planes, act, g, gp, cap, cap_b, depth, mask_field, n_out, body
     return grids
 
 
-def mlevel_sph_forces(
+def mlevel_sph_forces(pos, vel, m, K, h_hint, mlargs: MLArgs, **kw):
+    """Multi-level force evaluation on one device: `mlevel_forces_body`
+    with every collective the identity (keywords are its own, without
+    shard / n_shards)."""
+    from ..shard.collectives import run_local
+
+    return run_local(mlevel_forces_body(pos, vel, m, K, h_hint, mlargs, **kw))
+
+
+def mlevel_forces_body(
     pos,
     vel,
     m,
@@ -929,8 +945,16 @@ def mlevel_sph_forces(
     spec: tuple,
     mesh_factor: int = 5,
     sigma_cells: float = 2.2,
+    shard: int = 0,
+    n_shards: int = 1,
 ):
-    """Multi-level force evaluation. Same contract as tile_sph_forces:
+    """Multi-level force evaluation as a generator body
+    (shard/collectives.py). Work-sharding (n_shards > 1): the inputs are
+    replicated, shard `shard` sweeps its contiguous slice of every active
+    strip list and of the residual budget (plan with
+    plan_mlevel(shards=n_shards) so the lengths divide), and the per-row
+    outputs are psum-combined; the coverage certificates use the full
+    lists. Same contract as tile_sph_forces:
     returns (ReducedForces, (gx, gy, gz, phi) near-gravity corrections,
     ok); ok is a 0-d bool tensor, False => discard, the caller falls back
     to the gather engine.
@@ -961,11 +985,24 @@ def mlevel_sph_forces(
     spec_f = species.to(dtype)
     s_l = [2.0 * half / levels[l][0] for l in range(L)]
 
-    # ---- residual selection ----
+    def shard_ids(ids):
+        """This shard's contiguous slice of a padded work list."""
+        k = ids.shape[0] // n_shards
+        if k * n_shards != ids.shape[0]:
+            raise ValueError(
+                f"active list length {ids.shape[0]} not divisible by "
+                f"{n_shards} shards; plan with plan_mlevel(shards=...)"
+            )
+        return ids[shard * k : (shard + 1) * k]
+
+    # ---- residual selection (this shard's slice of the padded budget) ----
     if res_budget > 0:
         res_mask = species == L
         res_ok = torch.sum(res_mask) <= res_budget
         res_rows = torch.nonzero(res_mask).flatten()[:res_budget]
+        if n_shards > 1:
+            k = res_budget // n_shards
+            res_rows = res_rows[shard * k : (shard + 1) * k]
         if res_rows.numel() == 0:
             res_rows = None
     else:
@@ -1083,7 +1120,7 @@ def mlevel_sph_forces(
             RHOg = torch.zeros_like(Hg)
             OKg = torch.ones_like(Hg)
             for bi, (cap_b, _, _) in enumerate(buckets):
-                act = mlargs.act_a[l][bi]
+                act = shard_ids(mlargs.act_a[l][bi])
                 h_b, rho_b, ok_b = _phase_a_bucket(
                     PA, act, g, gp, cap, cap_b, s, half, m, kh, n_bisect
                 )
@@ -1125,21 +1162,22 @@ def mlevel_sph_forces(
                         ok_op = ok_op & (~op | (dmin > rcert_row))
             rows_ok = rows_ok & torch.all(~sel | ok_op)
 
-    return _mlevel_tail(
+    return (yield from _mlevel_tail(
         pos, vel, m, K, h_hint, mlargs, levels, mesh_level, c_buckets, species,
         res_rows, binfo, a_planes, s_l, Hrow, RHOrow, rows_ok, half,
         eos=eos, gamma=gamma, cs0=cs0, alpha=alpha, beta=beta, kh=kh,
         mesh_factor=mesh_factor, sigma_cells=sigma_cells, c_hw=c_hw,
-    )
+        n_shards=n_shards, shard_ids=shard_ids,
+    ))
 
 
 def _mlevel_tail(
     pos, vel, m, K, h_hint, mlargs, levels, mesh_level, c_buckets, species,
     res_rows, binfo, a_planes, s_l, Hrow, RHOrow, rows_ok, half, *, eos, gamma,
-    cs0, alpha, beta, kh, mesh_factor, sigma_cells, c_hw,
+    cs0, alpha, beta, kh, mesh_factor, sigma_cells, c_hw, n_shards, shard_ids,
 ):
     """Phases B/C + residual lane + merge (continuation of
-    mlevel_sph_forces, split as in the reference)."""
+    mlevel_forces_body, split as in the reference; a generator body)."""
     L = len(levels)
     n = pos.shape[0]
     dtype = pos.dtype
@@ -1153,6 +1191,10 @@ def _mlevel_tail(
             rows_ok = rows_ok & torch.all(nfound_res >= kh)
             Hrow = Hrow.index_put((res_rows,), h_res)
             RHOrow = RHOrow.index_put((res_rows,), rho_res)
+
+    # every row's h and rho came from exactly one shard (its strip's, or
+    # its residual slice's); elsewhere the partial is 0
+    Hrow, RHOrow = yield request("psum", (Hrow, RHOrow))
 
     # ---- derived per-row fields (merged across levels + residual) ----
     rho_safe = torch.where(RHOrow > 0, RHOrow, torch.ones((), dtype=dtype, device=dev))
@@ -1189,7 +1231,8 @@ def _mlevel_tail(
                 return _pairs_b(q, c, lf, m, eos, alpha, beta, big)
 
             for bi, (cap_b, _, _) in enumerate(buckets):
-                _sweep_strips(planes, mlargs.act_b[l][bi], g, gp, cap, cap_b, 3, 6, 10, body, grids)
+                _sweep_strips(planes, shard_ids(mlargs.act_b[l][bi]), g, gp, cap, cap_b, 3, 6,
+                              10, body, grids)
             del planes
             c = binfo[l]["c"]
             strip = c[:, 2] * g + c[:, 0]
@@ -1234,13 +1277,36 @@ def _mlevel_tail(
                 return _pairs_c(q, c, m, sigma)
 
             for (cap_b, _), c_ids in zip(c_buckets, mlargs.act_c):
-                _sweep_strips(planes_c, c_ids, g0, gpc, cap0, cap_b, c_depth, 3, 4, body_c, cgrids)
+                _sweep_strips(planes_c, shard_ids(c_ids), g0, gpc, cap0, cap_b, c_depth, 3, 4,
+                              body_c, cgrids)
             del planes_c
             gg = gg + cgrids[:, c0[:, 2] * g0 + c0[:, 0], c0[:, 1], ix0]
             del cgrids
 
     # ---- residual lane, part 2: forces + scatter-back ----
-    if res_rows is not None:
+    if n_shards > 1:
+        # sharded REPLACE: every shard zeroes its plane partials at all
+        # residual rows, the owning shard then ADDS its complete rows, and
+        # the psum below gives each exactly once
+        res_all = species == L
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        acc = torch.where(res_all, zero, acc)
+        visc_row = torch.where(res_all, zero, visc_row)
+    if res_rows is not None and n_shards > 1:
+        with stage("residual_forces"):
+            rowB, recvC = _res_forces(
+                pos, vel, m, res_rows, rk2_res, h_res, Hrow, RHOrow, por2_row, cs_row,
+                species, L, eos=eos, alpha=alpha, beta=beta,
+            )
+            acc[:, res_rows] += rowB[0:3]
+            div_row = div_row.index_put((res_rows,), rowB[3], accumulate=True)
+            mu_row = mu_row.index_put((res_rows,), rowB[4], accumulate=True)
+            visc_row = visc_row.index_put((res_rows,), rowB[5], accumulate=True)
+            gg[:, res_rows] += rowB[6:10]
+            acc = acc + recvC[0:3]
+            visc_row = visc_row + recvC[3]
+            gg = gg + recvC[4:8]
+    elif res_rows is not None:
         with stage("residual_forces"):
             rowB, recvC = _res_forces(
                 pos, vel, m, res_rows, rk2_res, h_res, Hrow, RHOrow, por2_row, cs_row,
@@ -1260,6 +1326,10 @@ def _mlevel_tail(
             visc_row = visc_row + recvC[3]
             gg = gg + recvC[4:8]
 
+    acc, div_row, mu_row, visc_row, gg = yield request(
+        "psum", (acc, div_row, mu_row, visc_row, gg)
+    )
+    rows_ok = (yield request("psum", rows_ok.to(torch.int64))) == n_shards
     out = ReducedForces(
         acc=acc.T.contiguous(),
         rho=RHOrow,

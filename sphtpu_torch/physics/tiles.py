@@ -304,19 +304,26 @@ def _tile_stack(pos, vel, grid: int, cap: int) -> TileStack:
 def _fill(st: TileStack, lo: int, hi: int) -> None:
     """Copy fields lo..hi-1 of the slot planes into the prestack (27
     neighbour cells in (dz, dy, dx) order) and the query-slot view."""
-    g, cap = st.grid, st.cap
-    n_cells = g**3
+    fill_stack(st.planes, st.pre, st.qpl, lo, hi, st.grid, st.grid, st.cap)
+
+
+def fill_stack(planes, pre, qpl, lo: int, hi: int, nz: int, g: int, cap: int) -> None:
+    """Fields lo..hi-1 of padded slot planes (F, nz + 2, g + 2, (g + 2) *
+    cap; the query cells are the nz x g x g interior) into the first
+    nz g^2 rows of the prestack (F, rows, 27, cap: the 27 neighbour cells
+    in (dz, dy, dx) order, the centre at 13) and of the query-slot view
+    (F, rows, cap). The mono-tile engine's cube has nz = g; the z-slab
+    engine (shard/tiles.py) stacks its slab's query layers."""
+    n_cells = nz * g * g
     i = 0
     for dz in range(3):
         for dy in range(3):
             for dxs in range(3):
-                blk = st.planes[
-                    lo:hi, dz : dz + g, dy : dy + g, dxs * cap : (dxs + g) * cap
-                ]
-                st.pre[lo:hi, :n_cells, i] = blk.reshape(hi - lo, n_cells, cap)
+                blk = planes[lo:hi, dz : dz + nz, dy : dy + g, dxs * cap : (dxs + g) * cap]
+                pre[lo:hi, :n_cells, i] = blk.reshape(hi - lo, n_cells, cap)
                 i += 1
-    st.qpl[lo:hi, :n_cells] = st.planes[
-        lo:hi, 1 : g + 1, 1 : g + 1, cap : (g + 1) * cap
+    qpl[lo:hi, :n_cells] = planes[
+        lo:hi, 1 : nz + 1, 1 : g + 1, cap : (g + 1) * cap
     ].reshape(hi - lo, n_cells, cap)
 
 

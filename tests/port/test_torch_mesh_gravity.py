@@ -6,7 +6,8 @@ roundoff, f32 to f32 FFT roundoff); then the port's whole P3M force
 evaluation held to the bars of
 tests/test_mesh_gravity.py::test_p3m_beats_reference_octree against the
 exact softened sum and the reference's own theta = 0.576 octree walk
-(`sphtpu.physics.oracle_bh`, host C, no JAX)."""
+(the port's `physics/oracle_bh`, host C, held bit-equal to
+`sphtpu.physics.oracle_bh`)."""
 
 import gc
 
@@ -20,7 +21,8 @@ from scipy.spatial import cKDTree
 from sphtpu.physics.mesh_gravity import good_fft_size as good_fft_size_ref
 from sphtpu.physics.mesh_gravity import greens_hat as greens_hat_ref
 from sphtpu.physics.mesh_gravity import p3m_mesh_force as p3m_mesh_force_ref
-from sphtpu.physics.oracle_bh import bh_gravity, exact_gravity
+from sphtpu.physics.oracle_bh import bh_gravity as bh_gravity_ref
+from sphtpu.physics.oracle_bh import exact_gravity as exact_gravity_ref
 from sphtpu.scenes.generators import boss_bodenheimer
 from sphtpu_torch.engine import EngineConfig, params_from_numpy
 from sphtpu_torch.engine.step import force_eval
@@ -31,6 +33,7 @@ from sphtpu_torch.physics.mesh_gravity import (
     mesh_phi,
     p3m_mesh_force,
 )
+from sphtpu_torch.physics.oracle_bh import bh_gravity, exact_gravity
 from sphtpu_torch.physics.tiles import choose_tile_params
 
 # the suite runs several pytest workers per machine: keep torch's intra-op
@@ -162,6 +165,24 @@ def test_p3m_beats_reference_octree():
     relp = np.abs(out["p3m"][2] - out["exact"][2]) / np.abs(out["exact"][2])
     assert np.sqrt((relp**2).mean()) < 1e-3
     assert np.abs(m * dg.sum(0)).max() < 1e-5 * rms
+
+
+@pytest.mark.parametrize("theta", [0.576, 0.3])
+def test_oracle_bh_bit_equal_reference(theta):
+    """The port's Barnes-Hut oracle and exact softened sum (its own copy of
+    oracle_bh.c, built into build/) give the reference's bits on the same
+    input: a two-scale cloud with spread smoothing lengths."""
+    rng = np.random.default_rng(5)
+    pos = np.concatenate([0.2 * rng.standard_normal((600, 3)), rng.standard_normal((400, 3))])
+    h = 0.05 + 0.05 * rng.random(1000)
+    m = 1.0 / 1000
+    for port, ref in (
+        (bh_gravity(pos, h, m, theta=theta), bh_gravity_ref(pos, h, m, theta=theta)),
+        (exact_gravity(pos, h, m), exact_gravity_ref(pos, h, m)),
+    ):
+        assert port is not None and ref is not None
+        np.testing.assert_array_equal(port[0], ref[0])
+        np.testing.assert_array_equal(port[1], ref[1])
 
 
 def test_force_eval_p3m_needs_greens_function():

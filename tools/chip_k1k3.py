@@ -1,9 +1,9 @@
-"""K1, K2, K3, K4, K5 and the P3M tail on the main paths' inputs, timed on
-one NVIDIA GPU for one source tree of the port, so that two trees can be
+"""K1, K2, K3, K4, K5, K6 and the P3M tail on the main paths' inputs, timed
+on one NVIDIA GPU for one source tree of the port, so that two trees can be
 compared in one run.
 
     python3 tools/chip_k1k3.py capture FILE
-    python3 tools/chip_k1k3.py time TREE FILE [--sweep] [--kernels k1,k2,k3,k4,k5,tail]
+    python3 tools/chip_k1k3.py time TREE FILE [--sweep] [--kernels k1,k2,k3,k4,k5,k6,tail,k3rc]
 
 `capture` builds the inputs of one force evaluation on each path and saves
 them to FILE: K1's 12 launches and K5's launch on the collapse path
@@ -15,7 +15,11 @@ launches on the class path (boss_bodenheimer N = 100 000, Kh = 32: one
 each a class), K4's and K2's launch on the exact path (the same scene at
 Kh = 50, mono-tile engine) and on the P3M path (N = 200 000, mono-tile
 engine with P3M gravity) with the tail's launch there, and K3's positions
-(N = 100 000), all float32.
+(N = 100 000), all float32; K6's 12 per-bucket launches on the collapse
+path (`grouped=False`); and K3's rows x columns launches of one z-slab
+evaluation of the exact path's state over four shards of the card (the
+ring of the sharded exact far field; timed only for a tree that has the
+entry).
 
 `time` imports `sphtpu_torch` from TREE (a checkout of the port, such as a
 parent commit unpacked with `git archive`), builds its kernels there and
@@ -39,6 +43,7 @@ events): two calls may land on two cards.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import statistics
@@ -88,6 +93,11 @@ def capture(path: str) -> None:
     out["k1_collapse"], out["k5_collapse"] = eval_calls(
         cfg, state, params, cs.dev(h0, torch.float32), blocks,
         ("phase_a_cells", "phase_b_grouped"), bargs)
+    # K6: the same evaluation with phase B per bucket
+    calls6 = cs.capture_eval_inputs(
+        {"state": state, "params": params, "h_last": cs.dev(h0, torch.float32)}, cfg, blocks,
+        ("phase_b_blocks",), mlargs=bargs, grouped=False)
+    out["k6_collapse"] = [(to_cpu(a), kw) for a, kw in calls6["phase_b_blocks"]]
     # K2 with its outlier masks: the same state on the outlier rung
     # (choose_tile_params_ml with the driver's arguments, k = 50 KD-tree h)
     pos_o, _, h_o, st_o, p_o, h_o_dev = cs.collapse_state(cs.COLLAPSE)
@@ -124,20 +134,46 @@ def capture(path: str) -> None:
             out.update(zip(keys, got))
             del got
             torch.cuda.empty_cache()
+        out["k3rc_ring"] = ring_calls(cs, state, params, pos, h0)
     out["k3_pos"] = to_cpu(state.pos)
     torch.save(out, path)
     print(json.dumps({k: len(v) if isinstance(v, list) else list(v.shape)
                       for k, v in out.items()}))
 
 
-def time_tree(tree: str, path: str, sweep: bool, kernels=("k1", "k2", "k3", "k4", "k5", "tail")
-              ) -> None:
+def ring_calls(cs, state, params, pos, h0):
+    """K3's rows x columns launches of one z-slab evaluation of the state
+    over four shards of the card (the exact far field's ring)."""
+    from sphtpu_torch.shard import tiles as shard_tiles
+    from sphtpu_torch.shard.collectives import particle_mesh, run_spmd
+
+    plan = shard_tiles.plan_slabs(pos, h0, 50, 4, chunk_steps=2)
+    cfg = cs.EngineConfig(n=pos.shape[0], kh=50, eos="polytropic", tile=(plan.grid, plan.cap))
+    mesh = particle_mesh([cs.DEVICE] * 4)
+    ev = shard_tiles.make_slab_force_eval(cfg, plan)
+    calls = []
+
+    def rec(orig):
+        def run(*a, **kw):
+            calls.append((to_cpu(a), kw))
+            return orig(*a, **kw)
+        return run
+
+    with cs.patched(shard_tiles, "newton_rows_cols", rec):
+        run_spmd([ev(params, k, s.pos, s.vel, s.K, s.valid, None)
+                  for k, s in enumerate(shard_tiles.pack_state(state, plan, mesh))])
+    return calls
+
+
+def time_tree(tree: str, path: str, sweep: bool,
+              kernels=("k1", "k2", "k3", "k4", "k5", "k6", "tail", "k3rc")) -> None:
     sys.path.insert(0, os.path.abspath(tree))
     import inspect
 
     import torch
 
     from sphtpu_torch.kernels import (
+        cuda_block_pairs,
         cuda_gravity,
         cuda_grouped_pairs,
         cuda_knn,
@@ -237,8 +273,17 @@ def time_tree(tree: str, path: str, sweep: bool, kernels=("k1", "k2", "k3", "k4"
         if "k5_deep_p3m" in data:
             timed.append(("k5_deep_p3m", cuda_grouped_pairs.phase_b_grouped,
                           with_units(load(("k5_deep_p3m",))["k5_deep_p3m"])))
+    if "k6" in kernels and "k6_collapse" in data:
+        timed.append(("k6_collapse", cuda_block_pairs.phase_b_blocks,
+                      load(("k6_collapse",))["k6_collapse"]))
     if "k3" in kernels:
         timed.append(("k3", cuda_gravity.newton_sweep, [((pos, m), {})]))
+    rc = importlib.util.find_spec("sphtpu_torch.kernels.cuda_gravity_rc")
+    if "k3rc" in kernels and "k3rc_ring" in data and rc is not None:
+        from sphtpu_torch.kernels import cuda_gravity_rc
+
+        timed.append(("k3rc_ring", cuda_gravity_rc.newton_rows_cols,
+                      load(("k3rc_ring",))["k3rc_ring"]))
     for key, fn, calls in timed:
         out[f"{key}_ms"] = calls_ms(fn, calls)
     for key, fn, calls in timed:
@@ -298,7 +343,7 @@ def main() -> int:
         capture(sys.argv[2])
     elif len(sys.argv) >= 4 and sys.argv[1] == "time":
         rest = sys.argv[4:]
-        kernels = ("k1", "k2", "k3", "k4", "k5", "tail")
+        kernels = ("k1", "k2", "k3", "k4", "k5", "k6", "tail", "k3rc")
         if "--kernels" in rest:
             kernels = tuple(rest[rest.index("--kernels") + 1].split(","))
         time_tree(sys.argv[2], sys.argv[3], "--sweep" in rest, kernels)

@@ -1,6 +1,6 @@
 """Where a step of the main path spends its time on the card.
 
-    python3 tools/chip_profile_step.py [N | collapse | deep]
+    python3 tools/chip_profile_step.py [N | collapse | deep] [--shards P]
 
 Builds the headline scene (boss_bodenheimer, polytropic, Kh = 50, float32,
 N = 100 000 unless given) — or, with `collapse` / `deep`, loads the
@@ -12,7 +12,14 @@ prints: wall seconds per step, the device's busy and idle share (device
 time of the traced steps over the wall of the same steps run untraced), and
 device time by kernel name. A chunk is three steps, or ML_SUBCHUNK = 2 on
 the block engine, whose host refit of the plan before each chunk
-(`block_args_for_spec`) is timed apart and not in the step wall."""
+(`block_args_for_spec`) is timed apart and not in the step wall.
+
+With --shards P the chunk runs over P shards of cuda:0 (the multi-device
+layer in one process): a tile scene on the z-slab engine (`plan_slabs`
+for the chunk's length; the pack into the slab layout and the unpack are
+in the step wall, as in the run loop), a collapse state on the
+work-sharded block engine (planned with shards=P). Every timed and traced
+chunk starts from the same state."""
 
 import json
 import os
@@ -48,7 +55,13 @@ def load_fixture(path):
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
-    arg = sys.argv[1] if len(sys.argv) > 1 else "100000"
+    argv = sys.argv[1:]
+    shards = 1
+    if "--shards" in argv:
+        i = argv.index("--shards")
+        shards = int(argv[i + 1])
+        del argv[i : i + 2]
+    arg = argv[0] if argv else "100000"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -62,9 +75,11 @@ def main() -> int:
                                                                  int(arg))
     n = base["n"]
     cfg, _ = plan_engine(pos, h0, **base, gravity="p3m" if n >= P3M_MIN_N else "exact")
-    chunk = make_chunk_runner(cfg)
     steps = ML_SUBCHUNK if cfg.blocks is not None else 3
     refit_s = []
+    if shards > 1:
+        return profile_sharded(card, arg, base, state, params, pos, h0, cfg, steps, shards)
+    chunk = make_chunk_runner(cfg)
 
     def run(state, h, n_steps):
         args = None
@@ -121,6 +136,78 @@ def main() -> int:
     print(json.dumps(out, indent=1))
     if not kernels:
         print("profiler reported no device time; time the wrappers with chip_smoke.py instead")
+    return 0
+
+
+def device_kernels(prof):
+    """(name, device ms, calls) of the traced device events, largest first."""
+    return sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
+        key=lambda r: -r[1],
+    )
+
+
+def profile_sharded(card, arg, base, state, params, pos, h0, cfg, steps, shards):
+    """The chunk over `shards` shards of cuda:0: the z-slab engine for a tile
+    plan, the work-sharded block engine for a block plan."""
+    from sphtpu_torch.engine import EngineConfig
+    from sphtpu_torch.physics.blocks import plan_blocks
+    from sphtpu_torch.shard.blocks import make_blocks_chunk_runner
+    from sphtpu_torch.shard.collectives import particle_mesh
+    from sphtpu_torch.shard import tiles as shard_tiles
+
+    mesh = particle_mesh(["cuda:0"] * shards)
+    h = chip_smoke.dev(h0, torch.float32)
+    info = {}
+    if cfg.tile is not None:
+        plan = shard_tiles.plan_slabs(pos, h0, base["kh"], shards, chunk_steps=steps)
+        if plan is None:
+            raise RuntimeError("no slab plan for this scene")
+        cfg = EngineConfig(**base, tile=(plan.grid, plan.cap), gravity=cfg.gravity)
+        chunk = shard_tiles.make_slab_chunk_runner(cfg, plan, mesh)
+        info = {"engine": "slabs", "grid": plan.grid, "cap": plan.cap, "halo": plan.halo,
+                "hops": plan.hops, "budget": plan.budget, "n_loc": plan.n_loc}
+
+        def run():
+            out = chunk(shard_tiles.pack_state(state, plan, mesh), params, steps)
+            shard_tiles.unpack_state(out[0], plan, base["n"])
+            return out[3]
+    else:
+        spec, bargs = plan_blocks(pos, h0, base["kh"], gravity=cfg.gravity, shards=shards)
+        cfg = EngineConfig(**base, blocks=spec, gravity=cfg.gravity)
+        chunk = make_blocks_chunk_runner(cfg, mesh)
+        info = {"engine": "blocks_sharded", "buckets": [list(b) for b in spec[0]]}
+
+        def run():
+            return chunk(state, params, h, bargs, steps)[3]
+
+    run()  # warm-up, builds the kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cert = run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy_ms = sum(r[1] for r in kernels) / steps
+    ours = sum(r[1] for r in kernels if "sph::" in r[0]) / steps
+    print(json.dumps({
+        "card": card, "scene": arg, "n": base["n"], "gravity": cfg.gravity, "shards": shards,
+        "devices": [str(d) for d in mesh], **info, "steps_timed": steps,
+        "certificate_failed": bool(cert.any()),
+        "wall_ms_per_step_untraced": wall * 1e3,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / 1e3 / wall,
+        "hand_kernels_ms_per_step": ours,
+        "torch_kernels_ms_per_step": busy_ms - ours,
+        "device_kernel_launches_per_step": sum(r[2] for r in kernels) / steps,
+        "top_by_device_ms_per_step": [
+            {"name": k[:70], "ms": t / steps, "calls": c / steps} for k, t, c in kernels[:20]
+        ],
+    }, indent=1))
     return 0
 
 
