@@ -53,7 +53,22 @@ just after:
     bb_collapsed.npz the same way, where no slab plan certifies and the
     work-sharded block engine carries every chunk (K1, K5, rows x columns),
     one evaluation against the single-device block engine, and one
-    bb_collapsed_deep.npz evaluation on the work-sharded multi-level engine.
+    bb_collapsed_deep.npz evaluation on the work-sharded multi-level engine;
+*   the multi-process layer (shard/multihost.py over torch.distributed):
+    two gloo ranks, spawned after the kernels are built, each with two
+    shards of the card and a hard time limit. multihost_work: bb_collapsed.npz
+    through run_simulation(multihost=True) for four steps, each rank on its
+    own copy of the snapshot (the work-sharded block engine: K1, K5, rows x
+    columns), held against the one-process four-shard run above (ranks
+    identical; bit-equal or within the shard bars; rank 1 writes no file);
+    with two or more cards the same with NCCL, one card a rank, else a line
+    saying it did not run. multihost_slabs: the headline run's final state
+    state-sharded with shard/mh_slabs.py (each rank bootstraps from half of
+    the rows, plans from summed histograms, migrates, packs its own shards)
+    for one 2-step slab chunk (K4, K2, rows x columns) against the
+    one-process chunk, rank 0's launches held against their plain versions.
+    Each line gives the ranks' s/step beside the one-process figure and the
+    seconds spent in the exchanges.
 
 Every phase prints one JSON line; any failure raises, so the process exits
 non-zero. There is no CPU continuation: with no CUDA device the script
@@ -69,7 +84,7 @@ path's per-bucket step; K3's rows x columns entry, `newton_rows_cols`: the
 sharded exact path, on the ring's and the row-sharded inputs; K2, K4 and
 the tail also on the slab paths, under "on_slab_exact_path" and
 "on_slab_p3m_path") and on every
-path (`launches_by_path`), its
+path (`launches_by_path`; a multi-process path once a rank), its
 error against the plain version and its time beside the plain version's
 and the card's bound, all on the inputs that one force evaluation of that
 path's final state gives it (K2 carries the exact and the P3M paths'
@@ -2529,7 +2544,8 @@ def phase_shard_slabs(tmp: str, gpu_line: str, p3m: bool):
     here; and one evaluation whose K4, K2 and tail launches are held
     against their plain versions (`slab_kernel_checks`) and whose ring's
     K3 launches are captured for the kernels line. Returns (the run's
-    launch counts, the ring's K3 calls, the slab kernels' report)."""
+    launch counts, the ring's K3 calls, the slab kernels' report, the final
+    state as a `final_scene`)."""
     from sphtpu_torch.shard import tiles as shard_tiles
     from sphtpu_torch.shard.collectives import particle_mesh, run_spmd
     from sphtpu_torch.shard.step import replicate
@@ -2624,7 +2640,18 @@ def phase_shard_slabs(tmp: str, gpu_line: str, p3m: bool):
         snapshot_ids=res["snapshot_ids"], runtime_s=res["runtime_s"], failed=failed)
     if failed:
         raise AssertionError(f"{name} checks failed: {failed}")
-    return counts, calls, slab_kernels
+    return counts, calls, slab_kernels, final_scene(res)
+
+
+def final_scene(res):
+    """A run's final state, its h and its parameters as host float64 (numpy
+    and floats): the input of phase_multihost_slabs."""
+    st, p = res["state"], res["params"]
+    return dict(pos=host64(st.pos), vel=host64(st.vel), K=host64(st.K), h=host64(res["h_last"]),
+                t=float(st.t), **{k: float(getattr(p, k)) for k in PARAM_KEYS})
+
+
+PARAM_KEYS = ("m", "gamma", "cs0", "alpha", "beta", "U0", "t_end")
 
 
 SLAB_KERNELS = ("phase_a_tile", "phase_b_tiles", "p3m_tail", "newton_rows_cols")
@@ -2859,7 +2886,383 @@ def phase_shard_work(tmp: str, gpu_line: str):
         snapshot_ids=res["snapshot_ids"], runtime_s=res["runtime_s"], failed=failed)
     if failed:
         raise AssertionError(f"shard_work checks failed: {failed}")
-    return counts, (st.pos, p.m), ml["launches"]
+    return counts, (st.pos, p.m), ml["launches"], res
+
+
+# --------------------------------------------------------------------------
+# the multi-process layer: two gloo ranks, two shards each, on cuda:0
+# --------------------------------------------------------------------------
+
+MH_RANKS, MH_SHARDS = 2, 2  # ranks, shards a rank: four shards of the card in all
+MH_LIMIT_S = 300.0  # hard limit of a phase's ranks, rendezvous and collectives included
+# module settings a rank takes from the parent (a rehearsal on the CPU changes them)
+MH_SETTINGS = ("DEVICE", "N_MAIN", "COLLAPSE", "sync", "time_ms")
+
+
+def mh_spawn(name: str, out: str, backend: str = "gloo", *args):
+    """Run phase `name`'s rank function in MH_RANKS processes (start method
+    "spawn"; the kernels are already built, the ranks load them), each in a
+    process group over a file rendezvous in `out`. Waits at most MH_LIMIT_S
+    for all of them, kills any still running, and raises if one failed.
+    Returns the ranks' results in rank order."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    settings = {k: globals()[k] for k in MH_SETTINGS}
+    procs = [ctx.Process(target=_mh_rank, args=(name, r, out, backend, settings, args))
+             for r in range(MH_RANKS)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + MH_LIMIT_S
+    try:
+        for proc in procs:
+            proc.join(max(deadline - time.monotonic(), 0.1))
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    codes = [proc.exitcode for proc in procs]
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"{name}: rank exit codes {codes} (None or -9: killed at the limit)")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(MH_RANKS)]
+
+
+def _mh_rank(name, rank, out, backend, settings, args):
+    from sphtpu_torch.shard import multihost as mh
+
+    globals().update(settings)
+    mh.initialize(init_method=f"file://{out}/rdv", num_processes=MH_RANKS, process_id=rank,
+                  backend=backend, timeout_s=MH_LIMIT_S)
+    try:
+        if DEVICE == "cuda":
+            build.load_kernels()  # built by the parent: loaded, not compiled
+        res = MH_PHASES[name](rank, out, *args)
+    finally:
+        mh.shutdown()
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def tree_listing(root: str):
+    return sorted((os.path.relpath(os.path.join(d, f), root), os.path.getsize(os.path.join(d, f)),
+                   os.path.getmtime(os.path.join(d, f)))
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def _mh_work_rank(rank, out, roots, devs):
+    """A rank of `multihost_work`: run_simulation(multihost=True) four steps
+    on its own copy of the collapse snapshot (roots[rank]) over its shards
+    (devs[rank]), its launch counts set to 0 just before the run and read
+    just after."""
+    from sphtpu_torch.engine.driver import run_simulation
+
+    root, devices = roots[rank], devs[rank]
+    before = tree_listing(root)
+    reset_counts()
+    reset_exchanges()
+    res = run_simulation(
+        "polytropic", "boss_bodenheimer", snap_id=1, snap_interval=2, keep_snaps=True,
+        show_plots=False, root=root, multihost=True, devices=devices, max_steps=4,
+        verbose=False,
+    )
+    sync()
+    counts = {name: mod.launches for name, mod in MODULES.items()}
+    st = res["state"]
+    return dict(
+        primary=res["primary"], n_devices=res["n_devices"], steps=res["steps"],
+        fallback_evals=res["fallback_evals"], sharded_chunks=res["sharded_chunks"],
+        single_chunks=res["single_chunks"], shard_replans=res["shard_replans"],
+        chunk_engines=res["chunk_engines"], snapshot_ids=res["snapshot_ids"],
+        buckets=[list(b) for b in res["chunk_configs"][0].blocks[0]]
+        if res["chunk_configs"] and res["chunk_configs"][0].blocks is not None else None,
+        pos=host64(st.pos), vel=host64(st.vel), K=host64(st.K),
+        last_stats=res["last_stats_cgs"], counts=counts, walls=walls_summary(res, N_MAIN),
+        runtime_s=res["runtime_s"], tree_before=before, tree_after=tree_listing(root),
+        devices=[str(d) for d in devices], exchanges=read_exchanges(),
+    )
+
+
+def reset_exchanges() -> None:
+    from sphtpu_torch.shard import dist
+
+    dist.exchanges, dist.exchange_bytes, dist.exchange_s = 0, 0, 0.0
+
+
+def read_exchanges() -> dict:
+    """This rank's requests since reset_exchanges, their payload bytes sent
+    and their wall seconds (packing, the two all-gathers through the host,
+    waiting for the other ranks included, the copy back to the card)."""
+    from sphtpu_torch.shard import dist
+
+    return {"requests": dist.exchanges, "bytes_sent": dist.exchange_bytes,
+            "seconds": dist.exchange_s}
+
+
+def mh_rel(a, b, scale=None):
+    """Largest |a - b| over the scale (default: max |b|)."""
+    s = np.abs(b).max() if scale is None else scale
+    return float(np.abs(a - b).max() / (s + 1e-30))
+
+
+def phase_multihost_work(tmp: str, gpu_line: str, one, backend: str = "gloo"):
+    """bb_collapsed.npz through run_simulation(multihost=True) over MH_RANKS
+    ranks x MH_SHARDS shards (four shards in all), four steps with a snapshot
+    every 2: the work-sharded block engine (K1, K5, K3's rows x columns entry)
+    in every chunk. Each rank runs on its own copy of the snapshot tree.
+    Held against `one`, the one-process four-shard run of phase_shard_work
+    from the same snapshot: the ranks' states identical, equal to it bit for
+    bit or within SHARD_POS_TOL; rank 0 wrote the snapshots and the stats,
+    rank 1 no file. With "nccl" each rank runs on its own card. Returns the
+    ranks' launch counts."""
+    name = "multihost_work" if backend == "gloo" else "multihost_work_nccl"
+    out = os.path.join(tmp, name)
+    roots = [os.path.join(out, f"rank{r}") for r in range(MH_RANKS)]
+    for root in roots:
+        write_collapse_snapshot(root, COLLAPSE)
+    devs = [[f"{DEVICE}:{r if backend == 'nccl' else 0}"] * MH_SHARDS for r in range(MH_RANKS)]
+    ranks = mh_spawn("work", out, backend, roots, devs)
+    r0, r1 = ranks
+    n_buckets = len(r0["buckets"]) if r0["buckets"] else 0
+    want = {name_: 0 for name_ in MODULES}
+    want.update(phase_a_cells=8 * n_buckets * MH_SHARDS, phase_b_grouped=8 * MH_SHARDS,
+                newton_rows_cols=8 * MH_SHARDS)
+    pos1, stats1 = host64(one["state"].pos), np.asarray(one["last_stats_cgs"])
+    errs = {
+        "pos_over_scale": mh_rel(r0["pos"], pos1),
+        "vel_over_scale": mh_rel(r0["vel"], host64(one["state"].vel)),
+        "K_rel": float((np.abs(r0["K"] - host64(one["state"].K)) / np.abs(host64(one["state"].K))).max()),
+        "last_stats_over_max": mh_rel(r0["last_stats"], stats1),
+    }
+    bit_equal = all(v == 0.0 for v in errs.values())
+    names0 = {f for f, _, _ in r0["tree_after"]}
+    checks = {
+        "rank 0 primary, rank 1 not": r0["primary"] and not r1["primary"],
+        "4 shards": r0["n_devices"] == r1["n_devices"] == MH_RANKS * MH_SHARDS,
+        "4 steps, 0 fallback evals": all(r["steps"] == 4 and r["fallback_evals"] == 0
+                                         for r in ranks),
+        "every chunk on the work-sharded block engine": all(
+            set(r["chunk_engines"]) == {"blocks_sharded"} for r in ranks),
+        "0 failed certificates, 0 single-device chunks": all(
+            r["shard_replans"] == 0 and r["single_chunks"] == 0 for r in ranks),
+        "ranks' states identical": all(np.array_equal(r0[k], r1[k])
+                                       for k in ("pos", "vel", "K", "last_stats")),
+        "one-process run's chunk engines": r0["chunk_engines"] == one["chunk_engines"],
+        "vs the one-process run: pos": errs["pos_over_scale"] <= SHARD_POS_TOL,
+        "vs the one-process run: stats": errs["last_stats_over_max"] <= SHARD_STATS_TOL,
+        "rank 0 wrote snapshots 1, 3, 4 and the stats": r0["snapshot_ids"] == [1, 3, 4]
+        and {f for f, _, _ in r0["tree_before"]} < names0
+        and any(f.endswith("stats") for f in names0),
+        "rank 1 wrote no file": r1["snapshot_ids"] == [] and r1["tree_after"] == r1["tree_before"],
+        "kernel launches a rank": all(r["counts"] == want for r in ranks),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    one_walls = walls_summary(one, N_MAIN)
+    say(name, card=gpu_line, backend=backend, ranks=MH_RANKS, shards_per_rank=MH_SHARDS,
+        devices=[r["devices"] for r in ranks],
+        scene=f"bb_collapsed.npz (contrast 395) polytropic N={N_MAIN} Kh={KH_COLLAPSE} float32",
+        buckets=r0["buckets"], chunk_engines=r0["chunk_engines"],
+        launches_per_rank=[r["counts"] for r in ranks],
+        s_per_step_end_to_end={"ranks": [r["walls"]["s_per_step_end_to_end"] for r in ranks],
+                               "one_process_x4": one_walls["s_per_step_end_to_end"]},
+        s_per_step_after_first={"ranks": [r["walls"]["s_per_step_after_first"] for r in ranks],
+                                "one_process_x4": one_walls["s_per_step_after_first"]},
+        chunk_walls_rank0=r0["walls"]["chunk_walls"], pick_walls_rank0=r0["walls"]["pick_walls"],
+        first_step_s=[r["walls"]["first_step_s"] for r in ranks],
+        exchanges_of_run=[r["exchanges"] for r in ranks],
+        runtime_s=[r["runtime_s"] for r in ranks], bit_equal_to_one_process=bit_equal,
+        errors_vs_one_process=errs, tolerances=[SHARD_POS_TOL, SHARD_STATS_TOL],
+        snapshot_ids=[r["snapshot_ids"] for r in ranks], failed=failed)
+    if failed:
+        raise AssertionError(f"{name} checks failed: {failed}")
+    return [r["counts"] for r in ranks]
+
+
+def _mh_slabs_rank(rank, out, path, capture_n):
+    """A rank of `multihost_slabs`: bootstrap from the rank's contiguous
+    share of the rows, plan (histograms summed over the ranks), migrate,
+    pack its own shards, then a 1-step warm-up chunk (rank 0 records its
+    first evaluation's K4, K2 and rows x columns launches) and the timed
+    2-step chunk, its launch counts set to 0 just before it and read just
+    after. Rank 0 then holds the recorded launches against their plain
+    versions."""
+    from sphtpu_torch.engine import params_from_numpy
+    from sphtpu_torch.shard import multihost as mh
+    from sphtpu_torch.shard import tiles as shard_tiles
+    from sphtpu_torch.shard.mh_slabs import (
+        LocalRows, _dev_of_rows, mh_local_rows, mh_migrate, mh_pack, mh_plan_slabs,
+    )
+
+    d = np.load(path)
+    n = d["pos"].shape[0]
+    lo, hi = rank * n // MH_RANKS, (rank + 1) * n // MH_RANKS
+    local = LocalRows(d["pos"][lo:hi], d["vel"][lo:hi], d["K"][lo:hi], d["h"][lo:hi],
+                      np.arange(lo, hi))
+    p = params_from_numpy(**{k: float(d[k]) for k in PARAM_KEYS}, device=DEVICE)
+    t = float(d["t"])
+    del d
+    mesh = mh.global_mesh([f"{DEVICE}:0"] * MH_SHARDS)
+    t0 = time.perf_counter()
+    plan = mh_plan_slabs(local, 50, len(mesh), chunk_steps=2)
+    if plan is None:
+        raise AssertionError("multihost_slabs: no slab plan")
+    local = mh_migrate(local, plan, mesh)
+    owned = bool(np.all(np.isin(_dev_of_rows(local.pos, plan), list(mesh.local))))
+    states, layout = mh_pack(local, plan, mesh, torch.float32, t=t)
+    t_plan = time.perf_counter() - t0
+    cfg = EngineConfig(n=n, kh=50, eos="polytropic", tile=(plan.grid, plan.cap), gravity="exact")
+    chunk = shard_tiles.make_slab_chunk_runner(cfg, plan, mesh)
+
+    caught = {k: [] for k in ("phase_a_tile", "phase_b_tiles", "newton_rows_cols")}
+
+    def rec(kname):
+        def wrap(orig):
+            def run(*a, **kw):
+                if rank == 0 and len(caught[kname]) < capture_n[kname]:
+                    caught[kname].append((a, kw))
+                return orig(*a, **kw)
+            return run
+        return wrap
+
+    with contextlib.ExitStack() as patches:
+        for kname in caught:
+            patches.enter_context(patched(shard_tiles, kname, rec(kname)))
+        chunk(states, p, 1)  # warm-up
+    sync()
+    reset_counts()
+    reset_exchanges()
+    (st2, stats, valid, cert, h_rows, _), t_chunk = timed(lambda: chunk(states, p, 2))
+    counts = {name: mod.launches for name, mod in MODULES.items()}
+    exchanges = read_exchanges()
+    rows = mh_local_rows(st2, h_rows, layout)
+    res = dict(
+        static_key=plan.static_key, z0s=[int(z) for z in plan.z0s], half=plan.half,
+        rows=list(plan.rows), d0=layout.d0, d1=layout.d1, owned=owned,
+        n_local_rows=int(rows.gid.size), pos=rows.pos, vel=rows.vel, K=rows.K, h=rows.h,
+        gid=rows.gid, stats=host64(stats), valid=bool(valid.all()), cert=bool(cert.any()),
+        counts=counts, chunk_2_steps_s=t_chunk, plan_migrate_pack_s=t_plan, exchanges=exchanges,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None,
+    )
+    if rank == 0:
+        rc = caught.pop("newton_rows_cols")
+        res["kernels_vs_plain"] = slab_kernel_checks(caught)
+        err = 0.0
+        for a, kw in rc:
+            g_k, p_k = cuda_gravity_rc.newton_rows_cols(*a, **kw)
+            g_p, p_p = cuda_gravity_rc.newton_rows_cols_plain(*a, **kw)
+            if not same_bits((g_k, p_k), cuda_gravity_rc.newton_rows_cols(*a, **kw)):
+                raise AssertionError("newton_rows_cols (multihost slab): two launches differ")
+            g_err = float((g_k - g_p).abs().max())
+            if g_err > 2e-4 * float(g_p.abs().max()):
+                raise AssertionError(f"newton_rows_cols (multihost slab): g {g_err}")
+            err = max(err, g_err, float((p_k - p_p).abs().max()))
+        res["kernels_vs_plain"]["newton_rows_cols"] = dict(
+            launches_checked=len(rc), max_abs_err=err, runs_bit_identical=True)
+    return res
+
+
+def phase_multihost_slabs(tmp: str, gpu_line: str, scene):
+    """The headline scene (N = 1e5, Kh = 50, exact gravity) state-sharded with
+    shard/mh_slabs.py over MH_RANKS ranks x MH_SHARDS shards of the card, from
+    `scene` (phase_shard_slabs' final state: the 4-step run's; at t = 0 the
+    rigid rotation's div v cancels to below K2's check's scale): each rank
+    bootstraps from half of the rows, plans, migrates, packs and runs one
+    2-step slab chunk (K4, K2, K3's rows x columns entry). Checks:
+    both ranks derive plan_slabs' plan on the whole state; the gid sets are
+    disjoint and complete; the reassembled state equals the one-process
+    four-shard slab chunk's (timed here) bit for bit or within the shard
+    bars; rank 0's launches of its own shards held against their plain
+    versions. Returns the ranks' launch counts."""
+    from sphtpu_torch.engine import params_from_numpy
+    from sphtpu_torch.shard import tiles as shard_tiles
+    from sphtpu_torch.shard.collectives import particle_mesh
+
+    out = os.path.join(tmp, "multihost_slabs")
+    os.makedirs(out)
+    path = os.path.join(out, "state.npz")
+    np.savez(path, **scene)
+    pos, h0 = scene["pos"], scene["h"]
+    n = pos.shape[0]
+    st = state_from_numpy(pos, scene["vel"], scene["K"], scene["t"], device=DEVICE)
+    p = params_from_numpy(**{k: scene[k] for k in PARAM_KEYS}, device=DEVICE)
+    plan = shard_tiles.plan_slabs(pos, h0, 50, MH_RANKS * MH_SHARDS, chunk_steps=2)
+    if plan is None:
+        raise AssertionError("multihost_slabs: no one-process slab plan")
+    mesh = particle_mesh(shard_mesh())
+    cfg = EngineConfig(n=n, kh=50, eos="polytropic", tile=(plan.grid, plan.cap), gravity="exact")
+    run = shard_tiles.make_slab_chunk_runner(cfg, plan, mesh)
+    run(shard_tiles.pack_state(st, plan, mesh), p, 1)  # warm-up
+    (sl2, stats1, valid1, cert1, h_rows1, _), t_one = timed(
+        lambda: run(shard_tiles.pack_state(st, plan, mesh), p, 2))
+    one = shard_tiles.unpack_state(sl2, plan, n)
+    pos1, vel1, K1 = host64(one.pos), host64(one.vel), host64(one.K)
+    h1 = shard_tiles.unpack_rows(np.concatenate([host64(x) for x in h_rows1]), plan, n)
+    stats1 = host64(stats1)
+    del sl2, one, h_rows1, st, run
+    torch.cuda.empty_cache()
+    real = shard_tiles.real_rows(plan)
+    # rank 0 records its first evaluation's launches: K4 and K2 once a shard,
+    # the ring's rows x columns once a shard and round
+    capture_n = {"phase_a_tile": MH_SHARDS, "phase_b_tiles": MH_SHARDS,
+                 "newton_rows_cols": MH_SHARDS * MH_RANKS * MH_SHARDS}
+    ranks = mh_spawn("slabs", out, "gloo", path, capture_n)
+    r0, r1 = ranks
+
+    full = {k: np.zeros((n, 3) if k in ("pos", "vel") else n) for k in ("pos", "vel", "K", "h")}
+    for r in ranks:
+        for k in full:
+            full[k][r["gid"]] = r[k]
+    errs = {"pos_over_scale": mh_rel(full["pos"], pos1), "vel_over_scale": mh_rel(full["vel"], vel1),
+            "K_rel": float((np.abs(full["K"] - K1) / np.abs(K1)).max()),
+            "h_rel": float((np.abs(full["h"] - h1) / np.abs(h1)).max()),
+            "stats_over_max": mh_rel(r0["stats"], stats1)}
+    bit_equal = all(v == 0.0 for v in errs.values())
+    g0, g1 = set(r0["gid"].tolist()), set(r1["gid"].tolist())
+    evals = 4
+    want = {name: 0 for name in MODULES}
+    want.update(phase_a_tile=evals * MH_SHARDS, phase_b_tiles=evals * MH_SHARDS,
+                newton_rows_cols=evals * MH_SHARDS * MH_RANKS * MH_SHARDS)
+    kern = r0["kernels_vs_plain"]
+    checks = {
+        "both ranks derive plan_slabs' plan": all(
+            r["static_key"] == plan.static_key and r["z0s"] == [int(z) for z in plan.z0s]
+            and r["half"] == plan.half and r["rows"] == real for r in ranks),
+        "each rank holds only its own shards' rows": all(r["owned"] for r in ranks)
+        and (r0["d0"], r0["d1"], r1["d0"], r1["d1"]) == (0, 2, 2, 4),
+        "gid sets disjoint and complete": not (g0 & g1) and len(g0 | g1) == n,
+        "chunks certified": r0["valid"] and r1["valid"] and not (r0["cert"] or r1["cert"])
+        and bool(valid1.all()) and not bool(cert1.any()),
+        "ranks' stats identical": np.array_equal(r0["stats"], r1["stats"]),
+        "vs the one-process chunk: pos": errs["pos_over_scale"] <= SHARD_POS_TOL,
+        "vs the one-process chunk: stats": errs["stats_over_max"] <= SHARD_STATS_TOL,
+        "vs the one-process chunk: h": errs["h_rel"] <= SHARD_ROW_TOL,
+        "kernel launches a rank": all(r["counts"] == want for r in ranks),
+        "rank 0's K4, K2 and rows x columns launches held against their plain versions":
+            kern["phase_a_tile"]["launches_checked"] == MH_SHARDS
+            and kern["phase_b_tiles"]["launches_checked"] == MH_SHARDS
+            and kern["newton_rows_cols"]["launches_checked"] == capture_n["newton_rows_cols"],
+    }
+    failed = [k for k, v in checks.items() if not v]
+    say("multihost_slabs", card=gpu_line, backend="gloo", ranks=MH_RANKS,
+        shards_per_rank=MH_SHARDS, scene=f"boss_bodenheimer polytropic N={n} Kh=50 float32 "
+        "gravity=exact", plan={"grid": plan.grid, "cap": plan.cap, "lz_max": plan.lz_max,
+                              "halo": plan.halo, "hops": plan.hops, "budget": plan.budget,
+                              "n_loc": plan.n_loc, "z0s": [int(z) for z in plan.z0s],
+                              "real_rows": real},
+        rows_a_rank=[r["n_local_rows"] for r in ranks],
+        launches_per_rank=[r["counts"] for r in ranks],
+        s_per_step={"ranks": [r["chunk_2_steps_s"] / 2 for r in ranks],
+                    "one_process_x4": t_one / 2},
+        plan_migrate_pack_s=[r["plan_migrate_pack_s"] for r in ranks],
+        exchanges_of_chunk=[r["exchanges"] for r in ranks],
+        bit_equal_to_one_process=bit_equal, errors_vs_one_process=errs,
+        tolerances=[SHARD_POS_TOL, SHARD_STATS_TOL, SHARD_ROW_TOL],
+        rank0_kernels_vs_plain=kern, peak_memory_gb=[r["peak_memory_gb"] for r in ranks],
+        failed=failed)
+    if failed:
+        raise AssertionError(f"multihost_slabs checks failed: {failed}")
+    return [r["counts"] for r in ranks]
+
+
+MH_PHASES = {"work": _mh_work_rank, "slabs": _mh_slabs_rank}
 
 
 def kernel_entry(name, counts, err, ms, plain_ms, flops, byts, peak, **extra):
@@ -3006,15 +3409,29 @@ def main() -> int:
         by_path["outlier_ladder"] = phase_outlier_ladder(tmp, gpu_line)
         phase_offpath(gpu_line)
         torch.cuda.empty_cache()
-        by_path["slab_exact_n1e5_x4"], ring_calls, slab_exact = phase_shard_slabs(
+        by_path["slab_exact_n1e5_x4"], ring_calls, slab_exact, headline = phase_shard_slabs(
             tmp, gpu_line, p3m=False)
         torch.cuda.empty_cache()
-        by_path["slab_p3m_n2e5_x4"], _, slab_p3m = phase_shard_slabs(tmp, gpu_line, p3m=True)
+        by_path["slab_p3m_n2e5_x4"], _, slab_p3m, _ = phase_shard_slabs(tmp, gpu_line, p3m=True)
         torch.cuda.empty_cache()
         (by_path["blocks_sharded_collapse_x4"], row_sharded,
-         by_path["mlevel_sharded_deep_eval_x4"]) = phase_shard_work(tmp, gpu_line)
+         by_path["mlevel_sharded_deep_eval_x4"], one_work) = phase_shard_work(tmp, gpu_line)
         rc = rc_entry(ring_calls, row_sharded, by_path["slab_exact_n1e5_x4"])
         del ring_calls, row_sharded
+        torch.cuda.empty_cache()
+        for r, c in enumerate(phase_multihost_work(tmp, gpu_line, one_work)):
+            by_path[f"multihost_work_rank{r}"] = c
+        if torch.cuda.device_count() >= MH_RANKS:
+            for r, c in enumerate(phase_multihost_work(tmp, gpu_line, one_work, "nccl")):
+                by_path[f"multihost_work_nccl_rank{r}"] = c
+        else:
+            say("multihost_work_nccl", ran=False, visible_cards=torch.cuda.device_count(),
+                reason=f"NCCL needs one card a rank: {MH_RANKS} ranks, "
+                       f"{torch.cuda.device_count()} card")
+        del one_work
+        for r, c in enumerate(phase_multihost_slabs(tmp, gpu_line, headline)):
+            by_path[f"multihost_slabs_rank{r}"] = c
+        del headline
     entries[0]["on_collapse_path"] = k1_blk
     entries[0]["on_mlevel_path"] = k1_ml
     entries[1]["on_exact_path"] = k2_exact

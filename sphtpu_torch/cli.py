@@ -11,6 +11,20 @@ The kwargs string parses "key=val,key=val" with bool/int/float/str coercion
 (sph_manager.jl:75-98). Extra flags beyond the reference: --root (snapshot
 tree location), --dtype, --max-steps, --quiet, and --device: the run is on
 the CUDA device unless `--device cpu` is given.
+
+A multi-process run (`--multihost`, shard/multihost.py) is one process a
+rank, launched by hand or by torchrun, each with the same flags but its own
+--process-id:
+
+    python -m sphtpu_torch.cli --run ... --multihost --coordinator localhost:29500 \
+        --num-processes 2 --process-id 0 --shards-per-process 2
+    torchrun --nproc-per-node 2 -m sphtpu_torch.cli --run ... --multihost \
+        --shards-per-process 2
+
+Each rank runs --shards-per-process shards on cuda:<local rank mod visible
+cards> (or on the CPU with --device cpu). --dist-backend gloo (the default)
+shares a card between ranks and stages each exchange through host memory;
+nccl needs one card a rank.
 """
 
 from __future__ import annotations
@@ -87,6 +101,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "work-sharded block and multi-level engines): the "
                         "first N CUDA devices, or N CPU shards with "
                         "--device cpu")
+    p.add_argument("--multihost", action="store_true",
+                   help="Join a multi-process run over torch.distributed: the "
+                        "mesh spans every rank's shards, the work-sharded "
+                        "engines carry the chunks, and only rank 0 writes "
+                        "snapshots/stats/figures. Rendezvous from "
+                        "--coordinator/--num-processes/--process-id, or from "
+                        "the variables torchrun exports (MASTER_ADDR, "
+                        "MASTER_PORT, WORLD_SIZE, RANK)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0's rendezvous for --multihost")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="Number of ranks for --multihost")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="This process's rank for --multihost")
+    p.add_argument("--shards-per-process", type=int, default=1,
+                   help="Shards this rank runs under --multihost, all on "
+                        "cuda:<local rank mod visible cards> (on the CPU with "
+                        "--device cpu); every rank must give the same number")
+    p.add_argument("--dist-backend", default="gloo", choices=("gloo", "nccl"),
+                   help="torch.distributed backend of --multihost: gloo shares "
+                        "a card between ranks (exchanges staged through host "
+                        "memory); nccl needs one card a rank")
     p.add_argument("--device", default=None,
                    help="torch device of the run; default: cuda (an error "
                         "if there is none). 'cpu' runs the plain PyTorch "
@@ -146,6 +182,21 @@ def main(argv=None) -> int:
             return 1
         from .engine import run_simulation
 
+        owned = False  # a process group this call formed, and leaves at the end
+        if args.multihost:
+            import torch.distributed
+
+            from .shard import multihost as mh
+
+            owned = not torch.distributed.is_initialized()
+            if args.coordinator is not None:
+                mh.initialize(args.coordinator, args.num_processes, args.process_id,
+                              backend=args.dist_backend)
+            elif not mh.maybe_initialize_from_env(backend=args.dist_backend):
+                raise SystemExit(
+                    "--multihost needs --coordinator, --num-processes and --process-id, "
+                    "or the variables torchrun exports"
+                )
         print(
             f"Running {args.EOS} simulation from snapshot {args.snapID} "
             f"with IC type: {args.ic_type}"
@@ -162,10 +213,14 @@ def main(argv=None) -> int:
             engine=args.engine,
             gravity=args.gravity,
             n_devices=args.n_devices,
+            multihost=args.multihost,
+            shards_per_process=args.shards_per_process,
             max_steps=args.max_steps,
             verbose=not args.quiet,
             device=args.device,
         )
+        if owned:
+            mh.shutdown()
     return 0
 
 

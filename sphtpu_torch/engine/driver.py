@@ -21,7 +21,9 @@ n_devices > 1 runs the multi-device layer (sphtpu_torch/shard/) over a mesh
 of shards in one process: the z-slab tile engine when a slab plan
 certifies, else the work-sharded block engine, else the work-sharded
 multi-level engine, else the chunk runs on one device
-(`run_chunk_sharded`).
+(`run_chunk_sharded`). multihost=True runs one mesh across processes
+(shard/multihost.py): the work-sharded engines only, and only rank 0
+writes files.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from ..physics.mlevel import mlevel_args_still_ok, plan_mlevel
 from ..physics.tiles import choose_tile_params, choose_tile_params_ml, tile_params_still_ok
 from ..profiling import StageTimer
 from ..units import UnitSystem
-from ..shard.collectives import particle_mesh
+from ..shard.collectives import local_devices, particle_mesh
 from .config import EngineConfig, params_from_numpy, state_from_numpy
 from .step import make_chunk_runner
 
@@ -211,6 +213,7 @@ def run_simulation(
     verbose: bool = True,
     device=None,
     devices=None,
+    shards_per_process: int = 1,
 ) -> dict:
     """Run from snapshot `snap_id` until tEnd (or max_steps). Returns a
     summary dict (steps run, final time, last stats row, snapshot ids).
@@ -235,16 +238,36 @@ def run_simulation(
     (four "cuda:0", say: shards may share a device) sets the mesh itself.
     The result counts `sharded_chunks`, `shard_replans` (chunks whose
     collective certificate failed and froze) and `single_chunks` (chunks
-    no sharded engine planned, run on one device). multihost (one mesh
-    across processes) is slice 5b of the port and raises."""
+    no sharded engine planned, run on one device).
+
+    multihost=True runs under an initialised torch.distributed process
+    group (shard/multihost.initialize) of two or more ranks: the mesh spans
+    every rank's shards, rank-major (this rank's: `devices`, else
+    `shards_per_process` shards of cuda:<local rank mod visible cards>, or
+    of the CPU with device="cpu"; n_devices becomes the global shard
+    count). Every rank runs the same deterministic host planning from the
+    same replicated state; the work-sharded engines carry the chunks (the
+    z-slab path is skipped, as in the reference); only rank 0 writes
+    snapshots, stats and figures. The result's `primary` says which."""
     start_wall = time.time()
-    if multihost:
-        raise NotImplementedError(
-            "multihost runs (one mesh across processes, torch.distributed) "
-            "arrive with slice 5b of the port"
-        )
     mesh = None
-    if devices is not None:
+    primary = True
+    if multihost:
+        from ..shard import multihost as mh
+
+        if mh.process_count() < 2:
+            raise ValueError(
+                "multihost=True requires torch.distributed initialised across > 1 "
+                "processes (sphtpu_torch.shard.multihost.initialize)"
+            )
+        primary = mh.is_primary()
+        verbose = verbose and primary
+        local = devices if devices is not None else mh.shard_devices(shards_per_process, device)
+        for d in local:
+            resolve_device(d)
+        mesh = mh.global_mesh(local)
+        n_devices = len(mesh)
+    elif devices is not None:
         mesh = particle_mesh(devices)
         if len(mesh) != n_devices:
             raise ValueError(f"n_devices={n_devices} but {len(mesh)} devices given")
@@ -264,7 +287,7 @@ def run_simulation(
             mesh = particle_mesh([f"cuda:{i}" for i in range(n_devices)])
     if mesh is not None and len(mesh) < 2:
         mesh = None
-    dev = mesh[0] if mesh is not None else resolve_device(device)
+    dev = local_devices(mesh)[0] if mesh is not None else resolve_device(device)
     snap = read_snapshot(snapshot_path(root, ic_type, str(snap_id)))
     c = dict(snap["constants"])
     n = int(c["N"])
@@ -396,7 +419,7 @@ def run_simulation(
             if entry[0].gravity == grav and slab_plan_still_ok(entry[1], pos_host, h_host):
                 hit = entry
                 break
-        if hit is None:
+        if hit is None and not multihost:
             plan = plan_slabs(pos_host, h_host, kh, n_devices, chunk_steps=n_steps)
             if plan is not None:
                 cfg_s = EngineConfig(
@@ -478,7 +501,10 @@ def run_simulation(
         h_host = np.zeros(n)
     h_dev = torch.as_tensor(h_host).to(device=dev, dtype=base_cfg.torch_dtype)
 
-    stats_file = StatsFile(os.path.join(root, "snapshots", ic_type, "stats"))
+    # multi-process runs: only the primary rank owns the files
+    stats_file = (
+        StatsFile(os.path.join(root, "snapshots", ic_type, "stats")) if primary else None
+    )
 
     # Radial-profile sample line, fixed at startup (polytrope_sim.jl:131 /
     # isothermal_sim.jl:124).
@@ -647,6 +673,8 @@ def run_simulation(
         n_fb = 0
         if mesh is not None and not force_single:
             n_steps = _wall_cap("sharded", min(n_steps, MAX_SCAN_STEPS))
+            if multihost:  # sized from this rank's walls: the ranks agree first
+                n_steps = mh.agree_min(n_steps)
             with timer("chunk_steps_sharded"):
                 t_chunk = time.perf_counter()
                 res = run_chunk_sharded(state, h_host, n_steps)
@@ -715,7 +743,8 @@ def run_simulation(
         consec_fail = 0
         stats_cgs = _stats_to_cgs(stats_code[:n_valid], u)
         for j in range(n_valid):
-            stats_file.update_row(iter_id + j, stats_cgs[j])
+            if primary:
+                stats_file.update_row(iter_id + j, stats_cgs[j])
             if verbose:
                 row = stats_cgs[j]
                 if eos == "polytropic":
@@ -738,7 +767,7 @@ def run_simulation(
         # the reference cadence (snapshot only on true boundaries / at end)
         on_boundary = keep_snaps and n_valid == n_steps_full
         counter = 1 if on_boundary else counter + n_valid
-        if on_boundary or at_end:
+        if (on_boundary or at_end) and primary:
             with timer("snapshot_io"):
                 do_snapshot(last_iter, last_stats_code, rho_host)
 
@@ -748,7 +777,8 @@ def run_simulation(
     io_thread.join()
     if io_err:
         raise io_err[0]
-    stats_file.close()
+    if primary:
+        stats_file.close()
     runtime = time.time() - start_wall
     timer.report()
     if verbose:
@@ -764,6 +794,7 @@ def run_simulation(
         "sharded_chunks": total_sharded,
         "single_chunks": total_single,
         "n_devices": len(mesh) if mesh is not None else 1,
+        "primary": primary,
         "configs": picked,
         "chunk_walls": chunk_walls,
         "pick_walls": pick_walls,

@@ -22,9 +22,11 @@ Two layers:
     phases. With one shard every collective is the identity, so the
     single-device engines run the same bodies through `run_local`.
 
-The interface is the list functions and the request names; a multi-process
-backend (one generator a rank, each request a `torch.distributed` call)
-can take the place of `run_spmd` without touching the bodies.
+The interface is the list functions and the request names. Across
+processes (shard/dist.py) the mesh is a `ProcessMesh`: each rank runs its
+own shards' bodies (`local_shards`) and `run_mesh` hands them to
+`dist.run_dist`, which exchanges each request's values between the ranks
+and runs the same list function; the bodies are unchanged.
 """
 
 from __future__ import annotations
@@ -177,6 +179,28 @@ def run_spmd(bodies: Sequence):
                 f"shards disagree on the collective: {[(r.op, r.kw) for r in reqs]}"
             )
         sends = OPS[op]([r.value for r in reqs], **kw)
+
+
+def local_shards(mesh) -> range:
+    """The global indices of the shards this process runs: all of them, or
+    a rank's slice of a mesh across processes."""
+    return getattr(mesh, "local", range(len(mesh)))
+
+
+def local_devices(mesh) -> list:
+    """The devices of this process's shards, in shard order."""
+    return [mesh[k] for k in local_shards(mesh)]
+
+
+def run_mesh(mesh, bodies):
+    """Run this process's shards' bodies (one per `local_shards(mesh)`, in
+    order) over the mesh: `run_spmd` in one process, `dist.run_dist` across
+    processes. Returns the bodies' return values in the same order."""
+    if hasattr(mesh, "local"):
+        from .dist import run_dist
+
+        return run_dist(bodies, mesh)
+    return run_spmd(bodies)
 
 
 def run_local(body):

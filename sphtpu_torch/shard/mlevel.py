@@ -30,7 +30,7 @@ from ..kernels.cuda_gravity_rc import newton_rows_cols
 from ..physics.mesh_gravity import greens_hat, p3m_mesh_force
 from ..physics.mlevel import mlevel_args_to_device, mlevel_forces_body
 from ..profiling import stage
-from .collectives import request, run_spmd
+from .collectives import local_devices, local_shards, request, run_mesh
 from .step import replicate
 
 
@@ -86,9 +86,11 @@ def _make_workshard_chunk_runner(cfg: EngineConfig, mesh, engine_force, to_devic
     engine's candidate tables)."""
     n_shards = len(mesh)
     p3m = cfg.gravity == "p3m"
+    # this process's shards: all of them, or a rank's slice (shard/dist.py)
+    shards, devs = local_shards(mesh), local_devices(mesh)
     ghats = [
         greens_hat(cfg.mesh_pad, cfg.sigma_cells, cfg.torch_dtype, d) if p3m else None
-        for d in mesh
+        for d in devs
     ]
 
     def force(p: Params, mlargs, ghat, aux, shard, pos, vel, K, h_hint):
@@ -107,12 +109,12 @@ def _make_workshard_chunk_runner(cfg: EngineConfig, mesh, engine_force, to_devic
 
     def chunk(state: State, p: Params, h0, mlargs, n_steps: int):
         dtype = state.pos.dtype
-        states = replicate(state, mesh)
-        ps = replicate(p, mesh)
-        hs = [h0.to(d) for d in mesh]
-        args = [to_device(mlargs, dtype, d) for d in mesh]
-        aux = [make_aux(a, k) if make_aux is not None else None for k, a in enumerate(args)]
-        dev = mesh[0]
+        states = replicate(state, devs)
+        ps = replicate(p, devs)
+        hs = [h0.to(d) for d in devs]
+        args = [to_device(mlargs, dtype, d) for d in devs]
+        aux = [make_aux(a, k) if make_aux is not None else None for k, a in zip(shards, args)]
+        dev = devs[0]
         stats = torch.zeros((n_steps, 10), dtype=dtype, device=dev)
         valid = torch.zeros((n_steps,), dtype=torch.bool, device=dev)
         cert = torch.zeros((n_steps,), dtype=torch.bool, device=dev)
@@ -120,10 +122,10 @@ def _make_workshard_chunk_runner(cfg: EngineConfig, mesh, engine_force, to_devic
         for i in range(n_steps):
             if not bool(states[0].t < ps[0].t_end):
                 break
-            out = run_spmd([
-                kdk_body(cfg, ps[k], states[k], hs[k],
-                         functools.partial(force, ps[k], args[k], ghats[k], aux[k], k))
-                for k in range(n_shards)
+            out = run_mesh(mesh, [
+                kdk_body(cfg, ps[i], states[i], hs[i],
+                         functools.partial(force, ps[i], args[i], ghats[i], aux[i], k))
+                for i, k in enumerate(shards)
             ])
             if out[0] is None:
                 cert[i] = True  # frozen: the state stays, the host re-plans

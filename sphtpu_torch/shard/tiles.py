@@ -59,7 +59,7 @@ from ..kernels.cuda_tile_pairs import phase_b_tiles
 from ..physics.mesh_gravity import greens_hat, mesh_deposit, mesh_solve, tail_halfwidth
 from ..physics.tiles import CS, H, MASK, X, fill_stack
 from ..profiling import stage
-from .collectives import request, run_spmd
+from .collectives import local_devices, local_shards, request, run_mesh
 from .step import replicate
 
 # ---------------------------------------------------------------------------
@@ -84,6 +84,8 @@ class SlabPlan:
     # host arrays (numpy; not part of the compile key)
     z0s: np.ndarray = dataclasses.field(compare=False)  # (n_dev+1,) layer bounds
     order: np.ndarray = dataclasses.field(compare=False)  # (n_dev*n_loc,) row -> global id, -1 pad
+    # real rows a shard, where `order` is None (shard/mh_slabs.mh_plan_slabs)
+    rows: tuple = dataclasses.field(default=None, compare=False)
 
     @property
     def static_key(self):
@@ -353,7 +355,11 @@ def unpack_state(states, plan: SlabPlan, n: int) -> State:
 
 
 def real_rows(plan: SlabPlan) -> list:
-    """Real rows of each shard (a prefix of its n_loc rows)."""
+    """Real rows of each shard (a prefix of its n_loc rows): from the
+    plan's order, or its `rows` where ownership is process-local
+    (shard/mh_slabs.py plans with order=None)."""
+    if plan.order is None:
+        return list(plan.rows)
     return [
         int((plan.order[i * plan.n_loc : (i + 1) * plan.n_loc] >= 0).sum())
         for i in range(plan.n_dev)
@@ -657,8 +663,9 @@ def _p3m_mesh_sharded(pos_l, w_l, valid_l, ghat, half, *, gm: int, pad: int):
 def make_slab_chunk_runner(cfg: EngineConfig, plan: SlabPlan, mesh):
     """chunk(states, p, n_steps) -> (states', stats (S, 10), valid (S,),
     cert_fail (S,), h_rows, rho_rows): states is `pack_state`'s per-shard
-    list; h_rows / rho_rows are the last committed step's per-shard (n_loc,)
-    values (zeros before any).
+    list (on a mesh across processes, the rank's shards' only:
+    shard/mh_slabs.mh_pack); h_rows / rho_rows are the last committed
+    step's per-shard (n_loc,) values (zeros before any).
 
     The host reads t < t_end once a step and the collective certificate
     once per force evaluation. A failed evaluation freezes the chunk: the
@@ -669,10 +676,12 @@ def make_slab_chunk_runner(cfg: EngineConfig, plan: SlabPlan, mesh):
         raise ValueError(f"plan for {plan.n_dev} shards on a mesh of {len(mesh)}")
     eval_forces = make_slab_force_eval(cfg, plan)
     n_total = cfg.n
+    # this process's shards: all of them, or a rank's slice (shard/dist.py)
+    shards, devs = local_shards(mesh), local_devices(mesh)
     ghats = [
         greens_hat(cfg.mesh_pad, cfg.sigma_cells, cfg.torch_dtype, d)
         if cfg.gravity == "p3m" else None
-        for d in mesh
+        for d in devs
     ]
 
     def local_step(p: Params, shard: int, st: SlabState, ghat):
@@ -752,7 +761,7 @@ def make_slab_chunk_runner(cfg: EngineConfig, plan: SlabPlan, mesh):
         return st2, stats, aux2["h"], aux2["rho"]
 
     def chunk(states, p: Params, n_steps: int):
-        ps = replicate(p, mesh)
+        ps = replicate(p, devs)
         dtype, dev = states[0].pos.dtype, states[0].pos.device
         stats = torch.zeros((n_steps, 10), dtype=dtype, device=dev)
         valid = torch.zeros((n_steps,), dtype=torch.bool, device=dev)
@@ -762,8 +771,8 @@ def make_slab_chunk_runner(cfg: EngineConfig, plan: SlabPlan, mesh):
         for i in range(n_steps):
             if not bool(states[0].t < ps[0].t_end):
                 break
-            out = run_spmd([
-                local_step(ps[k], k, states[k], ghats[k]) for k in range(len(mesh))
+            out = run_mesh(mesh, [
+                local_step(ps[i], k, states[i], ghats[i]) for i, k in enumerate(shards)
             ])
             if out[0] is None:
                 cert[i] = True  # frozen: the state stays, the host re-plans

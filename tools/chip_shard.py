@@ -70,11 +70,11 @@ def main(argv) -> int:
         for phase in phases:
             t0 = time.time()
             if phase == "slabs":
-                counts, ring, _ = chip_smoke.phase_shard_slabs(tmp, gpu_line, p3m=False)
+                counts, ring, _, _ = chip_smoke.phase_shard_slabs(tmp, gpu_line, p3m=False)
             elif phase == "p3m":
                 chip_smoke.phase_shard_slabs(tmp, gpu_line, p3m=True)
             elif phase == "work":
-                _, row_sharded, _ = chip_smoke.phase_shard_work(tmp, gpu_line)
+                _, row_sharded, _, _ = chip_smoke.phase_shard_work(tmp, gpu_line)
             else:
                 raise ValueError(f"unknown phase {phase!r}")
             torch.cuda.empty_cache()
