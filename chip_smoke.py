@@ -830,6 +830,53 @@ def k5_check(args, kw, dtypes=(torch.float32, torch.float64)):
     return summary
 
 
+def k6_check(args, kw, dtypes=(torch.float32, torch.float64)):
+    """K6 on one launch's inputs (args, kw as phase_b_blocks takes them),
+    cast to each of `dtypes`: within check_phase_b's tolerance of its plain
+    version, and two launches bit-identical (no output uses an atomic).
+    Returns {dtype name: summary}; raises on a failed check."""
+    out = {}
+    for dtype in dtypes:
+        a = cast_args(args, dtype)
+        qo_k, co_k = cuda_block_pairs.phase_b_blocks(*a, **kw)
+        qo_k2, co_k2 = cuda_block_pairs.phase_b_blocks(*a, **kw)
+        sync()
+        if not (same_bits(qo_k, qo_k2) and same_bits(co_k, co_k2)):
+            raise AssertionError(f"phase_b_blocks {dtype}: two launches differ")
+        qo_p, co_p = cuda_block_pairs.phase_b_blocks_plain(*a, **kw)
+        rq, rtol, atol = check_phase_b(qo_k, qo_p, dtype, kernel="phase_b_blocks")
+        rc = check_phase_b(co_k, co_p, dtype, names=C_NAMES, kernel="phase_b_blocks")[0]
+        err = max(float((x - y).abs().max()) for x, y in zip(qo_k + co_k, qo_p + co_p)
+                  if x.numel())
+        out[str(dtype)[6:]] = {"max_err_over_scale": max(rq, rc), "max_abs_err": err,
+                               "rtol": rtol, "atol_of_scale": atol, "runs_bit_identical": True}
+        del qo_k, co_k, qo_k2, co_k2, qo_p, co_p
+    return out
+
+
+def k6_widths(m, seed: int = 12):
+    """K6 on synthetic blocks of a legacy plan's C_b = 768, of the widest
+    menu capacity, 32 768 (128 work units a block), and of C_b 700 and
+    1 300, whose last 256-slot piece is partial, nb = 2: both EOS and both
+    gravity modes, float32 and float64 (`k6_check`), from a generator of
+    their own."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for cw in (768, 32768, 700, 1300):
+        for dtype in (torch.float32, torch.float64):
+            _, _, _, qf, cf = synthetic_blocks(rng, 2, cw, dtype, 50)
+            for eos in ("polytropic", "isothermal"):
+                for p3m in (False, True):
+                    sigma, r_c = (0.05, 0.22) if p3m else (None, 0.0)
+                    kwb = dict(eos=eos, p3m=p3m, cap=blocks.BQ)
+                    res = k6_check((qf, cf, m, 1.0, 2.0, sigma, r_c), kwb, dtypes=(dtype,))
+                    cases.append({"c_b": cw, "blocks": 2,
+                                  "units_a_block": cuda_block_pairs.block_units(cw),
+                                  "eos": eos, "p3m": p3m, **res})
+            del qf, cf
+    return cases
+
+
 def kernels_blocks(rng, m):
     """K1 at block widths (C_b from 512 to 32 768: resident and streamed
     rows; a resident row also forced to stream, which must not change a
@@ -1631,7 +1678,9 @@ def phase_collapse_kernels(res, cfg, counts, gpu_line):
     plain versions on the inputs one force evaluation of the collapse
     path's final state gives them; errors, times, bounds. The per-bucket
     path: one step of make_chunk_runner(grouped=False) from that state, its
-    launch counts set to 0 just before and read just after."""
+    launch counts set to 0 just before and read just after. K5 and K6 are
+    also held in float64 and must give two bit-identical launches; K6 also
+    on synthetic blocks of C_b 768, 32 768, 700 and 1 300 (`k6_widths`)."""
     bargs = refit_args(res, cfg)
     dtype = res["state"].pos.dtype
     peak = PEAK_FLOPS[dtype]
@@ -1682,14 +1731,14 @@ def phase_collapse_kernels(res, cfg, counts, gpu_line):
     ev_b = {}
     calls_b = capture_eval_inputs(res, cfg, blocks, ("phase_b_blocks",), mlargs=bargs,
                                   grouped=False, out=ev_b)
-    ms = plain_ms = flops = byts = err = rel = 0.0
+    ms = plain_ms = flops = byts = 0.0
+    worst6, shapes = {}, []
     for args, kw in calls_b["phase_b_blocks"]:
         qfields, cfields = args[0], args[1]
-        qo_k, co_k = cuda_block_pairs.phase_b_blocks(*args, **kw)
-        qo_p, co_p = cuda_block_pairs.phase_b_blocks_plain(*args, **kw)
-        rel = max(rel, check_phase_b(qo_k, qo_p, dtype, kernel="phase_b_blocks")[0],
-                  check_phase_b(co_k, co_p, dtype, names=C_NAMES, kernel="phase_b_blocks")[0])
-        err = max(err, *(float((a - b).abs().max()) for a, b in zip(qo_k + co_k, qo_p + co_p)))
+        for name, r in k6_check(args, kw).items():  # the launch's dtype and float64
+            w = worst6.setdefault(name, dict(r))
+            for key in ("max_err_over_scale", "max_abs_err"):
+                w[key] = max(w[key], r[key])
         ms += time_ms(lambda: cuda_block_pairs.phase_b_blocks(*args, **kw), iters=3)
         plain_ms += time_ms(lambda: cuda_block_pairs.phase_b_blocks_plain(*args, **kw),
                             iters=1, warmup=0)
@@ -1697,9 +1746,19 @@ def phase_collapse_kernels(res, cfg, counts, gpu_line):
         tot, ins = block_pairs(qfields, (cfields[0], cfields[1], cfields[2], cfields[6]),
                                rows, args[6])
         flops += pairs_ops(tot, ins, kw["p3m"])
-        byts += slot_bytes(qfields[6], 10) + slot_bytes(cfields[6], 9) + nbytes(*qo_k, *co_k)
-    k6 = kernel_entry("phase_b_blocks", counts_pb, err, ms, plain_ms, flops, byts, peak,
-                      max_err_over_scale=rel, launches_path="collapse_per_bucket")
+        # the outputs: 10 query-side (nb, cap) and 8 candidate-side (nb, C_b) planes
+        byts += (slot_bytes(qfields[6], 10) + slot_bytes(cfields[6], 9)
+                 + nbytes(qfields[0]) * 10 + nbytes(cfields[0]) * 8)
+        nb, cw = cfields[0].shape
+        shapes.append([cw, nb, cuda_block_pairs.block_units(cw)])
+    f32 = worst6.pop(str(dtype)[6:])
+    k6 = kernel_entry("phase_b_blocks", counts_pb, f32["max_abs_err"], ms, plain_ms, flops,
+                      byts, peak, max_err_over_scale=f32["max_err_over_scale"],
+                      tolerance={"rtol": f32["rtol"], "atol_of_scale": f32["atol_of_scale"]},
+                      runs_bit_identical=True, float64=worst6.pop("float64"),
+                      launches_path="collapse_per_bucket",
+                      c_b_blocks_units_of_launches=shapes,
+                      synthetic_widths=k6_widths(1.0e-5))
     # the two phase-B forms give one evaluation to f32 reassociation
     worst = check_phase_b(
         (ev_b["acc"][:, 0], ev_b["red"].visc_dk, ev_b["phi"]),

@@ -77,7 +77,9 @@ def _declare(libs) -> None:
         ("p3m_tail", "sph_p3m_tail", [pp, vp, pp, vp, vp, ci, ci, ci, ci, ci, ci, vp]),
         ("phase_b_grouped", "sph_phase_b_grouped",
          [pp, vp, vp, vp, vp, pp, vp, vp, ci, ci, ci, ci, ci, vp]),
-        ("phase_b_grouped", "sph_phase_b_blocks", [pp, pp, vp, pp, pp, ci, ci, ci, ci, ci, vp]),
+        ("phase_b_grouped", "sph_phase_b_blocks",
+         [pp, pp, vp, pp, pp, vp, ci, ci, ci, ci, ci, vp]),
+        ("phase_b_grouped", "sph_phase_b_blocks_units", [ci]),
     )
     for lib, entry, argtypes in entries:
         fnc = getattr(libs[lib], entry)

@@ -7,8 +7,9 @@
 // chunks, chunk i querying packed-query block qblk[i], a block's chunks
 // consecutive) and sphtpu/kernels/pallas_block_pairs.py::phase_b_blocks
 // (_kernel; one bucket, (nb, BQ) queries against (nb, C_b) candidates).
-// Two kernels, one for each (`unit_kernel` and `pairs_kernel`), share the
-// pair algebra: one device function, `pair_terms`.
+// Two kernels, one for each (`unit_kernel` and `block_unit_kernel`), share
+// the pair algebra (one device function, `pair_terms`) and the work-unit
+// machinery below (`unit_pieces`, templated on the candidate layout).
 //
 // Pair semantics (exactly the Pallas kernels'): forward mask d2 <= (2 h_q)^2;
 // the owner's kernel gradient and the owner's sound speed in Pi; the
@@ -50,9 +51,16 @@
 // unit) that `combine_kernel` adds in unit order (mu_max by max). No
 // output uses an atomic, so two launches on the same inputs give the same
 // bits.
-// K6 (`pairs_kernel`, one bucket a launch) keeps its first form: one CTA
-// per query block walking its candidate slots, each staged piece swept
-// query-major and candidate-major, the pair test done in both sweeps.
+// K6 (`block_unit_kernel` + `block_combine_kernel`, one bucket a launch)
+// runs the same units on its own layout: ten (nb, cw) planes read where
+// they lie (`RowPlanes`; K5's stack is `ChunkStack`). A unit is one staged
+// piece: a launch holds one bucket, often of a handful of blocks, and K5's
+// U = 2048 left most of the card idle. Every block of a bucket has the same
+// cw, so the split is static and needs no table: block b's unit j takes
+// the slots [j GSUB, min((j + 1) GSUB, cw)), and the grid is nb n_u CTAs,
+// n_u = max(1, ceil(cw / GSUB)) (`sph_phase_b_blocks_units`). Any cw >= 1
+// (the last piece may be partial). `block_combine_kernel`, one CTA a
+// (block, output), adds the partials in unit order, as K5's does.
 #include "common.cuh"
 
 namespace sph {
@@ -60,7 +68,6 @@ namespace sph {
 constexpr int GQ = 128;                                  // query rows a block (the planner's BQ)
 constexpr int GCW = 512;                                 // slots a chunk of the grouped layout
 constexpr int GSUB = TILE_THREADS;                       // candidate slots staged at a time
-constexpr int GROUNDS = GQ / QUERIES_PER_BLOCK;          // query-major rounds a piece
 constexpr int GWORDS = GSUB / 32;                        // bit-words of a query's row a piece
 constexpr int GGROUPS = GQ / 32;                         // 32-query groups of a block
 
@@ -233,155 +240,9 @@ __device__ __forceinline__ bool pair_terms(const QRow<T>& q, const CRow<T>& c,
   return true;
 }
 
-// K6's arguments: q[11] (nb, GQ) x y z vx vy vz mask h rho por2 cs;
-// qout[10] (nb, GQ) ax ay az div mu_max visc gx gy gz gphi; scal (m, alpha,
-// beta, sigma, r_c) on the device; c[10] (nb, cw) x y z vx vy vz h rho
-// por2 mask; cout_b[8] (nb, cw).
-template <typename T>
-struct PairsArgs {
-  const T* q[11];
-  T* qout[10];
-  const T* scal;
-  const T* c[10];
-  T* cout_b[8];
-  int cw;
-};
-
-template <typename T, bool ISO, bool P3M>
-__global__ void __launch_bounds__(TILE_THREADS) pairs_kernel(PairsArgs<T> a) {
-  __shared__ T sq[11][GQ];    // the block's query fields (index 6: mask)
-  __shared__ T sacc[10][GQ];  // query-side sums (index 4: mu_max)
-  __shared__ T sc[10][GSUB];  // a staged piece: x y z vx vy vz h rho por2 mask
-
-  const long b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const T big = Num<T>::big();
-  for (int i = tid; i < 11 * GQ; i += TILE_THREADS) sq[i / GQ][i % GQ] = a.q[i / GQ][b * GQ + i % GQ];
-  for (int i = tid; i < 10 * GQ; i += TILE_THREADS) sacc[i / GQ][i % GQ] = (i / GQ == 4) ? -big : T(0);
-  __syncthreads();
-  const bool any_query = __syncthreads_or(tid < GQ && sq[6][tid] > T(0));
-
-  const long slot0 = b * a.cw;
-  const int n_slots = a.cw;
-  PairParams<T> p;
-  p.m = a.scal[0];
-  p.alpha = a.scal[1];
-  p.beta = a.scal[2];
-  p.sigma = a.scal[3];
-  p.r_c = a.scal[4];
-
-  for (int s0 = 0; s0 < n_slots; s0 += GSUB) {
-    const int s = s0 + tid;  // this thread's candidate slot of the piece
-    const bool live = s < n_slots;
-    T f[10];
-#pragma unroll
-    for (int k = 0; k < 10; ++k) f[k] = T(0);
-    if (live && any_query) {
-#pragma unroll
-      for (int k = 0; k < 10; ++k) f[k] = a.c[k][slot0 + s];
-    }
-#pragma unroll
-    for (int k = 0; k < 10; ++k) sc[k][tid] = f[k];
-    __syncthreads();
-
-    if (any_query) {
-      // query-major sweep: 8 lanes per query, 32 queries a round
-      const int sub = tid % LANES_PER_QUERY;
-      for (int rd = 0; rd < GROUNDS; ++rd) {
-        const int qk = rd * QUERIES_PER_BLOCK + tid / LANES_PER_QUERY;
-        if (!(sq[6][qk] > T(0))) continue;  // uniform over the query's lanes
-        const QRow<T> q = {sq[0][qk], sq[1][qk], sq[2][qk], sq[3][qk], sq[4][qk],
-                           sq[5][qk], sq[7][qk], sq[8][qk], sq[9][qk], sq[10][qk]};
-        T ax = T(0), ay = T(0), az = T(0), dv = T(0), visc = T(0);
-        T gx = T(0), gy = T(0), gz = T(0), gp = T(0), mumax = -big;
-        for (int j = sub; j < GSUB; j += LANES_PER_QUERY) {
-          if (!(sc[9][j] > T(0))) continue;
-          const CRow<T> c = {sc[0][j], sc[1][j], sc[2][j], sc[3][j], sc[4][j],
-                             sc[5][j], sc[6][j], sc[7][j], sc[8][j]};
-          PairOut<T> o;
-          if (!pair_terms<T, ISO, P3M>(q, c, p, o)) continue;
-          ax -= o.cdx;
-          ay -= o.cdy;
-          az -= o.cdz;
-          dv += o.div;
-          mumax = o.mu > mumax ? o.mu : mumax;
-          visc += o.visc;
-          gx += o.gwx;
-          gy += o.gwy;
-          gz += o.gwz;
-          gp += o.cpw;
-        }
-        ax = group_sum<T>(ax);
-        ay = group_sum<T>(ay);
-        az = group_sum<T>(az);
-        dv = group_sum<T>(dv);
-        mumax = group_max<T>(mumax);
-        visc = group_sum<T>(visc);
-        gx = group_sum<T>(gx);
-        gy = group_sum<T>(gy);
-        gz = group_sum<T>(gz);
-        gp = group_sum<T>(gp);
-        if (sub == 0) {
-          sacc[0][qk] += ax;
-          sacc[1][qk] += ay;
-          sacc[2][qk] += az;
-          sacc[3][qk] += dv;
-          sacc[4][qk] = mumax > sacc[4][qk] ? mumax : sacc[4][qk];
-          sacc[5][qk] += visc;
-          sacc[6][qk] += gx;
-          sacc[7][qk] += gy;
-          sacc[8][qk] += gz;
-          sacc[9][qk] += gp;
-        }
-      }
-    }
-
-    // candidate-major sweep: this thread's slot against every query row
-    T sax = T(0), say = T(0), saz = T(0), svisc = T(0);
-    T sgx = T(0), sgy = T(0), sgz = T(0), sgp = T(0);
-    if (any_query && live && f[9] > T(0)) {
-      const CRow<T> c = {f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
-      for (int k = 0; k < GQ; ++k) {
-        if (!(sq[6][k] > T(0))) continue;  // uniform over the CTA
-        const QRow<T> q = {sq[0][k], sq[1][k], sq[2][k], sq[3][k], sq[4][k],
-                           sq[5][k], sq[7][k], sq[8][k], sq[9][k], sq[10][k]};
-        PairOut<T> o;
-        if (!pair_terms<T, ISO, P3M>(q, c, p, o)) continue;
-        sax += o.cdx;
-        say += o.cdy;
-        saz += o.cdz;
-        svisc += o.visc;
-        sgx += o.gwx;
-        sgy += o.gwy;
-        sgz += o.gwz;
-        sgp += o.cpw;
-      }
-    }
-    if (live) {
-      const T out[8] = {sax, say, saz, svisc, -p.m * sgx, -p.m * sgy, -p.m * sgz, p.m * sgp};
-#pragma unroll
-      for (int k = 0; k < 8; ++k) a.cout_b[k][slot0 + s] = out[k];
-    }
-    __syncthreads();  // the piece is overwritten next
-  }
-
-  for (int k = tid; k < GQ; k += TILE_THREADS) {
-    const long o = b * GQ + k;
-    a.qout[0][o] = sacc[0][k];
-    a.qout[1][o] = sacc[1][k];
-    a.qout[2][o] = sacc[2][k];
-    a.qout[3][o] = p.m * sacc[3][k];
-    a.qout[4][o] = sacc[4][k];
-    a.qout[5][o] = sacc[5][k];
-    a.qout[6][o] = p.m * sacc[6][k];
-    a.qout[7][o] = p.m * sacc[7][k];
-    a.qout[8][o] = p.m * sacc[8][k];
-    a.qout[9][o] = p.m * sacc[9][k];
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K5: work units, one test a pair, fixed-order sums
+// The piece machinery of K5 and K6: work units, one test a pair, fixed-order
+// sums (`unit_pieces`), on either candidate layout
 
 // A query's position and the square of the radius its pairs are tested
 // against: max((2 h)^2, (max(2 h, r_c))^2 (1 + 2^-10)), exactly the
@@ -391,16 +252,52 @@ struct alignas(4 * sizeof(T)) QPos {
   T x, y, z, thr;
 };
 
+// The query side of a launch.
 template <typename T>
-struct UnitArgs {
-  const T* q[11];      // (NB, GQ) each: x y z vx vy vz mask h rho por2 cs
-  T* qout[10];         // (NB, GQ) each: ax ay az div mu_max visc gx gy gz gphi
-  const T* scal;       // m alpha beta sigma r_c on the device
-  const T* cstack;     // (n_chunks, 10, GCW) x y z vx vy vz h rho por2 mask
-  T* cout;             // (n_chunks, 8, GCW)
-  const int* units;    // (n_units, 3): query block, first chunk, chunks
-  const int* ustart;   // (NB + 1): block b owns units [ustart[b], ustart[b + 1])
-  T* qpart;            // (n_units, 10, GQ) query-side partials
+struct QueryBlocks {
+  const T* q[11];  // (NB, GQ) each: x y z vx vy vz mask h rho por2 cs
+  T* qout[10];     // (NB, GQ) each: ax ay az div mu_max visc gx gy gz gphi
+  const T* scal;   // m alpha beta sigma r_c on the device
+  T* qpart;        // (n_units, 10, GQ) query-side partials
+};
+
+// Candidate layouts: where slot s of a launch keeps its 10 fields (x y z vx
+// vy vz h rho por2 mask) and its 8 sums. PARTIAL: a unit's last staged
+// piece may end before GSUB slots.
+// K5's: the chunk-major stack (n_chunks, 10, GCW) and sums (n_chunks, 8,
+// GCW); a unit is whole chunks.
+template <typename T>
+struct ChunkStack {
+  static constexpr bool PARTIAL = false;
+  const T* cstack;
+  T* cout;
+  __device__ __forceinline__ void load(long s, T* f) const {
+    const T* src = cstack + (s / GCW) * 10 * GCW + s % GCW;
+#pragma unroll
+    for (int k = 0; k < 10; ++k) f[k] = src[k * GCW];
+  }
+  __device__ __forceinline__ void store(long s, const T* out) const {
+    T* dst = cout + (s / GCW) * 8 * GCW + s % GCW;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dst[k * GCW] = out[k];
+  }
+};
+
+// K6's: ten row-major (nb, cw) planes and eight such sums; block b's slot j
+// is s = b cw + j.
+template <typename T>
+struct RowPlanes {
+  static constexpr bool PARTIAL = true;
+  const T* c[10];
+  T* cout[8];
+  __device__ __forceinline__ void load(long s, T* f) const {
+#pragma unroll
+    for (int k = 0; k < 10; ++k) f[k] = c[k][s];
+  }
+  __device__ __forceinline__ void store(long s, const T* out) const {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cout[k][s] = out[k];
+  }
 };
 
 template <typename T>
@@ -450,8 +347,13 @@ size_t unit_smem() {
   return size_t(GPAIRS) * (10 * sizeof(T) + sizeof(int));
 }
 
-template <typename T, bool ISO, bool P3M>
-__global__ void __launch_bounds__(TILE_THREADS) unit_kernel(UnitArgs<T> a) {
+// One work unit: query block b of `qb` against the slots [s_begin, s_end)
+// of the layout `cand`, GSUB at a time, as the design note above says.
+// Writes each of those slots' 8 sums through `cand`; returns in `sums` the
+// query-side sums of query threadIdx.x (threads < GQ) over the unit.
+template <typename T, bool ISO, bool P3M, typename L>
+__device__ __forceinline__ void unit_pieces(const QueryBlocks<T>& qb, const L& cand, long b,
+                                            long s_begin, long s_end, T (&sums)[10]) {
   __shared__ QPos<T> sqp[GQ];                 // the block's query positions and test radii
   __shared__ T sqf[7][GQ];                    // vx vy vz h rho por2 cs
   __shared__ T sc[10][GSUB];                  // a staged piece: x y z vx vy vz h rho por2 mask
@@ -466,49 +368,49 @@ __global__ void __launch_bounds__(TILE_THREADS) unit_kernel(UnitArgs<T> a) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const long u = blockIdx.x;
-  const long b = a.units[3 * u];
-  const long s_begin = long(a.units[3 * u + 1]) * GCW;
-  const long s_end = s_begin + long(a.units[3 * u + 2]) * GCW;
   const T big = Num<T>::big();
-  const PairParams<T> p = load_params(a.scal);
+  const PairParams<T> p = load_params(qb.scal);
 
   bool on = false;
   if (tid < GQ) {
     const long qi = b * GQ + tid;
-    const T h = a.q[7][qi];
+    const T h = qb.q[7][qi];
     const T two_h = T(2) * h;
     const T qrk2 = Num<T>::mul_rn(two_h, two_h);
     const T vq_r = two_h > p.r_c ? two_h : p.r_c;
     const T vis2 = vq_r * vq_r * T(1.0009765625);
-    on = a.q[6][qi] > T(0);
-    sqp[tid] = QPos<T>{a.q[0][qi], a.q[1][qi], a.q[2][qi],
+    on = qb.q[6][qi] > T(0);
+    sqp[tid] = QPos<T>{qb.q[0][qi], qb.q[1][qi], qb.q[2][qi],
                        on ? (qrk2 > vis2 ? qrk2 : vis2) : T(-1)};
-    sqf[0][tid] = a.q[3][qi];
-    sqf[1][tid] = a.q[4][qi];
-    sqf[2][tid] = a.q[5][qi];
+    sqf[0][tid] = qb.q[3][qi];
+    sqf[1][tid] = qb.q[4][qi];
+    sqf[2][tid] = qb.q[5][qi];
     sqf[3][tid] = h;
-    sqf[4][tid] = a.q[8][qi];
-    sqf[5][tid] = a.q[9][qi];
-    sqf[6][tid] = a.q[10][qi];
+    sqf[4][tid] = qb.q[8][qi];
+    sqf[5][tid] = qb.q[9][qi];
+    sqf[6][tid] = qb.q[10][qi];
   }
   const bool any_query = __syncthreads_or(on);
 
-  // the thread's slot of the next piece, loaded one piece ahead
-  auto load = [&](long s, T* f) {
-    const T* src = a.cstack + (s / GCW) * 10 * GCW + s % GCW;
+  // the thread's slot of the next piece, loaded one piece ahead (past the
+  // unit's end: zeros, an empty slot)
+  auto fetch = [&](long s, T* f) {
+    if (!L::PARTIAL || s < s_end) {
+      cand.load(s, f);
+    } else {
 #pragma unroll
-    for (int k = 0; k < 10; ++k) f[k] = src[k * GCW];
+      for (int k = 0; k < 10; ++k) f[k] = T(0);
+    }
   };
   T f[10];
-  if (any_query) load(s_begin + tid, f);
+  if (any_query) fetch(s_begin + tid, f);
 
   // query-side sums of query tid (threads < GQ), over the unit's pieces
   T ax = T(0), ay = T(0), az = T(0), dv = T(0), visc = T(0);
   T gx = T(0), gy = T(0), gz = T(0), gp = T(0), mumax = -big;
 
   for (long s0 = s_begin; s0 < s_end; s0 += GSUB) {
-    const long s = s0 + tid;  // this thread's slot (pieces of GSUB divide a chunk)
+    const long s = s0 + tid;  // this thread's slot
     T sax = T(0), say = T(0), saz = T(0), svisc = T(0);
     T sgx = T(0), sgy = T(0), sgz = T(0), sgp = T(0);
     if (any_query) {
@@ -516,7 +418,7 @@ __global__ void __launch_bounds__(TILE_THREADS) unit_kernel(UnitArgs<T> a) {
       const bool cvalid = f[9] > T(0);
 #pragma unroll
       for (int k = 0; k < 10; ++k) sc[k][tid] = f[k];
-      if (s0 + GSUB < s_end) load(s + GSUB, f);
+      if (s0 + GSUB < s_end) fetch(s + GSUB, f);
 
       // the test: the bounding box of the warp's occupied slots (empty:
       // [big, -big], which no ball reaches), the queries whose ball may
@@ -661,38 +563,70 @@ __global__ void __launch_bounds__(TILE_THREADS) unit_kernel(UnitArgs<T> a) {
         __syncthreads();  // the batch's list and terms are overwritten next
       }
     }
-    const T out[8] = {sax, say, saz, svisc, -p.m * sgx, -p.m * sgy, -p.m * sgz, p.m * sgp};
-    T* dst = a.cout + (s / GCW) * 8 * GCW + s % GCW;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) dst[k * GCW] = out[k];
+    if (!L::PARTIAL || s < s_end) {
+      const T out[8] = {sax, say, saz, svisc, -p.m * sgx, -p.m * sgy, -p.m * sgz, p.m * sgp};
+      cand.store(s, out);
+    }
   }
+  sums[0] = ax;
+  sums[1] = ay;
+  sums[2] = az;
+  sums[3] = dv;
+  sums[4] = mumax;
+  sums[5] = visc;
+  sums[6] = gx;
+  sums[7] = gy;
+  sums[8] = gz;
+  sums[9] = gp;
+}
 
-  if (tid < GQ) {
-    T* part = a.qpart + u * 10 * GQ + tid;
-    const T sums[10] = {ax, ay, az, dv, mumax, visc, gx, gy, gz, gp};
+// Query-side output f of block b: the partials of its units [u0, u1) added
+// in unit order (mu_max by max), then m applied where the sum carries it.
+// Thread k: query k.
+template <typename T>
+__device__ __forceinline__ void combine_field(const QueryBlocks<T>& qb, long b, int f, int u0,
+                                              int u1) {
+  const int k = threadIdx.x;
+  T v = f == 4 ? -Num<T>::big() : T(0);
+#pragma unroll 4
+  for (int u = u0; u < u1; ++u) {
+    const T x = qb.qpart[(long(u) * 10 + f) * GQ + k];
+    v = f == 4 ? (x > v ? x : v) : v + x;
+  }
+  const bool times_m = f == 3 || f >= 6;
+  qb.qout[f][b * GQ + k] = times_m ? qb.scal[0] * v : v;
+}
+
+// ---------------------------------------------------------------------------
+// K5: every bucket in one launch, the wrapper's table of work units
+
+template <typename T>
+struct UnitArgs {
+  QueryBlocks<T> qb;
+  ChunkStack<T> cand;
+  const int* units;   // (n_units, 3): query block, first chunk, chunks
+  const int* ustart;  // (NB + 1): block b owns units [ustart[b], ustart[b + 1])
+};
+
+template <typename T, bool ISO, bool P3M>
+__global__ void __launch_bounds__(TILE_THREADS) unit_kernel(UnitArgs<T> a) {
+  const long u = blockIdx.x;
+  const long s_begin = long(a.units[3 * u + 1]) * GCW;
+  T sums[10];
+  unit_pieces<T, ISO, P3M>(a.qb, a.cand, a.units[3 * u], s_begin,
+                           s_begin + long(a.units[3 * u + 2]) * GCW, sums);
+  if (threadIdx.x < GQ) {
+    T* part = a.qb.qpart + u * 10 * GQ + threadIdx.x;
 #pragma unroll
     for (int k = 0; k < 10; ++k) part[k * GQ] = sums[k];
   }
 }
 
-// The query-side outputs of block blockIdx.x: its units' partials added in
-// unit order (mu_max by max), then m applied where the sums carry it.
 template <typename T>
 __global__ void __launch_bounds__(GQ) combine_kernel(UnitArgs<T> a) {
   const long b = blockIdx.x;
-  const int k = threadIdx.x;
-  const int u0 = a.ustart[b], u1 = a.ustart[b + 1];
-  const T m = a.scal[0];
 #pragma unroll
-  for (int f = 0; f < 10; ++f) {
-    T v = f == 4 ? -Num<T>::big() : T(0);
-    for (int u = u0; u < u1; ++u) {
-      const T x = a.qpart[(long(u) * 10 + f) * GQ + k];
-      v = f == 4 ? (x > v ? x : v) : v + x;
-    }
-    const bool times_m = f == 3 || f >= 6;
-    a.qout[f][b * GQ + k] = times_m ? m * v : v;
-  }
+  for (int f = 0; f < 10; ++f) combine_field(a.qb, b, f, a.ustart[b], a.ustart[b + 1]);
 }
 
 template <typename T, bool ISO, bool P3M>
@@ -708,19 +642,25 @@ int launch_units(const UnitArgs<T>& a, int nb, int n_units, cudaStream_t stream)
 }
 
 template <typename T>
+void query_ptrs(QueryBlocks<T>& qb, void* const* q, const void* scal, void* const* qout,
+                void* qpart) {
+  for (int k = 0; k < 11; ++k) qb.q[k] = static_cast<const T*>(q[k]);
+  for (int k = 0; k < 10; ++k) qb.qout[k] = static_cast<T*>(qout[k]);
+  qb.scal = static_cast<const T*>(scal);
+  qb.qpart = static_cast<T*>(qpart);
+}
+
+template <typename T>
 int grouped_from_ptrs(void* const* q, const void* cstack, const void* units, const void* ustart,
                       const void* scal, void* const* qout, void* cout, void* qpart, int nb,
                       int n_units, int iso, int p3m, cudaStream_t stream) {
   if (nb <= 0) return 0;
   UnitArgs<T> a = {};
-  for (int k = 0; k < 11; ++k) a.q[k] = static_cast<const T*>(q[k]);
-  for (int k = 0; k < 10; ++k) a.qout[k] = static_cast<T*>(qout[k]);
-  a.scal = static_cast<const T*>(scal);
-  a.cstack = static_cast<const T*>(cstack);
-  a.cout = static_cast<T*>(cout);
+  query_ptrs(a.qb, q, scal, qout, qpart);
+  a.cand.cstack = static_cast<const T*>(cstack);
+  a.cand.cout = static_cast<T*>(cout);
   a.units = static_cast<const int*>(units);
   a.ustart = static_cast<const int*>(ustart);
-  a.qpart = static_cast<T*>(qpart);
   if (iso) {
     return p3m ? launch_units<T, true, true>(a, nb, n_units, stream)
                : launch_units<T, true, false>(a, nb, n_units, stream);
@@ -730,33 +670,76 @@ int grouped_from_ptrs(void* const* q, const void* cstack, const void* units, con
 }
 
 // ---------------------------------------------------------------------------
-// K6
+// K6: one bucket a launch, its work units computed in the kernel
+
+template <typename T>
+struct BlockUnitArgs {
+  QueryBlocks<T> qb;
+  RowPlanes<T> cand;
+  int cw;   // slots a block
+  int n_u;  // units a block (block_units)
+};
+
+// Work units a block of cw slots: one staged piece each, at least one.
+__host__ __device__ inline int block_units(int cw) { return cw > GSUB ? (cw + GSUB - 1) / GSUB : 1; }
+
+// Unit u: block u / n_u, and that block's (u % n_u)-th piece. In float32
+// under exact gravity the registers are capped for three CTAs an SM (K5's
+// occupancy; the cap spills a few bytes), which the dense buckets need; the
+// other bodies would spill hundreds of bytes under that cap and keep theirs.
+template <typename T, bool ISO, bool P3M>
+__global__ void __launch_bounds__(TILE_THREADS, (sizeof(T) == 4 && !P3M) ? 3 : 1)
+    block_unit_kernel(BlockUnitArgs<T> a) {
+  const long u = blockIdx.x;
+  const long b = u / a.n_u;
+  const int s0 = int(u % a.n_u) * GSUB;
+  const long row = b * a.cw;
+  T sums[10];
+  unit_pieces<T, ISO, P3M>(a.qb, a.cand, b, row + s0, row + min(s0 + GSUB, a.cw), sums);
+  if (threadIdx.x < GQ) {
+    T* part = a.qb.qpart + u * 10 * GQ + threadIdx.x;
+#pragma unroll
+    for (int f = 0; f < 10; ++f) part[f * GQ] = sums[f];
+  }
+}
+
+// One CTA a (block, output): a block's n_u partials of one output.
+template <typename T>
+__global__ void __launch_bounds__(GQ) block_combine_kernel(BlockUnitArgs<T> a) {
+  const int b = blockIdx.x;
+  combine_field(a.qb, b, blockIdx.y, b * a.n_u, (b + 1) * a.n_u);
+}
 
 template <typename T, bool ISO, bool P3M>
-int launch_pairs(const PairsArgs<T>& a, int nb, cudaStream_t stream) {
-  const int err = fits_one_cta(pairs_kernel<T, ISO, P3M>, TILE_THREADS, 0);
+int launch_block_units(const BlockUnitArgs<T>& a, int nb, cudaStream_t stream) {
+  int err = fits_one_cta(block_unit_kernel<T, ISO, P3M>, TILE_THREADS, unit_smem<T>());
   if (err) return err;
-  SPH_LAUNCH((pairs_kernel<T, ISO, P3M>), nb, TILE_THREADS, 0, stream, a);
+  err = fits_one_cta(block_combine_kernel<T>, GQ, 0);
+  if (err) return err;
+  SPH_LAUNCH((block_unit_kernel<T, ISO, P3M>), nb * a.n_u, TILE_THREADS, unit_smem<T>(), stream,
+             a);
+  SPH_LAUNCH((block_combine_kernel<T>), dim3(nb, 10), GQ, 0, stream, a);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int blocks_from_ptrs(void* const* q, void* const* c, const void* scal, void* const* qout,
-                     void* const* cout, int nb, int cw, int iso, int p3m, cudaStream_t stream) {
+                     void* const* cout, void* qpart, int nb, int cw, int iso, int p3m,
+                     cudaStream_t stream) {
   if (nb <= 0) return 0;
-  PairsArgs<T> a = {};
-  for (int k = 0; k < 11; ++k) a.q[k] = static_cast<const T*>(q[k]);
-  for (int k = 0; k < 10; ++k) a.qout[k] = static_cast<T*>(qout[k]);
-  a.scal = static_cast<const T*>(scal);
-  for (int k = 0; k < 10; ++k) a.c[k] = static_cast<const T*>(c[k]);
-  for (int k = 0; k < 8; ++k) a.cout_b[k] = static_cast<T*>(cout[k]);
+  if (cw < 0 || qpart == nullptr) return int(cudaErrorInvalidValue);
+  BlockUnitArgs<T> a = {};
+  query_ptrs(a.qb, q, scal, qout, qpart);
+  for (int k = 0; k < 10; ++k) a.cand.c[k] = static_cast<const T*>(c[k]);
+  for (int k = 0; k < 8; ++k) a.cand.cout[k] = static_cast<T*>(cout[k]);
   a.cw = cw;
+  a.n_u = block_units(cw);
   if (iso) {
-    return p3m ? launch_pairs<T, true, true>(a, nb, stream)
-               : launch_pairs<T, true, false>(a, nb, stream);
+    return p3m ? launch_block_units<T, true, true>(a, nb, stream)
+               : launch_block_units<T, true, false>(a, nb, stream);
   }
-  return p3m ? launch_pairs<T, false, true>(a, nb, stream)
-             : launch_pairs<T, false, false>(a, nb, stream);
+  return p3m ? launch_block_units<T, false, true>(a, nb, stream)
+             : launch_block_units<T, false, false>(a, nb, stream);
 }
 
 }  // namespace sph
@@ -778,12 +761,18 @@ extern "C" int sph_phase_b_grouped(void* const* q, const void* cstack, const voi
                                                    qpart, nb, n_units, iso, p3m, s);
 }
 
-// q as above; c: 10 device pointers (nb, cw) in the grouped field order
-// x y z vx vy vz h rho por2 mask; cout: 8 device pointers (nb, cw).
+// q, scal and qout as above; c: 10 device pointers (nb, cw) in the grouped
+// field order x y z vx vy vz h rho por2 mask; cout: 8 device pointers (nb,
+// cw); qpart: (nb sph_phase_b_blocks_units(cw), 10, 128) scratch.
 extern "C" int sph_phase_b_blocks(void* const* q, void* const* c, const void* scal,
-                                  void* const* qout, void* const* cout, int nb, int cw, int iso,
-                                  int p3m, int is_double, void* stream) {
+                                  void* const* qout, void* const* cout, void* qpart, int nb,
+                                  int cw, int iso, int p3m, int is_double, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? sph::blocks_from_ptrs<double>(q, c, scal, qout, cout, nb, cw, iso, p3m, s)
-                   : sph::blocks_from_ptrs<float>(q, c, scal, qout, cout, nb, cw, iso, p3m, s);
+  return is_double ? sph::blocks_from_ptrs<double>(q, c, scal, qout, cout, qpart, nb, cw, iso, p3m,
+                                                   s)
+                   : sph::blocks_from_ptrs<float>(q, c, scal, qout, cout, qpart, nb, cw, iso, p3m,
+                                                  s);
 }
+
+// Work units a block of cw slots takes in sph_phase_b_blocks.
+extern "C" int sph_phase_b_blocks_units(int cw) { return sph::block_units(cw); }

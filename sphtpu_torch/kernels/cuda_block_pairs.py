@@ -12,6 +12,14 @@ The reference's wrapper splits C_b > 2048 into equal chunks, one launch
 each, and combines their query sums (mu_max by max): that split exists for
 the TPU's scoped VMEM. Here one launch takes any C_b; its sums equal the
 split form's to reassociation roundoff.
+
+On the card the launch is a grid of WORK UNITS, K5's design on this layout:
+a unit is one 256-slot piece of a block's row (the last one possibly
+partial), so every block of a bucket, which all have the same C_b, gets
+`block_units(C_b)` units, and the grid needs no host table. A unit's
+candidate-side sums are final; its query-side sums are partials that a
+second small kernel adds in unit order. No output uses an atomic: two
+launches on the same inputs give the same bits.
 """
 
 from __future__ import annotations
@@ -32,6 +40,12 @@ from .cuda_grouped_pairs import (
 _GROUPED_ORDER = (0, 1, 2, 3, 4, 5, 7, 8, 9, 6)
 
 launches = 0  # kernel launches made by phase_b_blocks (CUDA tensors only)
+
+
+def block_units(cw: int) -> int:
+    """Work units a block of cw candidate slots takes on the card (the
+    kernel's own count: one 256-slot piece each, at least one)."""
+    return build.load_kernels()["phase_b_grouped"].sph_phase_b_blocks_units(cw)
 
 
 def phase_b_blocks_plain(
@@ -100,14 +114,16 @@ def phase_b_blocks(
     q_outs, c_outs = tuple(q_out.unbind(0)), tuple(c_out.unbind(0))
     if nb == 0:
         return q_outs, c_outs
+    q_part = torch.empty((nb * block_units(cw), 10, cap), dtype=dtype, device=device)
     lib = build.load_kernels()["phase_b_grouped"]
     with torch.cuda.device(device):
         code = lib.sph_phase_b_blocks(
             build.pointer_array(list(qfields)),
             build.pointer_array([cfields[k] for k in _GROUPED_ORDER]),
             scal.data_ptr(), build.pointer_array(list(q_outs)),
-            build.pointer_array(list(c_outs)), nb, cw, int(eos == "isothermal"),
-            int(p3m), int(dtype == torch.float64), torch.cuda.current_stream().cuda_stream,
+            build.pointer_array(list(c_outs)), q_part.data_ptr(), nb, cw,
+            int(eos == "isothermal"), int(p3m), int(dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream,
         )
     check_code("phase_b_blocks", code)
     launches += 1

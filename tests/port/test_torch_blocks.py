@@ -446,6 +446,31 @@ def test_k5_k6_match_pallas(dtype, p3m):
     _assert_close_of_scale(co, co_r, bar)
 
 
+@pytest.mark.parametrize("p3m", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k6_legacy_width_matches_pallas(dtype, p3m):
+    """K6's plain version at a legacy plan's C_b = 768 (not a multiple of
+    the grouped layout's 512-slot chunk; one launch of the reference's
+    wrapper) against the Pallas kernel interpreted, with
+    test_k5_k6_match_pallas' bars and its float64 reference for float32
+    under p3m."""
+    td = getattr(torch, dtype)
+    rng = np.random.default_rng(41 + p3m)
+    cap = TB.BQ
+    sigma, r_c = (0.05, 0.22) if p3m else (None, 0.0)
+    bar = 6e-6 if td == torch.float32 else 1e-12
+    kw = dict(eos="polytropic", p3m=p3m, cap=cap)
+    args = (1e-3, 1.0, 2.0, sigma, r_c)
+    jd = jnp.float64 if p3m else None
+    qf, cf = _pair_inputs(rng, 2, cap, 768, td, 700)
+    qo, co = cuda_block_pairs.phase_b_blocks(list(map(t, qf)), list(map(t, cf)), *args, **kw)
+    qo_r, co_r = k6_ref(tuple(jnp.asarray(a, jd) for a in qf),
+                        tuple(jnp.asarray(a, jd) for a in cf), *args, **kw, interpret=True)
+    assert co[0].shape == (2, 768)
+    _assert_close_of_scale(qo, qo_r, bar)
+    _assert_close_of_scale(co, co_r, bar)
+
+
 @pytest.mark.parametrize("eos", ["polytropic", "isothermal"])
 def test_close_pairs_p3m_float32_near_float64(eos):
     """Rows holding a partner 1e-4 from every query (z = r / (sqrt2 sigma)
@@ -596,6 +621,45 @@ def test_unit_partials_in_order_match_plain(gravity, unit_slots):
     live = q_p[6] != 0
     assert bool(live.any()), "the layout has pairs inside the visibility radius"
     for a, b in [*zip(q_m, q_p), *zip(c_m.unbind(1), c_p.unbind(1))]:
+        scale = float(b[b > -torch.finfo(b.dtype).max].abs().max()) + 1e-300
+        assert float((a - b).abs().max()) <= 1e-13 * scale
+
+
+# ------------------------------------------------------ (5c) K6's work units
+@pytest.mark.parametrize("gravity", ["exact", "p3m"])
+@pytest.mark.parametrize("cw", [256, 300, 700, 768, 1300, 2049, 3072, 5000])
+def test_block_unit_partials_in_order_match_plain(cw, gravity):
+    """K6's form on the CPU: each work unit of a block (one staged piece of
+    256 slots, [j 256, min((j + 1) 256, cw)), the last one partial where
+    256 does not divide cw) summed on its own slots, the units' query-side
+    partials combined in unit order (mu_max by max), equal
+    phase_b_blocks_plain over the whole row: mu_max and the candidate-side
+    sums bit for bit (each slot lies in one unit), the query-side sums
+    within 1e-13 of their output's scale (float64 reassociation)."""
+    rng = np.random.default_rng(31)
+    piece = 256
+    qf, cf = _pair_inputs(rng, 2, TB.BQ, cw, torch.float64, cw - cw // 8)
+    qf, cf = [t(a) for a in qf], [t(a) for a in cf]
+    sigma, r_c = (0.05, 0.22) if gravity == "p3m" else (None, 0.0)
+    args = (1e-3, 1.0, 2.0, sigma, r_c)
+    kw = dict(eos="polytropic", p3m=gravity == "p3m", cap=TB.BQ)
+    q_p, c_p = cuda_block_pairs.phase_b_blocks_plain(qf, cf, *args, **kw)
+    q_m = [torch.zeros_like(q_p[0]) for _ in range(10)]
+    q_m[4].fill_(-torch.finfo(torch.float64).max)
+    c_m = [torch.empty_like(c) for c in c_p]
+    for lo in range(0, cw, piece):
+        hi = min(lo + piece, cw)
+        qs, cs = cuda_block_pairs.phase_b_blocks_plain(
+            qf, [c[:, lo:hi].contiguous() for c in cf], *args, **kw)
+        for i in range(10):
+            q_m[i] = torch.maximum(q_m[i], qs[i]) if i == 4 else q_m[i] + qs[i]
+        for a, b in zip(c_m, cs):
+            a[:, lo:hi] = b
+    assert torch.equal(q_m[4], q_p[4])
+    for a, b in zip(c_m, c_p):
+        assert torch.equal(a, b)
+    assert bool((q_p[0] != 0).any()), "the rows have pairs inside the forward ball"
+    for a, b in zip(q_m, q_p):
         scale = float(b[b > -torch.finfo(b.dtype).max].abs().max()) + 1e-300
         assert float((a - b).abs().max()) <= 1e-13 * scale
 

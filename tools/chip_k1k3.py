@@ -4,6 +4,8 @@ compared in one run.
 
     python3 tools/chip_k1k3.py capture FILE
     python3 tools/chip_k1k3.py time TREE FILE [--sweep] [--kernels k1,k2,k3,k4,k5,k6,tail,k3rc]
+                                              [--outputs OUT]
+    python3 tools/chip_k1k3.py same OUT_A OUT_B
 
 `capture` builds the inputs of one force evaluation on each path and saves
 them to FILE: K1's 12 launches and K5's launch on the collapse path
@@ -29,12 +31,20 @@ short launch waits for) and its device time from torch.profiler (the
 kernels alone, per evaluation; each launch's too), with the card's name
 and power limit. Where TREE's K5 wrapper takes the plan's work units
 (`units`), they are built once beforehand, as the block engine does.
+K6's line `k6_collapse_launches` gives each of its 12 launches with its
+(C_b, nb, n_u = work units a block; null for a tree whose K6 has none),
+its wrapper time and its device time (a combine kernel counted with the
+launch before it).
 With --sweep it also times, where TREE's wrappers take the knob, K1 and
 K4 at smaller list budgets (`list_cap`, with each budget's overflow
 share), K5 at other work-unit sizes (`unit_table`'s `unit_slots`), K3
 at other plans (rows a thread R, column slices S), K2 at other piece
 sizes (`piece`) and the tail at other staging chunks (`chunk`).
 --kernels limits the run to the kernels named (all by default).
+--outputs saves K5's and K6's outputs on those inputs to OUT; `same`
+prints, for each launch list two such files share, whether every output
+is bit-equal and otherwise the largest difference over its output's
+largest magnitude.
 
 Run the trees in turns within one call (parent, change, change, parent),
 each in a fresh process (many profiler sessions in one process lose kernel
@@ -166,7 +176,8 @@ def ring_calls(cs, state, params, pos, h0):
 
 
 def time_tree(tree: str, path: str, sweep: bool,
-              kernels=("k1", "k2", "k3", "k4", "k5", "k6", "tail", "k3rc")) -> None:
+              kernels=("k1", "k2", "k3", "k4", "k5", "k6", "tail", "k3rc"),
+              outputs: str | None = None) -> None:
     sys.path.insert(0, os.path.abspath(tree))
     import inspect
 
@@ -224,13 +235,25 @@ def time_tree(tree: str, path: str, sweep: bool,
                 for a, kw in calls:
                     fn(*a, **kw)
             torch.cuda.synchronize()
-        per = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and "sph::" in e.name]
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and "sph::" in e.name),
+                     key=lambda e: e.time_range.start)
+        per = [e.time_range.elapsed_us() / 1e3 for e in evs]
         if not per:
-            return None, None
+            return None, None, None
         k = len(per) // iters
         launches = [statistics.median(per[i::k]) for i in range(k)]
-        return sum(per) / iters, launches
+        # by wrapper call: a combine kernel belongs to the call before it
+        by_call = []
+        for e, t in zip(evs, per):
+            if "combine_kernel" in e.name and by_call:
+                by_call[-1] += t
+            else:
+                by_call.append(t)
+        n = len(by_call) // iters
+        calls_dev = ([statistics.median(by_call[i::n]) for i in range(n)]
+                     if n * iters == len(by_call) else None)
+        return sum(per) / iters, launches, calls_dev
 
     def load(keys):
         # a mono launch's `outlier=False` is dropped: a parent tree's K2 has no such keyword
@@ -287,9 +310,22 @@ def time_tree(tree: str, path: str, sweep: bool,
     for key, fn, calls in timed:
         out[f"{key}_ms"] = calls_ms(fn, calls)
     for key, fn, calls in timed:
-        out[f"{key}_device_ms"], launches = device_ms(fn, calls)
+        out[f"{key}_device_ms"], launches, calls_dev = device_ms(fn, calls)
         if key != "k3":
             out[f"{key}_device_ms_of_launches"] = launches
+        if key == "k6_collapse":
+            units = getattr(cuda_block_pairs, "block_units", None)
+            out["k6_collapse_launches"] = [
+                {"c_b": a[1][0].shape[1], "nb": a[1][0].shape[0],
+                 "n_u": units(a[1][0].shape[1]) if units else None,
+                 "ms": median_ms(lambda: fn(*a, **kw)),
+                 "device_ms": calls_dev[i] if calls_dev else None}
+                for i, (a, kw) in enumerate(calls)]
+    if outputs:
+        saved = {key: [to_cpu(fn(*a, **kw)) for a, kw in calls]
+                 for key, fn, calls in timed if key.startswith(("k5_", "k6_"))}
+        torch.cuda.synchronize()
+        torch.save(saved, outputs)
     if sweep and "k2" in kernels and takes(cuda_tile_pairs.phase_b_tiles, "piece"):
         for key in ("k2_exact", "k2_p3m", "k2_class"):
             out[f"{key}_pieces"] = {
@@ -338,6 +374,34 @@ def time_tree(tree: str, path: str, sweep: bool,
     print(json.dumps(out), flush=True)
 
 
+def same(path_a: str, path_b: str) -> None:
+    """For each launch list saved by both `--outputs` files: whether every
+    output tensor is bit-equal, and the largest |a - b| over the largest
+    |b| of that output."""
+    import torch
+
+    a, b = torch.load(path_a), torch.load(path_b)
+
+    def flat(x):
+        if isinstance(x, (tuple, list)):
+            return [t for v in x for t in flat(v)]
+        return [x]
+
+    res = {}
+    for key in sorted(set(a) & set(b)):
+        xs, ys = flat(a[key]), flat(b[key])
+        worst = 0.0
+        for x, y in zip(xs, ys):
+            live = y > -torch.finfo(y.dtype).max  # mu_max of a row with no pair is -max
+            if bool(live.any()):
+                scale = float(y[live].abs().max())
+                err = float((x - y)[live].abs().max())
+                worst = max(worst, err / scale if scale > 0 else err)
+        res[key] = {"bit_equal": len(xs) == len(ys) and all(
+            torch.equal(x, y) for x, y in zip(xs, ys)), "max_err_over_scale": worst}
+    print(json.dumps(res), flush=True)
+
+
 def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "capture":
         capture(sys.argv[2])
@@ -346,7 +410,10 @@ def main() -> int:
         kernels = ("k1", "k2", "k3", "k4", "k5", "k6", "tail", "k3rc")
         if "--kernels" in rest:
             kernels = tuple(rest[rest.index("--kernels") + 1].split(","))
-        time_tree(sys.argv[2], sys.argv[3], "--sweep" in rest, kernels)
+        outputs = rest[rest.index("--outputs") + 1] if "--outputs" in rest else None
+        time_tree(sys.argv[2], sys.argv[3], "--sweep" in rest, kernels, outputs)
+    elif len(sys.argv) >= 4 and sys.argv[1] == "same":
+        same(sys.argv[2], sys.argv[3])
     else:
         print(__doc__)
         return 2

@@ -1,6 +1,7 @@
 """Where a step of the main path spends its time on the card.
 
     python3 tools/chip_profile_step.py [N | collapse | deep] [--shards P [--ranks R]]
+                                       [--per-bucket]
 
 Builds the headline scene (boss_bodenheimer, polytropic, Kh = 50, float32,
 N = 100 000 unless given) — or, with `collapse` / `deep`, loads the
@@ -13,6 +14,9 @@ time of the traced steps over the wall of the same steps run untraced), and
 device time by kernel name. A chunk is three steps, or ML_SUBCHUNK = 2 on
 the block engine, whose host refit of the plan before each chunk
 (`block_args_for_spec`) is timed apart and not in the step wall.
+--per-bucket runs the block engine's phase B one capacity bucket a launch
+(K6, `make_chunk_runner(cfg, grouped=False)`) instead of the grouped
+launch (K5); it needs a scene the block engine plans, on one shard.
 
 With --shards P the chunk runs over P shards of cuda:0 (the multi-device
 layer in one process): a tile scene on the z-slab engine (`plan_slabs`
@@ -74,6 +78,9 @@ def main() -> int:
         i = argv.index("--ranks")
         ranks = int(argv[i + 1])
         del argv[i : i + 2]
+    grouped = "--per-bucket" not in argv
+    if not grouped:
+        argv.remove("--per-bucket")
     arg = argv[0] if argv else "100000"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -90,11 +97,13 @@ def main() -> int:
     cfg, _ = plan_engine(pos, h0, **base, gravity="p3m" if n >= P3M_MIN_N else "exact")
     steps = ML_SUBCHUNK if cfg.blocks is not None else 3
     refit_s = []
+    if not grouped and (cfg.blocks is None or shards > 1):
+        raise ValueError("--per-bucket needs a block-engine scene on one shard")
     if ranks > 1:
         return profile_ranks(card, arg, shards, ranks)
     if shards > 1:
         return profile_sharded(card, arg, base, state, params, pos, h0, cfg, steps, shards)
-    chunk = make_chunk_runner(cfg)
+    chunk = make_chunk_runner(cfg, grouped=grouped)
 
     def run(state, h, n_steps):
         args = None
@@ -132,6 +141,7 @@ def main() -> int:
     ours = sum(r[1] for r in kernels if "sph::" in r[0]) / steps
     out = {
         "card": card, "scene": arg, "n": n, "gravity": cfg.gravity,
+        "phase_b": "grouped" if grouped else "per_bucket",
         "tile": list(cfg.tile) if cfg.tile else None,
         "tile_classes": [list(c) for c in cfg.tile_classes or ()],
         "blocks": [list(b) for b in cfg.blocks[0]] if cfg.blocks else None,
