@@ -16,7 +16,10 @@ just after:
 *   the P3M path: the same scene at N = 200 000, four steps with
     gravity="auto", which plans the mono-tile engine with the FFT mesh
     and the W = 2 tail (kernels K4, K2 and the tail kernel; K3 0 times),
-    then the P3M force error against the exact sweep on its final state;
+    then the P3M force error against the exact sweep on its final state
+    and its float32 gravity corrections against float64, with a close
+    pair's two corrections in two sweeps (the reference's) and as one
+    float64 term (ROADMAP D21, what the run loop does);
 *   the collapse path: the committed deep-collapse state
     bench_data/bb_collapsed.npz (N = 100 000, density contrast 395)
     written as a snapshot through the port's writer and run four steps
@@ -26,13 +29,19 @@ just after:
     evaluation against the gather engine's, and one evaluation of
     bench_data/bb_collapsed_deep.npz (contrast 1001) in each gravity mode
     with the P3M force error against the exact sweep;
+*   the collapse path under P3M: bb_collapsed.npz through
+    run_simulation(gravity="p3m") for six steps, three 2-step block chunks
+    whose plans cover the tail radius with its drift margin (ROADMAP D19):
+    no evaluation may fall back; the plan's buckets and K5's time on one
+    evaluation beside the plan without the margin (the reference's);
 *   the multi-level path: bb_collapsed_deep.npz on the multi-level engine
     (physics/mlevel.py, K1 once a level x bucket, K3 under exact gravity)
     in each gravity mode: the plan, one evaluation against the block
-    engine's with both split by stage, the P3M force error, a 2-step chunk
-    with its certificate per evaluation; then four CLI steps with
-    plan_blocks made to decline, so that the run loop's ladder plans the
-    multi-level engine;
+    engine's with both split by stage, the P3M force error and, under
+    P3M, the float32 gravity corrections against float64 (two sweeps and
+    the run loop's joint term), a 2-step chunk with its certificate per
+    evaluation; then four CLI steps with plan_blocks made to decline, so
+    that the run loop's ladder plans the multi-level engine;
 *   the outlier lane: bb_collapsed.npz on the mono-tile engine with its
     outlier budget (choose_tile_params_ml: grid 27, cap 160, budget 65 536,
     26 921 outlier rows; K4, K2 with its outlier masks, K3 or the tail) in
@@ -48,8 +57,10 @@ just after:
     (K4, K2, and K3's rows x columns entry in the ring or the tail kernel),
     each with a 2-step slab chunk of its final state against the
     single-device chunk and one evaluation split by stage, whose K4, K2
-    and tail launches (one a shard, at the slab's shapes) are held
-    against their plain versions in float32 and float64; then
+    and tail launches (one a shard, at the slab's shapes; under P3M K2's
+    joint mode and the tail's skip mode, as the run loop launches them)
+    are held against their plain versions in float32 and float64, and
+    under P3M its float32 gravity corrections against float64; then
     bb_collapsed.npz the same way, where no slab plan certifies and the
     work-sharded block engine carries every chunk (K1, K5, rows x columns),
     one evaluation against the single-device block engine, and one
@@ -105,11 +116,16 @@ float32 are held against their plain version in float64; K2 (the
 four EOS x P3M variants in float32 and float64 on class rows, on mono rows
 at cap 160 and 256 with rows filled to cap, and on every path's inputs)
 must give two bit-identical launches and the same bits with its cull off
-(`keep_all`), and without P3M the same bits with its outlier masks on
+(`keep_all`), its joint mode (`joint`, ROADMAP D21: a close pair's two
+gravity corrections as one float64 term) likewise on the mono rows, with
+and without the outlier masks, and without P3M the same bits with its outlier masks on
 where no slot is marked an outlier (its outlier variant is held against
 its plain version on the synthetic rows and on the outlier path), and the tail (W = 1, 2 and 3 at cap 160 and W = 2 at cap
 256, float32 and float64, cells filled to cap, and the P3M path's inputs)
-two bit-identical launches. A time ("ms") is CUDA events around the
+two bit-identical launches, its skip mode (`skip_joint`, the pairs K2's
+joint mode takes left out) likewise, and K2's joint mode plus the tail's
+skip mode within check_phase_b's bars of the two sweeps in float64 (the
+line's "f8_modes"). A time ("ms") is CUDA events around the
 wrapper, so a short launch's time holds the wrapper's host work
 (tools/chip_k1k3.py gives each kernel's device time alone). A bound
 counts the bytes the
@@ -137,6 +153,7 @@ import torch
 import sphtpu_torch
 from sphtpu_torch import cli
 from sphtpu_torch.engine import EngineConfig, make_chunk_runner, state_from_numpy
+from sphtpu_torch.engine.driver import CHUNK_REPAIRS, EVAL_REPAIRS, PLAN_REPAIRS
 from sphtpu_torch.engine.step import force_eval
 from sphtpu_torch.io import read_snapshot, snapshot_path
 from sphtpu_torch.kernels import (
@@ -497,10 +514,13 @@ def phase_kernels(seed: int = 0) -> None:
     report["cases"] += (kernels_k4(rng, kh, m) + kernels_tail(rng, rng_new, m)
                         + kernels_blocks(rng, m) + kernels_k2_mono(rng_new, m)
                         + kernels_f7(m, seed))
+    f8 = kernels_f8(m)
+    report["cases"] += f8
     report["tie_rows_total"] = sum(
         c[k]["tie_rows"] for c in report["cases"] for k in ("a", "k4") if k in c
     )
     say("kernels", **report, kernels=list(MODULES))
+    return f8
 
 
 def newton_plan(n, dtype):
@@ -646,6 +666,18 @@ def kernels_k2_mono(rng, m):
                         **k2_repeats(args, kw, outs_k)}
                     if not p3m:
                         case[f"b_{eos[:4]}_exact_outlier"] = k2_outlier_cases(args, kw, outs_k, sl)
+                # joint mode (ROADMAP D21): a close pair's two corrections
+                # as one float64 term, with and without the outlier masks
+                for outlier in (False, True):
+                    args = (qfields, cfields, m, 1.0, 2.0, 1.0 / 5 * 2.2)
+                    kw = dict(eos=eos, p3m=False, cap=cap, joint=True, outlier=outlier)
+                    outs_k = cuda_tile_pairs.phase_b_tiles(*args, **kw)
+                    sync()
+                    outs_p = cuda_tile_pairs.phase_b_tiles_plain(*args, **kw)
+                    worst, rtol, atol = check_phase_b(outs_k, outs_p, dtype)
+                    case[f"b_{eos[:4]}_joint{'_outlier' if outlier else ''}"] = {
+                        "max_err_over_scale": worst, "rtol": rtol, "atol_of_scale": atol,
+                        **k2_repeats(args, kw, outs_k)}
             cases.append(case)
             del t, cfields, qfields
             torch.cuda.empty_cache()
@@ -709,6 +741,84 @@ def kernels_tail(rng, rng_new, m):
                                "atol_of_scale": atol,
                                **tail_repeats((planes, m, sigma), kw, out_k)}})
         del planes, out_k, out_p
+    return cases
+
+
+def kernels_f8(m, seed: int = 13):
+    """K2's joint mode and the tail's skip mode (ROADMAP D21) on synthetic
+    unit cells with h in [0.2, 0.45) (so that pairs of neighbouring cells
+    lie inside 2 h_avg), W = 1 and 2 at cap 160, float64 then float32, the
+    first layer of cells filled to cap: the tail's skip mode against its
+    plain version within check_phase_b's bars, two launches bit-identical;
+    on the same slots as a 27-cell stack, K2's joint mode likewise (and its
+    cull against keep-all); K2's joint launch plus the tail's skip launch
+    against K2's term 1 plus the tail over every pair (the reference's two
+    sweeps) within check_phase_b's bars in float64; and both float32 sums
+    against the float64 joint one, over each output's scale."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for w in (1, 2):
+        grid, cap = 6, 160
+        sums = {}
+        for dtype in (torch.float64, torch.float32):
+            g = np.random.default_rng(seed + w)
+            planes = synthetic_tail_planes(g, grid, cap, w, dtype, int(0.6 * cap),
+                                           full_cells=grid * grid)
+            h = dev(0.2 + 0.25 * g.random(tuple(planes[3].shape)), dtype) * planes[3]
+            planes5 = torch.cat([planes, h[None]]).contiguous()
+            sigma = 1.0 / {1: 10, 2: 5}[w] * 2.2
+            kw = dict(grid=grid, cap=cap, halfwidth=w, skip_joint=True)
+            out_k = cuda_p3m_tail.p3m_tail(planes5, m, sigma, **kw)
+            sync()
+            out_p = cuda_p3m_tail.p3m_tail_plain(planes5, m, sigma, **kw)
+            worst, rtol, atol = check_phase_b(out_k, out_p, dtype, names=TAIL_OUTPUTS,
+                                              kernel="p3m_tail skip")
+            case = {"dtype": str(dtype)[6:], "f8_w": w, "grid": grid, "cap": cap,
+                    "skip": {"max_err_over_scale": worst, "rtol": rtol, "atol_of_scale": atol,
+                             **tail_repeats((planes5, m, sigma), kw, out_k)}}
+            # the same slots as K2's 27-cell stack, in the prestack's order
+            gp = grid + 2
+            pl = planes5[:, w - 1 : w + grid + 1, w - 1 : w + grid + 1,
+                         (w - 1) * cap : (w + grid + 1) * cap].reshape(5, gp, gp, gp, cap)
+            pre = torch.stack([pl[:, dz : dz + grid, dy : dy + grid, dx : dx + grid]
+                               for dz in range(3) for dy in range(3) for dx in range(3)],
+                              dim=4).reshape(5, grid**3, 27 * cap)
+            occ = pre[3]
+            shape = tuple(occ.shape)
+            vel = [dev(0.1 * rng.standard_normal(shape), dtype) * occ for _ in range(3)]
+            rho = dev(0.5 + rng.random(shape), dtype) * occ
+            por2 = dev(0.5 + 0.5 * rng.random(shape), dtype) * occ
+            cs_ = dev(0.8 + 0.4 * rng.random(shape), dtype) * occ
+            cf = tuple(c.contiguous() for c in
+                       (pre[0], pre[1], pre[2], *vel, occ, pre[4], rho, por2, cs_))
+            qf = tuple(c[:, 13 * cap : 14 * cap].contiguous() for c in cf)
+            args = (qf, cf, m, 1.0, 2.0, sigma)
+            kwj = dict(eos="polytropic", p3m=False, cap=cap, joint=True)
+            joint_k = cuda_tile_pairs.phase_b_tiles(*args, **kwj)
+            sync()
+            joint_p = cuda_tile_pairs.phase_b_tiles_plain(*args, **kwj)
+            wj, rtol, atol = check_phase_b(joint_k, joint_p, dtype, kernel="phase_b_tiles joint")
+            case["joint"] = {"max_err_over_scale": wj, "rtol": rtol, "atol_of_scale": atol,
+                             **k2_repeats(args, kwj, joint_k)}
+            split_k = cuda_tile_pairs.phase_b_tiles(*args, eos="polytropic", p3m=False, cap=cap)
+            tail_all = cuda_p3m_tail.p3m_tail(planes, m, sigma, grid=grid, cap=cap, halfwidth=w)
+            sync()
+            sums[dtype] = {"joint": torch.stack(joint_k[6:]) + out_k,
+                           "split": torch.stack(split_k[6:]) + tail_all}
+            if dtype == torch.float64:
+                wt, rtol, atol = check_phase_b(sums[dtype]["joint"], sums[dtype]["split"],
+                                               dtype, names=TAIL_OUTPUTS,
+                                               kernel="joint + skip against the two sweeps")
+                case["joint_plus_skip_vs_split"] = {"max_err_over_scale": wt, "rtol": rtol,
+                                                    "atol_of_scale": atol}
+            else:
+                ref = sums[torch.float64]["joint"]
+                case["f32_against_f64_over_scale"] = {
+                    mode: max(float((a.double() - b).abs().max()) / float(b.abs().max())
+                              for a, b in zip(v, ref))
+                    for mode, v in sums[dtype].items()}
+            cases.append(case)
+            del planes, planes5, pre, cf, qf
     return cases
 
 
@@ -1139,10 +1249,12 @@ def phase_exact_path(tmp: str, gpu_line: str, kh: int):
     return res, cfg, counts
 
 
-def capture_eval_inputs(res, cfg, module, names, mlargs=None, grouped=True, out=None):
+def capture_eval_inputs(res, cfg, module, names, mlargs=None, grouped=True, out=None,
+                        joint_gravity=EVAL_REPAIRS["joint_gravity"]):
     """Arguments the kernel wrappers `names`, as `module` calls them, get in
     one force evaluation of a path's final state (a block config's with its
-    BlockArgs `mlargs`; `grouped` as force_eval takes it). When `out` is a
+    BlockArgs `mlargs`; `grouped` and `joint_gravity` as force_eval takes
+    them, the latter as the run loop passes it by default). When `out` is a
     dict, the evaluation's (acc, reduced, phi) go there."""
     calls = {name: [] for name in names}
     orig = {name: getattr(module, name) for name in names}
@@ -1162,7 +1274,7 @@ def capture_eval_inputs(res, cfg, module, names, mlargs=None, grouped=True, out=
                 if cfg.gravity == "p3m" else None)
         acc, red, phi, fell_back = force_eval(
             cfg, res["params"], st.pos, st.vel, st.K, res["h_last"], ghat, mlargs,
-            device=DEVICE, grouped=grouped,
+            device=DEVICE, grouped=grouped, joint_gravity=joint_gravity,
         )
         if out is not None:
             out.update(acc=acc, red=red, phi=phi)
@@ -1487,7 +1599,8 @@ def phase_p3m_accuracy(res, cfg, gpu_line, s_per_step):
     ghat = greens_hat(cfg.mesh_pad, cfg.sigma_cells, st.pos.dtype, DEVICE)
     cfg_ex = dataclasses.replace(cfg, gravity="exact")
     _, _, phi_e, fb_e = force_eval(cfg_ex, p, st.pos, st.vel, st.K, h, device=DEVICE)
-    _, _, phi_p, fb_p = force_eval(cfg, p, st.pos, st.vel, st.K, h, ghat, device=DEVICE)
+    _, _, phi_p, fb_p = force_eval(cfg, p, st.pos, st.vel, st.K, h, ghat, device=DEVICE,
+                                   **EVAL_REPAIRS)
     # g from the pieces force_eval sums (acc - hydro acc would cancel: on
     # this scene the pressure term is ~1e7 times gravity in code units)
     kw = dict(eos=cfg.eos, gamma=p.gamma, cs0=p.cs0, alpha=p.alpha, beta=p.beta,
@@ -1499,9 +1612,23 @@ def phase_p3m_accuracy(res, cfg, gpu_line, s_per_step):
     }
     g = {}
     for mode, mf in (("exact", 0), ("p3m", cfg.mesh_factor)):
-        _, gcorr, _ = tiles.tile_sph_forces(st.pos, st.vel, p.m, st.K, h, mesh_factor=mf, **kw)
+        _, gcorr, _ = tiles.tile_sph_forces(st.pos, st.vel, p.m, st.K, h, mesh_factor=mf,
+                                            **EVAL_REPAIRS, **kw)
         g[mode] = (g_far[mode] + torch.stack(gcorr[:3], dim=1)).double()
     sync()
+    # the float32 P3M gravity corrections against float64 on this state
+    # (the kernels in float64, held against their plain versions at 1e-9
+    # above): a close pair's two corrections in two sweeps (the
+    # reference's, F8) and as one float64 term (ROADMAP D21, the run loop's)
+    f64 = [a.double() for a in (st.pos, st.vel, st.K, h)]
+    _, gc64, ok64 = tiles.tile_sph_forces(*f64[:2], p.m, *f64[2:], mesh_factor=cfg.mesh_factor,
+                                          **kw)
+    f8 = {"ok_float64": bool(ok64)}
+    for label, joint in (("two_sweeps", False), ("joint", True)):
+        _, gc32, _ = tiles.tile_sph_forces(st.pos, st.vel, p.m, st.K, h,
+                                           mesh_factor=cfg.mesh_factor, joint_gravity=joint, **kw)
+        f8[label] = over_scale(gc32, gc64)
+    del f64, gc64
 
     def rms(v):
         return float(torch.sqrt(torch.mean(torch.sum(v * v, dim=1))))
@@ -1531,6 +1658,7 @@ def phase_p3m_accuracy(res, cfg, gpu_line, s_per_step):
     }
     failed = [k for k, v in checks.items() if not v]
     say("p3m_accuracy", card=gpu_line, n=st.pos.shape[0], g_err_rms_over_rms_g=err,
+        gcorr_f32_vs_f64_over_scale=f8,
         phi_rel_rms=phi_rel, momentum_over_rms_g=mom, rms_g=rms_g,
         mesh_ms_per_eval=mesh_ms, fft_ms_per_eval=fft_ms,
         mesh_share_of_step=2 * mesh_ms / 1e3 / s_per_step,
@@ -1634,13 +1762,99 @@ def phase_collapse_path(tmp: str, gpu_line: str):
     return res, cfg, counts
 
 
+P3M_BLOCK_STEPS = 6  # three ML_SUBCHUNK block chunks
+
+
+def phase_collapse_p3m_blocks(tmp: str, gpu_line: str):
+    """bb_collapsed.npz through run_simulation(gravity="p3m") for six
+    steps (snapshots only at the end, so that every chunk is ML_SUBCHUNK
+    steps long): three 2-step chunks of the block engine (K1 once a bucket and K5
+    once an evaluation; the mesh far field, no K3, no tail), the host refit
+    between them. The plans cover the P3M tail radius with their drift
+    margin (driver.PLAN_REPAIRS, ROADMAP D19), so no evaluation may fall
+    back; the plan of the reference (no margin) fails every evaluation
+    after a plan's first (F6). Also: how often the refit declined, and, on
+    the initial state, the plan with and without the margin (buckets, pair
+    slots) and K5's time on one evaluation of each (held against its plain
+    version in float32). Returns K5's entry on this path."""
+    from sphtpu_torch.engine import driver
+
+    root = os.path.join(tmp, "collapse_p3m")
+    write_collapse_snapshot(root, COLLAPSE)
+    refits = []
+
+    def counting(orig):
+        def refit(*a, **kw):
+            out = orig(*a, **kw)
+            refits.append(out is not None)
+            return out
+
+        return refit
+
+    reset_counts()
+    with patched(driver, "block_args_for_spec", counting):
+        res = driver.run_simulation(
+            "polytropic", "boss_bodenheimer", 1, 2, False, False, root=root, gravity="p3m",
+            max_steps=P3M_BLOCK_STEPS, verbose=False, device=DEVICE)
+    sync()
+    counts = {name: mod.launches for name, mod in MODULES.items()}
+    cfgs = res["chunk_configs"]
+    buckets = [list(b) for b in cfgs[0].blocks[0]] if cfgs and cfgs[0].blocks else []
+    evals = 2 * P3M_BLOCK_STEPS
+    checks = {
+        f"{P3M_BLOCK_STEPS} steps": res["steps"] == P3M_BLOCK_STEPS,
+        "0 fallback evals": res["fallback_evals"] == 0,
+        "3 block chunks under P3M": len(cfgs) == 3 and all(
+            c.blocks is not None and c.gravity == "p3m" for c in cfgs),
+        "K5 once an evaluation, no K3, no tail": counts["phase_b_grouped"] == evals
+        and counts["newton_sweep"] == 0 and counts["p3m_tail"] == 0,
+        "K1 once a bucket an evaluation": counts["phase_a_cells"] == sum(
+            2 * steps * len(c.blocks[0]) for (steps, _, _), c in zip(res["chunk_walls"], cfgs)),
+    }
+
+    # the plan with and without the margin on the initial state, K5 on each
+    pos_h, _, h_h, st, p, h_dev = collapse_state(COLLAPSE)
+    plans = {}
+    for label, margin in (("no_margin", 1.0), ("margin", PLAN_REPAIRS["tail_margin"])):
+        spec, bargs = blocks.plan_blocks(pos_h, h_h, KH_COLLAPSE, gravity="p3m",
+                                         tail_margin=margin)
+        cfg = EngineConfig(n=pos_h.shape[0], kh=KH_COLLAPSE, eos="polytropic",
+                           dtype="float32", blocks=spec, gravity="p3m")
+        calls = capture_eval_inputs({"state": st, "params": p, "h_last": h_dev}, cfg, blocks,
+                                    ("phase_b_grouped",), mlargs=bargs)
+        (args, kw), = calls["phase_b_grouped"]
+        units, summary = k5_units(args[0], args[1], kw)
+        kw = dict(kw, units=units)
+        checked = k5_check(args, kw, dtypes=(torch.float32,))["float32"]
+        plans[label] = {
+            "tail_margin": margin, "buckets": [list(b) for b in spec[0]],
+            "pair_slots": sum(cb * nb for cb, nb in spec[0]) * blocks.BQ,
+            "k5_ms": time_ms(lambda: cuda_grouped_pairs.phase_b_grouped(*args, **kw), iters=5),
+            "k5_f32_max_err_over_scale": checked["max_err_over_scale"], **summary}
+        del calls, args, kw
+        torch.cuda.empty_cache()
+    failed = [k for k, v in checks.items() if not v]
+    say("collapse_p3m_blocks", card=gpu_line,
+        scene=f"bb_collapsed.npz (contrast 395) polytropic N={N_MAIN} Kh={KH_COLLAPSE} "
+              "float32, gravity p3m",
+        plan={"buckets": buckets, "tail_margin": PLAN_REPAIRS["tail_margin"]},
+        steps=res["steps"], fallback_evals=res["fallback_evals"],
+        chunk_engines=res["chunk_engines"], refits=len(refits),
+        refits_declined=refits.count(False), launches=counts,
+        **walls_summary(res, N_MAIN), plans_on_initial_state=plans, failed=failed)
+    if failed:
+        raise AssertionError(f"collapse P3M block path checks failed: {failed}")
+    return counts
+
+
 def refit_args(res, cfg):
     """The final state's BlockArgs in cfg's spec, as the run loop's next
     chunk would refit them."""
     st = res["state"]
     pos_h = st.pos.detach().double().cpu().numpy()
     h_h = res["h_last"].detach().double().cpu().numpy()
-    args = blocks.block_args_for_spec(pos_h, h_h, cfg.blocks, gravity=cfg.gravity)
+    args = blocks.block_args_for_spec(pos_h, h_h, cfg.blocks, gravity=cfg.gravity,
+                                      **PLAN_REPAIRS)
     if args is None:
         raise AssertionError(f"the final state does not refit its spec: {blocks.last_refit_fail()}")
     return args
@@ -1833,7 +2047,7 @@ def phase_deep_state(gpu_line):
     h = dev(h_h, torch.float32)
     g, phi, plans, ms, k5 = {}, {}, {}, {}, {}
     for grav in ("exact", "p3m"):
-        plan = blocks.plan_blocks(pos_h, h_h, KH_COLLAPSE, gravity=grav)
+        plan = blocks.plan_blocks(pos_h, h_h, KH_COLLAPSE, gravity=grav, **PLAN_REPAIRS)
         if plan is None:
             raise AssertionError(f"the deep state does not plan under {grav} gravity")
         spec, bargs = plan
@@ -1963,7 +2177,7 @@ def mlevel_eval(cfg, st, p, h, margs, ghat, clock=None):
         red, gcorr, ok = mlevel.mlevel_sph_forces(
             st.pos, st.vel, p.m, st.K, h, margs, eos=cfg.eos, gamma=p.gamma, cs0=p.cs0,
             alpha=p.alpha, beta=p.beta, kh=cfg.kh, spec=cfg.mlevel,
-            mesh_factor=cfg.mesh_factor, sigma_cells=cfg.sigma_cells,
+            mesh_factor=cfg.mesh_factor, sigma_cells=cfg.sigma_cells, **EVAL_REPAIRS,
         )
     with clock("gravity") if clock else contextlib.nullcontext():
         gfar, phifar = far_field(cfg, st, p, ghat)
@@ -2006,6 +2220,22 @@ def timed_eval(fn):
     seconds = dict(clock.seconds, total=time.perf_counter() - t0)
     seconds["other"] = seconds["total"] - sum(v for k, v in seconds.items() if k != "total")
     return out, seconds
+
+
+def as_float64(st, p):
+    """A State and its Params cast to float64 on the card."""
+    return type(st)(*(x.double() for x in st)), type(p)(*(x.double() for x in p))
+
+
+def over_scale(outs, refs):
+    """The largest |a - b| over the largest |b|, for each output pair."""
+    return [float((a.double() - b).abs().max() / b.abs().max()) for a, b in zip(outs, refs)]
+
+
+# A pair counted by both of a close pair's kernels, or by neither, would
+# miss its float64 value by about its own 1/r^2 term: orders of magnitude
+# beyond float32 roundoff (measured up to 2.5e-4 of the scale in two sweeps)
+GCORR_GROSS_BAR = 1e-3
 
 
 def phase_mlevel(gpu_line):
@@ -2054,8 +2284,29 @@ def phase_mlevel(gpu_line):
         (red, g, phi, ok), ml_s = timed_eval(
             lambda clock: mlevel_eval(cfg, st, p, h, margs, ghat, clock))
         g_ml[grav] = g.double()
+        f8 = None
+        if grav == "p3m":
+            # the float32 gravity corrections against float64 (the two
+            # sweeps, as the reference adds them): two sweeps and the run
+            # loop's joint term (ROADMAP D21)
+            def gcorr(st_, p_, h_, joint):
+                _, gc, ok_ = mlevel.mlevel_sph_forces(
+                    st_.pos, st_.vel, p_.m, st_.K, h_, margs, eos=cfg.eos, gamma=p_.gamma,
+                    cs0=p_.cs0, alpha=p_.alpha, beta=p_.beta, kh=cfg.kh, spec=cfg.mlevel,
+                    mesh_factor=cfg.mesh_factor, sigma_cells=cfg.sigma_cells,
+                    joint_gravity=joint)
+                if not bool(ok_):
+                    raise AssertionError(f"mlevel {st_.pos.dtype} evaluation did not certify")
+                return gc
 
-        bplan = blocks.plan_blocks(pos_h, h_h, KH_COLLAPSE, gravity=grav)
+            st64, p64 = as_float64(st, p)
+            gc64 = [x.double() for x in gcorr(st64, p64, h.double(), False)]
+            del st64, p64
+            f8 = {label: over_scale(gcorr(st, p, h, joint), gc64)
+                  for label, joint in (("two_sweeps", False), ("joint", True))}
+            del gc64
+
+        bplan = blocks.plan_blocks(pos_h, h_h, KH_COLLAPSE, gravity=grav, **PLAN_REPAIRS)
         bcfg = EngineConfig(n=n, kh=KH_COLLAPSE, eos="polytropic", dtype="float32",
                             blocks=bplan[0], gravity=grav)
         bargs = blocks.block_args_to_device(bplan[1], torch.float32, DEVICE)
@@ -2104,7 +2355,8 @@ def phase_mlevel(gpu_line):
         with patched(step_mod, "mlevel_sph_forces", keep_ok):
             reset_counts()
             t0 = time.time()
-            out = make_chunk_runner(cfg, device=DEVICE)(st, p, h, driver.ML_SUBCHUNK, args)
+            out = make_chunk_runner(cfg, device=DEVICE, **CHUNK_REPAIRS)(
+                st, p, h, driver.ML_SUBCHUNK, args)
             sync()
             chunk_s = time.time() - t0
         counts = {name: mod.launches for name, mod in MODULES.items()}
@@ -2122,6 +2374,9 @@ def phase_mlevel(gpu_line):
             "chunk valid": bool(out[2].all()), "|dE/E| < 1e-2": drift < 1e-2,
             "kernel launches": counts == want,
         }
+        if f8 is not None:
+            checks[f"joint gcorr within {GCORR_GROSS_BAR} of the float64 scale"] = (
+                max(f8["joint"]) < GCORR_GROSS_BAR)
         report[grav] = {
             "plan": {"levels": [[g_, cap, [list(b) for b in bk]] for g_, cap, bk in spec[0]],
                      "res_budget": spec[1], "mesh_level": spec[2],
@@ -2130,6 +2385,7 @@ def phase_mlevel(gpu_line):
             "certified": ok, "h_rows_differ_from_blocks": h_differ, "h_max_rel_err": h_rel,
             "vs_blocks_err_over_scale": worst, "tolerance": {"rtol": rtol, "atol_of_scale": atol},
             "eval_s_by_stage": ml_s, "block_eval_s_by_stage": blk_s,
+            "gcorr_f32_vs_f64_over_scale": f8,
             "block_plan": {"buckets": [list(b) for b in bplan[0][0]]},
             "chunk": {"steps": driver.ML_SUBCHUNK, "certificate_by_eval": oks,
                       "fallbacks": int(out[5].sum()), "energy_drift": drift, "wall_s": chunk_s,
@@ -2244,6 +2500,7 @@ def outlier_eval(cfg, st, p, h, ghat, clock=None):
             alpha=p.alpha, beta=p.beta, kh=cfg.kh, grid=cfg.tile[0], cap=cfg.tile[1],
             mesh_factor=cfg.mesh_factor if cfg.gravity == "p3m" else 0,
             sigma_cells=cfg.sigma_cells, outlier_budget=cfg.outlier_budget, device=DEVICE,
+            **EVAL_REPAIRS,
         )
     with clock("gravity") if clock else contextlib.nullcontext():
         gfar, phifar = far_field(cfg, st, p, ghat)
@@ -2311,7 +2568,7 @@ def phase_outlier(gpu_line):
             lambda clock: outlier_eval(cfg, st, p, h, ghat, clock))
         g_out[grav] = g.double()
 
-        bplan = blocks.plan_blocks(pos_h, h_h, KH_COLLAPSE, gravity=grav)
+        bplan = blocks.plan_blocks(pos_h, h_h, KH_COLLAPSE, gravity=grav, **PLAN_REPAIRS)
         bcfg = EngineConfig(n=n, kh=KH_COLLAPSE, eos="polytropic", dtype="float32",
                             blocks=bplan[0], gravity=grav)
         bargs = blocks.block_args_to_device(bplan[1], torch.float32, DEVICE)
@@ -2353,7 +2610,7 @@ def phase_outlier(gpu_line):
         with patched(step_mod, "tile_sph_forces", keep_ok):
             reset_counts()
             t0 = time.time()
-            out = make_chunk_runner(cfg, device=DEVICE)(st, p, h, 2)
+            out = make_chunk_runner(cfg, device=DEVICE, **CHUNK_REPAIRS)(st, p, h, 2)
             sync()
             chunk_s = time.time() - t0
         counts = {name: mod.launches for name, mod in MODULES.items()}
@@ -2600,9 +2857,12 @@ def phase_shard_slabs(tmp: str, gpu_line: str, p3m: bool):
     columns entry in the ring, or the tail kernel under P3M). Then one
     2-step slab chunk of the run's final state against the single-device
     mono-tile chunk on the same state and the same (grid, cap), both timed
-    here; and one evaluation whose K4, K2 and tail launches are held
-    against their plain versions (`slab_kernel_checks`) and whose ring's
-    K3 launches are captured for the kernels line. Returns (the run's
+    here (both with the run loop's repairs); and one evaluation whose
+    K4, K2 and tail launches are held against their plain versions
+    (`slab_kernel_checks`; under P3M they must be K2's joint and the
+    tail's skip launches) and whose ring's K3 launches are captured for
+    the kernels line; under P3M the float32 gravity corrections against
+    float64 (`slab_gcorr`: two sweeps and joint). Returns (the run's
     launch counts, the ring's K3 calls, the slab kernels' report, the final
     state as a `final_scene`)."""
     from sphtpu_torch.shard import tiles as shard_tiles
@@ -2623,8 +2883,8 @@ def phase_shard_slabs(tmp: str, gpu_line: str, p3m: bool):
         raise AssertionError(f"{name}: no slab plan on the final state")
     cfg = EngineConfig(n=n, kh=50, eos="polytropic", tile=(plan.grid, plan.cap), gravity=grav)
     mesh = particle_mesh(shard_mesh())
-    slab_run = shard_tiles.make_slab_chunk_runner(cfg, plan, mesh)
-    mono_run = make_chunk_runner(cfg, device=DEVICE)
+    slab_run = shard_tiles.make_slab_chunk_runner(cfg, plan, mesh, **EVAL_REPAIRS)
+    mono_run = make_chunk_runner(cfg, device=DEVICE, **CHUNK_REPAIRS)
     slab_run(shard_tiles.pack_state(st, plan, mesh), p, 1)  # warm-up of both
     mono_run(st, p, res["h_last"], 1)
     (sl2, stats_s, valid_s, cert_s, h_rows, _), t_slab = timed(
@@ -2656,7 +2916,7 @@ def phase_shard_slabs(tmp: str, gpu_line: str, p3m: bool):
             return run
         return wrap
 
-    ev = shard_tiles.make_slab_force_eval(cfg, plan)
+    ev = shard_tiles.make_slab_force_eval(cfg, plan, **EVAL_REPAIRS)
     ghat = (greens_hat(cfg.mesh_pad, cfg.sigma_cells, torch.float32, DEVICE) if p3m else None)
     packed = shard_tiles.pack_state(st, plan, mesh)
     ps = replicate(p, mesh)
@@ -2669,6 +2929,21 @@ def phase_shard_slabs(tmp: str, gpu_line: str, p3m: bool):
              for k, s in enumerate(packed)])))
     checks["captured evaluation certified"] = all(bool(o[2]) for o in out)
     del out
+    f8 = None
+    if p3m:
+        # the launches held against their plain versions are the run loop's:
+        # K2's joint mode and the tail's skip mode (ROADMAP D21)
+        checks["K2 joint and tail skip launches"] = (
+            all(kw.get("joint") for _, kw in caught["phase_b_tiles"])
+            and all(kw.get("skip_joint") for _, kw in caught["p3m_tail"]))
+        # the float32 gravity corrections against float64 (the two sweeps,
+        # as the reference adds them)
+        gc64 = slab_gcorr(cfg, plan, mesh, *as_float64(st, p), False)
+        f8 = {label: over_scale(slab_gcorr(cfg, plan, mesh, st, p, joint), gc64)
+              for label, joint in (("two_sweeps", False), ("joint", True))}
+        del gc64
+        checks[f"joint gcorr within {GCORR_GROSS_BAR} of the float64 scale"] = (
+            max(f8["joint"]) < GCORR_GROSS_BAR)
     calls = caught.pop("newton_rows_cols")
     slab_kernels = slab_kernel_checks(caught)
     checks["the slab's K4, K2 (and tail) launches held against their plain versions"] = (
@@ -2694,12 +2969,43 @@ def phase_shard_slabs(tmp: str, gpu_line: str, p3m: bool):
         errors_vs_single={"pos_over_scale": errs[0], "stats_over_max": errs[1],
                           "h_rel": errs[2]},
         eval_seconds_by_stage=stage_s, slab_kernels_vs_plain=slab_kernels,
+        gcorr_f32_vs_f64_over_scale=f8,
         tolerances=[SHARD_POS_TOL, SHARD_STATS_TOL, SHARD_ROW_TOL],
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         snapshot_ids=res["snapshot_ids"], runtime_s=res["runtime_s"], failed=failed)
     if failed:
         raise AssertionError(f"{name} checks failed: {failed}")
     return counts, calls, slab_kernels, final_scene(res)
+
+
+def slab_gcorr(cfg, plan, mesh, st, p, joint):
+    """One P3M slab evaluation of the state (its dtype) with joint_gravity
+    `joint` and the far field left out (the mesh solve runs, its result is
+    dropped): the near-field gravity corrections (gx, gy, gz, phi) as
+    global rows, on the card."""
+    from sphtpu_torch.shard import tiles as shard_tiles
+    from sphtpu_torch.shard.collectives import run_spmd
+    from sphtpu_torch.shard.step import replicate
+
+    def near_only(orig):
+        def far(*a, **kw):
+            g, phi = yield from orig(*a, **kw)
+            return torch.zeros_like(g), torch.zeros_like(phi)
+        return far
+
+    ev = shard_tiles.make_slab_force_eval(cfg, plan, joint_gravity=joint)
+    ghat = greens_hat(cfg.mesh_pad, cfg.sigma_cells, st.pos.dtype, DEVICE)
+    ps = replicate(p, mesh)
+    with patched(shard_tiles, "_p3m_mesh_sharded", near_only):
+        out = run_spmd([ev(ps[k], k, s.pos, s.vel, s.K, s.valid, ghat.to(d))
+                        for k, (s, d) in enumerate(zip(shard_tiles.pack_state(st, plan, mesh),
+                                                       mesh))])
+    if not all(bool(o[2]) for o in out):
+        raise AssertionError("a slab evaluation for the gravity corrections did not certify")
+    rows = torch.cat([torch.cat([o[1]["g"], o[1]["phi"][:, None]], 1).double().cpu()
+                      for o in out])
+    g = torch.from_numpy(shard_tiles.unpack_rows(rows.numpy(), plan, st.pos.shape[0]))
+    return [g[:, c] for c in range(4)]
 
 
 def final_scene(res):
@@ -3168,7 +3474,7 @@ def _mh_slabs_rank(rank, out, path, capture_n):
     states, layout = mh_pack(local, plan, mesh, torch.float32, t=t)
     t_plan = time.perf_counter() - t0
     cfg = EngineConfig(n=n, kh=50, eos="polytropic", tile=(plan.grid, plan.cap), gravity="exact")
-    chunk = shard_tiles.make_slab_chunk_runner(cfg, plan, mesh)
+    chunk = shard_tiles.make_slab_chunk_runner(cfg, plan, mesh, **EVAL_REPAIRS)
 
     caught = {k: [] for k in ("phase_a_tile", "phase_b_tiles", "newton_rows_cols")}
 
@@ -3247,7 +3553,7 @@ def phase_multihost_slabs(tmp: str, gpu_line: str, scene):
         raise AssertionError("multihost_slabs: no one-process slab plan")
     mesh = particle_mesh(shard_mesh())
     cfg = EngineConfig(n=n, kh=50, eos="polytropic", tile=(plan.grid, plan.cap), gravity="exact")
-    run = shard_tiles.make_slab_chunk_runner(cfg, plan, mesh)
+    run = shard_tiles.make_slab_chunk_runner(cfg, plan, mesh, **EVAL_REPAIRS)
     run(shard_tiles.pack_state(st, plan, mesh), p, 1)  # warm-up
     (sl2, stats1, valid1, cert1, h_rows1, _), t_one = timed(
         lambda: run(shard_tiles.pack_state(st, plan, mesh), p, 2))
@@ -3434,7 +3740,7 @@ def main() -> int:
         ptxas=[ln for log in build.build_log.values() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln][:24])
 
-    phase_kernels()
+    f8 = phase_kernels()
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         res, cfg, by_path["class_n1e5_kh32"] = phase_exact_path(tmp, gpu_line, KH_CLASS)
@@ -3457,6 +3763,8 @@ def main() -> int:
             res, cfg, by_path["collapse_n1e5"], gpu_line)
         phase_collapse_vs_gather(res, cfg, bargs, gpu_line)
         del res, bargs
+        torch.cuda.empty_cache()
+        by_path["collapse_p3m_n1e5"] = phase_collapse_p3m_blocks(tmp, gpu_line)
         torch.cuda.empty_cache()
         phase_deep_state(gpu_line)
         k1_ml, counts_ml = phase_mlevel(gpu_line)
@@ -3496,6 +3804,13 @@ def main() -> int:
     entries[1]["on_exact_path"] = k2_exact
     entries[1]["on_p3m_path"] = k2_p3m
     entries[1]["on_outlier_path"] = k2_out
+    # K2's joint mode and the tail's skip mode (ROADMAP D21): the P3M
+    # paths' launches are in them (on_p3m_path, on_slab_p3m_path); here the
+    # synthetic cases of `kernels_f8`
+    entries[1]["joint_mode"] = [{"dtype": c["dtype"], "w": c["f8_w"], **c["joint"]} for c in f8]
+    f8_tail = [{"dtype": c["dtype"], "w": c["f8_w"], **c["skip"],
+                **{k: c[k] for k in ("joint_plus_skip_vs_split", "f32_against_f64_over_scale")
+                   if k in c}} for c in f8]
     entries[2]["on_exact_path"] = {k: k3_exact[k] for k in (
         "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "runs_bit_identical", "plan")}
@@ -3509,6 +3824,7 @@ def main() -> int:
     entries[1]["on_slab_exact_path"] = slab_exact["phase_b_tiles"]
     entries[1]["on_slab_p3m_path"] = slab_p3m["phase_b_tiles"]
     tail["on_slab_p3m_path"] = slab_p3m["p3m_tail"]
+    tail["skip_mode"] = f8_tail
     entries += [k4, tail, k5, k6, rc]
     for e in entries:
         e["launches_by_path"] = {path: c[e["name"]] for path, c in by_path.items()}

@@ -15,7 +15,9 @@ A chunk runs to the next snapshot boundary: there is no cap on the steps
 of one dispatch, except on the block-compact and the multi-level engines,
 whose chunks are ML_SUBCHUNK steps long (their plans are refreshed between
 them), and on the sharded path (n_devices > 1), whose chunks are at most
-MAX_SCAN_STEPS long and sized by `_wall_cap` as the reference's are.
+MAX_SCAN_STEPS long and sized by `_wall_cap` as the reference's are. A
+single-device chunk also ends at its first step that fell back to the
+gather engine (ROADMAP D20), and the next chunk is planned afresh.
 
 n_devices > 1 runs the multi-device layer (sphtpu_torch/shard/) over a mesh
 of shards in one process: the z-slab tile engine when a slab plan
@@ -38,7 +40,7 @@ from scipy.spatial import cKDTree
 
 from ..device import resolve_device
 from ..io import StatsFile, read_snapshot, snapshot_path, write_snapshot
-from ..physics.blocks import BQ, block_args_for_spec, plan_blocks
+from ..physics.blocks import BQ, R_TAIL_MARGIN, block_args_for_spec, plan_blocks
 from ..physics.ctiles import choose_tile_classes, ctile_classes_still_ok
 from ..physics.mlevel import mlevel_args_still_ok, plan_mlevel
 from ..physics.tiles import choose_tile_params, choose_tile_params_ml, tile_params_still_ok
@@ -71,9 +73,23 @@ DISPATCH_WALL_BUDGET_S = 40.0
 # slab plans kept for reuse (hysteresis), most recent first
 MAX_SLAB_PLANS = 8
 
+# The run loop's repairs of the reference's recorded faults (ROADMAP
+# D19-D21), by the keywords of the functions that take them; each
+# keyword's default reproduces the reference. Code that means to run what
+# the run loop runs passes these rather than restating the values.
+# plan_engine, plan_blocks, block_args_for_spec: the tail radius's drift
+# margin (D19)
+PLAN_REPAIRS = {"tail_margin": R_TAIL_MARGIN}
+# force_eval, make_step, make_slab_force_eval, make_slab_chunk_runner,
+# make_ml_chunk_runner: a close pair's two gravity corrections as one
+# float64 term in float32 (D21)
+EVAL_REPAIRS = {"joint_gravity": True}
+# make_chunk_runner: both, and the chunk ends at its first fallback (D20)
+CHUNK_REPAIRS = {**EVAL_REPAIRS, "stop_at_fallback": True}
+
 
 def plan_engine(pos_host, h_host, *, n: int, kh: int, eos: str, dtype: str,
-                gravity: str):
+                gravity: str, tail_margin: float = 1.0):
     """A fresh plan for the next chunk, the reference's ladder
     (code-unit host arrays; gravity "exact" or "p3m"):
 
@@ -89,7 +105,8 @@ def plan_engine(pos_host, h_host, *, n: int, kh: int, eos: str, dtype: str,
 
     Returns (EngineConfig, BlockArgs or MLArgs or None) or None. p3m skips
     the class engine: it needs a one-cell tail stencil, which the default
-    mesh_factor does not give."""
+    mesh_factor does not give. tail_margin: plan_blocks' (1.0 plans as the
+    reference does; run_simulation passes PLAN_REPAIRS, ROADMAP D19)."""
     if gravity == "exact":
         tp_cls = choose_tile_classes(pos_host, h_host, kh, headroom=1.5)
         if tp_cls is not None:
@@ -103,7 +120,7 @@ def plan_engine(pos_host, h_host, *, n: int, kh: int, eos: str, dtype: str,
         return EngineConfig(
             n=n, kh=kh, eos=eos, dtype=dtype, tile=tp_mono, gravity=gravity
         ), None
-    blk = plan_blocks(pos_host, h_host, kh, gravity=gravity)
+    blk = plan_blocks(pos_host, h_host, kh, gravity=gravity, tail_margin=tail_margin)
     if blk is not None:
         spec, bargs = blk
         return EngineConfig(
@@ -337,7 +354,10 @@ def run_simulation(
 
     def get_chunk(cfg):
         if cfg not in _runner_cache:
-            _runner_cache[cfg] = make_chunk_runner(cfg, device=dev)
+            # a chunk ends at its first fallback, so the next one is
+            # planned afresh (ROADMAP D20); a close pair's two gravity
+            # corrections are one float64 term in float32 (D21)
+            _runner_cache[cfg] = make_chunk_runner(cfg, device=dev, **CHUNK_REPAIRS)
         return _runner_cache[cfg]
 
     def pick_cfg(h_host: np.ndarray, pos_host: np.ndarray):
@@ -349,11 +369,15 @@ def run_simulation(
         the current state (`block_args_for_spec`); for a multi-level
         config, its strip lists refreshed for the same spec
         (`mlevel_args_still_ok`); the in-engine certificate stays the
-        safety net."""
+        safety net. The cached configs are tried cheapest first and the
+        first that certifies is taken, so a pick refits no more specs than
+        it must (the same pick as refitting all and taking the cheapest). A
+        block config whose refit declines is dropped: the state has moved
+        out of its spec, and a declined refit runs the whole margin ladder,
+        so it is not retried at every later pick."""
         if engine != "auto":
             return base_cfg, None
-        cached = []
-        for c in _runner_cache:
+        for c in sorted(_runner_cache, key=lambda c: cfg_cost(c, n)):
             if c.tile is not None:
                 if tile_params_still_ok(
                     pos_host, h_host, c.tile[0], c.tile[1], c.outlier_budget
@@ -363,19 +387,19 @@ def run_simulation(
                         pos_host, h_host, c.tile[0], c.tile[1], c.tile_classes
                     )
                 ):
-                    cached.append((c, None))
+                    return c, None
             elif c.mlevel is not None:
                 args = mlevel_args_still_ok(pos_host, h_host, c.mlevel)
                 if args is not None:
-                    cached.append((c, args))
+                    return c, args
             elif c.blocks is not None:
-                args = block_args_for_spec(pos_host, h_host, c.blocks, gravity=c.gravity)
+                args = block_args_for_spec(pos_host, h_host, c.blocks, gravity=c.gravity,
+                                           **PLAN_REPAIRS)
                 if args is not None:
-                    cached.append((c, args))
-        if cached:
-            return min(cached, key=lambda ca: cfg_cost(ca[0], n))
+                    return c, args
+                del _runner_cache[c]
         plan = plan_engine(
-            pos_host, h_host, n=n, kh=kh, eos=eos, dtype=dtype, gravity=grav
+            pos_host, h_host, n=n, kh=kh, eos=eos, dtype=dtype, gravity=grav, **PLAN_REPAIRS
         )
         return plan if plan is not None else (base_cfg, None)
 
@@ -426,7 +450,7 @@ def run_simulation(
                     n=n, kh=kh, eos=eos, dtype=dtype, tile=(plan.grid, plan.cap),
                     gravity=grav,
                 )
-                hit = (cfg_s, plan, make_slab_chunk_runner(cfg_s, plan, mesh))
+                hit = (cfg_s, plan, make_slab_chunk_runner(cfg_s, plan, mesh, **EVAL_REPAIRS))
                 _slab_plans.insert(0, hit)
                 del _slab_plans[MAX_SLAB_PLANS:]
         if hit is not None:
@@ -447,14 +471,16 @@ def run_simulation(
         # no certifiable slab decomposition (deep collapse): the
         # work-sharded engines, block-compact first, multi-level next
         cfg_w = args = chunk = None
-        for c_, ch in _blk_cache.items():
-            if c_.gravity == grav:
-                a = block_args_for_spec(pos_host, h_host, c_.blocks, gravity=grav)
-                if a is not None:
-                    cfg_w, args, chunk = c_, a, ch
-                    break
+        for c_ in [c for c in _blk_cache if c.gravity == grav]:
+            a = block_args_for_spec(pos_host, h_host, c_.blocks, gravity=grav,
+                                    **PLAN_REPAIRS)
+            if a is not None:
+                cfg_w, args, chunk = c_, a, _blk_cache[c_]
+                break
+            del _blk_cache[c_]  # declined: not refit again (as pick_cfg does)
         if cfg_w is None:
-            blk = plan_blocks(pos_host, h_host, kh, gravity=grav, shards=n_devices)
+            blk = plan_blocks(pos_host, h_host, kh, gravity=grav, shards=n_devices,
+                              **PLAN_REPAIRS)
             if blk is not None:
                 spec, args = blk
                 cfg_w = EngineConfig(
@@ -477,7 +503,7 @@ def run_simulation(
             spec, args = ml
             cfg_w = EngineConfig(n=n, kh=kh, eos=eos, dtype=dtype, mlevel=spec, gravity=grav)
             if cfg_w not in _ml_cache:
-                _ml_cache[cfg_w] = make_ml_chunk_runner(cfg_w, mesh)
+                _ml_cache[cfg_w] = make_ml_chunk_runner(cfg_w, mesh, **EVAL_REPAIRS)
             chunk = _ml_cache[cfg_w]
         # short sub-chunks keep the plan's boxes and strip lists fresh
         state2, stats, valid, cert, h_rows, rho_rows = chunk(

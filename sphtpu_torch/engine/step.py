@@ -70,7 +70,7 @@ def _gather_reduced(cfg: EngineConfig, p: Params, pos, vel, K) -> ReducedForces:
 
 def force_eval(
     cfg: EngineConfig, p: Params, pos, vel, K, h_hint, ghat=None, mlargs=None,
-    aux=None, *, device=None, grouped=True,
+    aux=None, *, device=None, grouped=True, joint_gravity=False,
 ):
     """Hydro + gravity acceleration (getAcc, polytrope_sim.jl:17-51).
 
@@ -81,7 +81,11 @@ def force_eval(
     either); aux: the block plan's candidate tables
     (`build_cand_tables`; None rebuilds them in the call); grouped=False
     runs the block engine's phase B per bucket (kernel K6) instead of in one
-    launch (K5), as the reference's SPHTPU_BLOCKS_GROUPED=0 does. Returns
+    launch (K5), as the reference's SPHTPU_BLOCKS_GROUPED=0 does;
+    joint_gravity=True takes a close pair's two gravity corrections as one
+    float64 term in float32 under P3M on the tile and multi-level engines
+    (ROADMAP D21; `tile_sph_forces`), the default two sweeps as the
+    reference does. Returns
     (acc, reduced, phi, fell_back); fell_back is a python bool (the
     certificate is read back here). device=None means the card."""
     dev = resolve_device(device)
@@ -114,6 +118,7 @@ def force_eval(
                 pos, vel, p.m, K, h_hint, mlargs, eos=cfg.eos, gamma=p.gamma,
                 cs0=p.cs0, alpha=p.alpha, beta=p.beta, kh=cfg.kh, spec=cfg.mlevel,
                 mesh_factor=cfg.mesh_factor, sigma_cells=cfg.sigma_cells,
+                joint_gravity=joint_gravity,
             )
         return _certified_or_gather(cfg, p, pos, vel, K, tf, gcorr, ok, ghat, dev)
 
@@ -147,7 +152,8 @@ def force_eval(
             # an outlier budget, h_hint selects the outlier lane's rows
             with stage("hydro_tiles"):
                 tf, gcorr, ok = tile_sph_forces(
-                    pos, vel, p.m, K, h_hint, outlier_budget=cfg.outlier_budget, **kw
+                    pos, vel, p.m, K, h_hint, outlier_budget=cfg.outlier_budget,
+                    joint_gravity=joint_gravity, **kw
                 )
         return _certified_or_gather(cfg, p, pos, vel, K, tf, gcorr, ok, ghat, dev)
 
@@ -253,11 +259,11 @@ def kdk_body(cfg: EngineConfig, p: Params, state: State, h_hint, force):
     return State(pos_new, vel_new, K, state.t + dt), stats, sf2.h, sf2.rho, int(fb1) + int(fb2)
 
 
-def make_step(cfg: EngineConfig, *, device=None, grouped=True):
+def make_step(cfg: EngineConfig, *, device=None, grouped=True, joint_gravity=False):
     """Returns step(state, params, h_hint, ghat=None, mlargs=None, aux=None)
     -> (state', stats_row, h_new, rho_new, n_fallbacks). n_fallbacks is a
-    python int; ghat, mlargs, aux and grouped are force_eval's. device=None
-    means the card."""
+    python int; ghat, mlargs, aux, grouped and joint_gravity are
+    force_eval's. device=None means the card."""
     from ..shard.collectives import run_local
 
     dev = resolve_device(device)
@@ -265,7 +271,8 @@ def make_step(cfg: EngineConfig, *, device=None, grouped=True):
     def step(state: State, p: Params, h_hint, ghat=None, mlargs=None, aux=None) -> Tuple:
         def force(pos, vel, K, h):
             return force_eval(
-                cfg, p, pos, vel, K, h, ghat, mlargs, aux, device=dev, grouped=grouped
+                cfg, p, pos, vel, K, h, ghat, mlargs, aux, device=dev, grouped=grouped,
+                joint_gravity=joint_gravity,
             )
             yield  # a body with no collective
 
@@ -280,7 +287,8 @@ def make_step(cfg: EngineConfig, *, device=None, grouped=True):
     return step
 
 
-def make_chunk_runner(cfg: EngineConfig, *, device=None, grouped=True):
+def make_chunk_runner(cfg: EngineConfig, *, device=None, grouped=True,
+                      stop_at_fallback=False, joint_gravity=False):
     """Returns chunk(state, params, h0, n_steps, mlargs=None, *,
     scan_length=None): runs up to n_steps steps, freezing once t >= t_end. Outputs (state,
     stats (S,10), valid (S,), h_last, rho_last, fallbacks (S,)); rho_last
@@ -296,10 +304,17 @@ def make_chunk_runner(cfg: EngineConfig, *, device=None, grouped=True):
     once, with the runner, not per evaluation. mlargs: the BlockArgs of a
     cfg.blocks config or the MLArgs of a cfg.mlevel config (required then),
     fresh each chunk; they go to the device once a chunk (and a block
-    plan's candidate tables are built then); grouped is force_eval's.
-    device=None means the card."""
+    plan's candidate tables are built then); grouped and joint_gravity are
+    force_eval's. device=None means the card.
+
+    stop_at_fallback=True ends the chunk after its first step with a
+    fallback (ROADMAP D20): under fallback="gather" that step stands (the
+    gather engine's forces are exact) and is valid; under "none" it was
+    discarded and reports valid=False. The
+    default runs every step and reports each valid, as the reference does
+    (its fault F1)."""
     dev = resolve_device(device)
-    step = make_step(cfg, device=dev, grouped=grouped)
+    step = make_step(cfg, device=dev, grouped=grouped, joint_gravity=joint_gravity)
     ghat = (
         greens_hat(cfg.mesh_pad, cfg.sigma_cells, cfg.torch_dtype, dev)
         if cfg.gravity == "p3m"
@@ -329,8 +344,10 @@ def make_chunk_runner(cfg: EngineConfig, *, device=None, grouped=True):
                 break
             state, stats_i, h, rho, n_fb = step(state, p, h, ghat, mlargs, aux)
             stats[i] = stats_i
-            valid[i] = True
+            valid[i] = not (stop_at_fallback and n_fb and cfg.fallback == "none")
             nfb[i] = n_fb
+            if stop_at_fallback and n_fb:
+                break
         return state, stats, valid, h, rho, nfb
 
     return chunk

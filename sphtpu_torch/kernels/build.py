@@ -74,7 +74,8 @@ def _declare(libs) -> None:
         ("newton_sweep", "sph_newton_sweep", [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]),
         ("newton_sweep", "sph_newton_rows_cols",
          [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]),
-        ("p3m_tail", "sph_p3m_tail", [pp, vp, pp, vp, vp, ci, ci, ci, ci, ci, ci, vp]),
+        ("p3m_tail", "sph_p3m_tail",
+         [pp, vp, pp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]),
         ("phase_b_grouped", "sph_phase_b_grouped",
          [pp, vp, vp, vp, vp, pp, vp, vp, ci, ci, ci, ci, ci, vp]),
         ("phase_b_grouped", "sph_phase_b_blocks",

@@ -63,6 +63,66 @@ __device__ __forceinline__ T dist2(T dx, T dy, T dz) {
       Num<T>::mul_rn(dz, dz));
 }
 
+// Softened gravity of a pair at r <= 2 h_avg: (force over r, potential) of
+// the cubic-spline kernel, Newtonian past q = 2.
+template <typename W>
+__device__ __forceinline__ void softened(W r, W inv_r, W h_avg, W inv_h, W& soft_g, W& soft_p) {
+  const W q_g = r * inv_h;
+  const W q2 = q_g * q_g;
+  const W q3 = q2 * q_g;
+  const W inv_h2 = inv_h * inv_h;
+  const W inv_q = h_avg * inv_r;  // 1/q, 0 at self pairs
+  if (q_g <= W(1)) {
+    soft_g = inv_h2 * inv_h * (W(4.0 / 3.0) - W(1.2) * q2 + W(0.5) * q3);
+    soft_p = inv_h * (W(2.0 / 3.0) * q2 - W(0.3) * q2 * q2 + W(0.1) * q2 * q3 - W(1.4));
+  } else if (q_g <= W(2)) {
+    soft_g = inv_h2 *
+             (W(8.0 / 3.0) * q_g - W(3) * q2 + W(1.2) * q3 - q2 * q2 / W(6) -
+              W(1.0 / 15.0) * inv_q * inv_q) *
+             inv_r;
+    soft_p = inv_h * (W(4.0 / 3.0) * q2 - q3 + W(0.3) * q2 * q2 - q2 * q3 / W(30) - W(1.6) +
+                      W(1.0 / 15.0) * inv_q);
+  } else {
+    soft_g = inv_r * inv_r * inv_r;
+    soft_p = -inv_r;
+  }
+}
+
+// Newtonian - mesh shape (physics/mesh_gravity.newton_minus_mesh):
+// f = erfc(z) + sqrt(2/pi) t exp(-z^2) and erfc(z), z = t / sqrt2, t = r /
+// sigma, as exp(-z^2) times the erfcx polynomial.
+template <typename W>
+__device__ __forceinline__ void mesh_tail(W d2, W inv_r, W sigma, W& f, W& erfc_z) {
+  const W t = d2 * inv_r / sigma;
+  const W z = t * W(0.7071067811865476);
+  const W u = z / (W(1) + z);
+  W pp = W(2.3849380332e-01);
+  pp = pp * u + W(-9.3397713762e-01);
+  pp = pp * u + W(1.2579923862e+00);
+  pp = pp * u + W(-8.1740263321e-01);
+  pp = pp * u + W(4.6001262975e-01);
+  pp = pp * u + W(4.3301822784e-02);
+  pp = pp * u + W(-1.1974394197e-01);
+  pp = pp * u + W(-1.1287916483e+00);
+  pp = pp * u + W(1.0000047021e+00);
+  const W e = Num<W>::exp(-z * z);
+  erfc_z = e * pp;
+  f = erfc_z + W(0.7978845608028654) * t * e;
+}
+
+// A close pair's two gravity corrections are taken as one term (ROADMAP
+// D21) where d2 <= (h_q + h_c)^2 (the gravity mask r <= 2 h_avg, squared),
+// d2 the explicitly rounded dist2 and every operation rounded on its own,
+// so that K2's joint mode, the tail's skip mode and their plain versions
+// (PyTorch's elementwise float operations round the same way) decide it
+// alike on the same positions and effective h (h > 0 ? h : 1): a pair of
+// the 27-cell stencil lies in exactly one of the two kernels.
+template <typename T>
+__device__ __forceinline__ bool joint_near(T d2, T h_q, T h_c) {
+  const T hs = Num<T>::add_rn(h_q, h_c);
+  return d2 <= Num<T>::mul_rn(hs, hs);
+}
+
 // The tile kernels give each query LANES_PER_QUERY consecutive lanes of a
 // warp; a block of TILE_THREADS threads owns QUERIES_PER_BLOCK queries of
 // one cell row.

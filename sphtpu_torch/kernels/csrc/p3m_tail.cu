@@ -35,6 +35,14 @@
 // * Fixed order, no atomics: a thread sums its candidates in staging order,
 //   the S slice partials of a query are added in slice order through shared
 //   memory. Two launches on the same inputs give the same bits.
+// Skip mode (SKIP; with K2's joint mode, float32 under P3M, ROADMAP D21):
+// a fifth plane holds each slot's h; the packing pass writes each occupied
+// slot's effective h (h > 0 ? h : 1) beside its record, and the sweep leaves
+// out every pair of the inner 27 cells (|d| <= 1 in each axis) for which
+// `joint_near` holds (common.cuh; d2 from dist2): K2 takes those pairs'
+// term 2 jointly with term 1, the self slot's sqrt(2/pi)/sigma included.
+// The staged candidates carry their effective h, or -1 outside the inner
+// 27 cells. Without SKIP the kernel is the one above, bit for bit.
 #include "common.cuh"
 
 namespace sph {
@@ -50,10 +58,11 @@ struct alignas(16) Slot4 {
 
 template <typename T>
 struct TailArgs {
-  const T* p[4];      // x y z mask planes, each (gpc, gpc, gpc * cap)
+  const T* p[5];      // x y z mask (and h, skip mode) planes, each (gpc, gpc, gpc * cap)
   const T* scal;      // m, sigma on the device
   T* out[4];          // gx gy gz gphi, each (grid^3, cap)
   Slot4<T>* packed;   // (gpc^3, cap) scratch: each cell's occupied slots
+  T* packed_h;        // (gpc^3, cap) scratch, skip mode: their effective h
   int* count;         // (gpc^3) scratch: occupied slots a cell
   int grid;
   int cap;
@@ -63,14 +72,16 @@ struct TailArgs {
 
 // Dynamic shared memory of `tail_kernel`: the staged records (reused for
 // the slice partials, at most 4 x 4 x TAIL_THREADS values, which chunk >=
-// 1024 leaves room for) and the stencil's count prefix.
+// 1024 leaves room for), in skip mode their h, and the stencil's count
+// prefix.
 template <typename T>
-size_t tail_smem(int w, int chunk) {
+size_t tail_smem(int w, int chunk, bool skip) {
   const int span = 2 * w + 1;
-  return size_t(chunk) * sizeof(Slot4<T>) + size_t(span * span * span + 1) * sizeof(int);
+  return size_t(chunk) * (sizeof(Slot4<T>) + (skip ? sizeof(T) : 0)) +
+         size_t(span * span * span + 1) * sizeof(int);
 }
 
-template <typename T>
+template <typename T, bool SKIP>
 __global__ void __launch_bounds__(TAIL_THREADS) tail_pack_kernel(TailArgs<T> a, long n_pad) {
   const long cell = long(blockIdx.x) * TAIL_WARPS + (threadIdx.x >> 5);
   if (cell >= n_pad) return;
@@ -82,8 +93,12 @@ __global__ void __launch_bounds__(TAIL_THREADS) tail_pack_kernel(TailArgs<T> a, 
     const bool keep = s < a.cap && a.p[3][base + s] > T(0);
     const unsigned ballot = __ballot_sync(0xffffffffu, keep);
     if (keep) {
-      a.packed[base + n + __popc(ballot & ((1u << lane) - 1u))] =
-          Slot4<T>{a.p[0][base + s], a.p[1][base + s], a.p[2][base + s], T(s)};
+      const int k = n + __popc(ballot & ((1u << lane) - 1u));
+      a.packed[base + k] = Slot4<T>{a.p[0][base + s], a.p[1][base + s], a.p[2][base + s], T(s)};
+      if (SKIP) {
+        const T h = a.p[4][base + s];
+        a.packed_h[base + k] = h > T(0) ? h : T(1);
+      }
     }
     n += __popc(ballot);
   }
@@ -114,10 +129,19 @@ __device__ __forceinline__ float ex2_ftz(float x) {
 // One pair's (Newtonian - mesh) terms added to (gx, gy, gz, gp). In
 // float32 a d2 below FLT_MIN (a pair closer than 1.1e-19) counts as the
 // self slot, as d2 = 0 does.
-template <typename T>
-__device__ __forceinline__ void tail_pair(T dx, T dy, T dz, const TailConst<T>& k, T& gx, T& gy,
-                                          T& gz, T& gp) {
-  const T d2 = dx * dx + dy * dy + dz * dz;
+//
+// SKIP: the pair is left out where the candidate's staged h (-1 outside the
+// inner 27 cells) is positive and joint_near(d2, qh, ch) holds.
+template <typename T, bool SKIP>
+__device__ __forceinline__ void tail_pair(T dx, T dy, T dz, T qh, T ch, const TailConst<T>& k,
+                                          T& gx, T& gy, T& gz, T& gp) {
+  T d2;
+  if constexpr (SKIP) {
+    d2 = dist2<T>(dx, dy, dz);
+    if (ch > T(0) && joint_near<T>(d2, qh, ch)) return;  // K2's joint term holds it
+  } else {
+    d2 = dx * dx + dy * dy + dz * dz;
+  }
   const bool sep = sizeof(T) == 4 ? d2 >= T(FLT_MIN) : d2 > T(0);
   T inv_r, u, e;
   if constexpr (sizeof(T) == 4) {
@@ -191,8 +215,8 @@ __device__ void stencil_prefix(const TailArgs<T>& a, long corner, int* spre, int
 }
 
 // The sweep of one cell row with R queries a thread; see the header.
-template <typename T, int R>
-__device__ void tail_sweep(const TailArgs<T>& a, const TailConst<T>& kc, Slot4<T>* sc,
+template <typename T, int R, bool SKIP>
+__device__ void tail_sweep(const TailArgs<T>& a, const TailConst<T>& kc, Slot4<T>* sc, T* sh,
                            const int* spre, long row, long own, long corner, int nq) {
   const int tid = threadIdx.x;
   const int span = 2 * a.w + 1;
@@ -204,16 +228,18 @@ __device__ void tail_sweep(const TailArgs<T>& a, const TailConst<T>& kc, Slot4<T
   const int qa = tid % qt;
   const int slice = tid / qt;
 
-  T qx[R], qy[R], qz[R], acc[R][4];
+  T qx[R], qy[R], qz[R], qh[R], acc[R][4];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int k = qa + r * qt;
     qx[r] = qy[r] = qz[r] = T(0);
+    qh[r] = T(1);
     if (worker && k < nq) {
       const Slot4<T> q = a.packed[own * a.cap + k];
       qx[r] = q.x;
       qy[r] = q.y;
       qz[r] = q.z;
+      if (SKIP) qh[r] = a.packed_h[own * a.cap + k];
     }
 #pragma unroll
     for (int f = 0; f < 4; ++f) acc[r][f] = T(0);
@@ -233,15 +259,21 @@ __device__ void tail_sweep(const TailArgs<T>& a, const TailConst<T>& kc, Slot4<T
       const int dz = lo / (span * span), dy = (lo / span) % span, dx = lo % span;
       const long cell = corner + (long(dz) * gpc + dy) * gpc + dx;
       sc[i] = a.packed[cell * a.cap + (gi - spre[lo])];
+      if (SKIP) {
+        const int w = a.w;
+        const bool inner = abs(dz - w) <= 1 && abs(dy - w) <= 1 && abs(dx - w) <= 1;
+        sh[i] = inner ? a.packed_h[cell * a.cap + (gi - spre[lo])] : T(-1);
+      }
     }
     __syncthreads();
     if (worker) {
       for (int j = slice; j < n_here; j += n_slices) {
         const Slot4<T> c = sc[j];
+        const T ch = SKIP ? sh[j] : T(-1);
 #pragma unroll
         for (int r = 0; r < R; ++r)
-          tail_pair<T>(qx[r] - c.x, qy[r] - c.y, qz[r] - c.z, kc, acc[r][0], acc[r][1],
-                       acc[r][2], acc[r][3]);
+          tail_pair<T, SKIP>(qx[r] - c.x, qy[r] - c.y, qz[r] - c.z, qh[r], ch, kc, acc[r][0],
+                             acc[r][1], acc[r][2], acc[r][3]);
       }
     }
     __syncthreads();  // the records are overwritten next
@@ -273,11 +305,12 @@ __device__ void tail_sweep(const TailArgs<T>& a, const TailConst<T>& kc, Slot4<T
   }
 }
 
-template <typename T>
+template <typename T, bool SKIP>
 __global__ void __launch_bounds__(TAIL_THREADS) tail_kernel(TailArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Slot4<T>* sc = reinterpret_cast<Slot4<T>*>(smem_raw);
-  int* spre = reinterpret_cast<int*>(sc + a.chunk);
+  T* sh = reinterpret_cast<T*>(sc + a.chunk);  // (chunk) in skip mode
+  int* spre = reinterpret_cast<int*>(sh + (SKIP ? a.chunk : 0));
   __shared__ int wsum[TAIL_WARPS];
 
   const int g = a.grid;
@@ -311,18 +344,34 @@ __global__ void __launch_bounds__(TAIL_THREADS) tail_kernel(TailArgs<T> a) {
   const int s2 = TAIL_THREADS / ((nq + 1) / 2);
   const int s4 = TAIL_THREADS / ((nq + 3) / 4);
   if (s4 > 2 * s2 && s4 > 4 * s1) {
-    tail_sweep<T, 4>(a, kc, sc, spre, row, own, corner, nq);
+    tail_sweep<T, 4, SKIP>(a, kc, sc, sh, spre, row, own, corner, nq);
   } else if (s2 > 2 * s1) {
-    tail_sweep<T, 2>(a, kc, sc, spre, row, own, corner, nq);
+    tail_sweep<T, 2, SKIP>(a, kc, sc, sh, spre, row, own, corner, nq);
   } else {
-    tail_sweep<T, 1>(a, kc, sc, spre, row, own, corner, nq);
+    tail_sweep<T, 1, SKIP>(a, kc, sc, sh, spre, row, own, corner, nq);
   }
+}
+
+template <typename T, bool SKIP>
+int launch_tail(const TailArgs<T>& a, int nz, cudaStream_t stream) {
+  const size_t smem = tail_smem<T>(a.w, a.chunk, SKIP);
+  int err = fits_one_cta(tail_pack_kernel<T, SKIP>, TAIL_THREADS, 0);
+  if (err) return err;
+  err = fits_one_cta(tail_kernel<T, SKIP>, TAIL_THREADS, smem);
+  if (err) return err;
+  const long gpc = a.grid + 2 * a.w;
+  const long n_pad = (nz + 2L * a.w) * gpc * gpc;
+  SPH_LAUNCH((tail_pack_kernel<T, SKIP>), unsigned((n_pad + TAIL_WARPS - 1) / TAIL_WARPS),
+             TAIL_THREADS, 0, stream, a, n_pad);
+  SPH_LAUNCH((tail_kernel<T, SKIP>), unsigned(nz) * a.grid * a.grid, TAIL_THREADS, smem, stream,
+             a);
+  return int(cudaGetLastError());
 }
 
 template <typename T>
 int p3m_tail_from_ptrs(void* const* planes, const void* scal, void* const* out, void* packed,
-                       void* count, int grid, int nz, int cap, int w, int chunk,
-                       cudaStream_t stream) {
+                       void* packed_h, void* count, int grid, int nz, int cap, int w, int chunk,
+                       int skip, cudaStream_t stream) {
   if (grid <= 0 || nz <= 0) return 0;
   if (cap > TAIL_THREADS || w < 1 || chunk < 4 * TAIL_THREADS) return ERR_BUDGET;
   TailArgs<T> a;
@@ -330,44 +379,37 @@ int p3m_tail_from_ptrs(void* const* planes, const void* scal, void* const* out, 
     a.p[k] = static_cast<const T*>(planes[k]);
     a.out[k] = static_cast<T*>(out[k]);
   }
+  a.p[4] = skip ? static_cast<const T*>(planes[4]) : nullptr;
   a.scal = static_cast<const T*>(scal);
   a.packed = static_cast<Slot4<T>*>(packed);
+  a.packed_h = static_cast<T*>(packed_h);
   a.count = static_cast<int*>(count);
   a.grid = grid;
   a.cap = cap;
   a.w = w;
   a.chunk = chunk;
-  const size_t smem = tail_smem<T>(w, chunk);
-  int err = fits_one_cta(tail_pack_kernel<T>, TAIL_THREADS, 0);
-  if (err) return err;
-  err = fits_one_cta(tail_kernel<T>, TAIL_THREADS, smem);
-  if (err) return err;
-  const long gpc = grid + 2 * w;
-  const long n_pad = (nz + 2L * w) * gpc * gpc;
-  SPH_LAUNCH((tail_pack_kernel<T>), unsigned((n_pad + TAIL_WARPS - 1) / TAIL_WARPS), TAIL_THREADS,
-             0, stream, a, n_pad);
-  SPH_LAUNCH((tail_kernel<T>), unsigned(nz) * grid * grid, TAIL_THREADS, smem, stream, a);
-  return int(cudaGetLastError());
+  return skip ? launch_tail<T, true>(a, nz, stream) : launch_tail<T, false>(a, nz, stream);
 }
 
 }  // namespace sph
 
 // planes: 4 device pointers (x y z mask, each (nz + 2w) * (grid + 2w) *
 // (grid + 2w) * cap, the particles at their slots with a w-cell halo of
-// zeros); the query cells are nz layers of grid x grid (nz = grid on the
-// mono-tile engine's cube, the slab's query layers on the z-slab engine);
-// scal: device pointer to (m, sigma); out: 4 device pointers (gx gy gz
-// gphi, each (nz * grid^2, cap)); packed: (nz + 2w) (grid + 2w)^2 * cap
-// records of 4 values, count: (nz + 2w) (grid + 2w)^2 int32, both
-// scratch; chunk: records staged at a time (>= 1024). Returns ERR_BUDGET
-// for cap > 256 or where the shared memory of (w, chunk) does not fit one
-// CTA.
+// zeros), 5 with skip (then h); the query cells are nz layers of grid x
+// grid (nz = grid on the mono-tile engine's cube, the slab's query layers
+// on the z-slab engine); scal: device pointer to (m, sigma); out: 4 device
+// pointers (gx gy gz gphi, each (nz * grid^2, cap)); packed: (nz + 2w)
+// (grid + 2w)^2 * cap records of 4 values, packed_h (skip only, else
+// unused): as many values, count: (nz + 2w) (grid + 2w)^2 int32, all
+// scratch; chunk: records staged at a time (>= 1024); skip: 1 leaves out
+// the pairs K2's joint mode takes. Returns ERR_BUDGET for cap > 256 or
+// where the shared memory of (w, chunk) does not fit one CTA.
 extern "C" int sph_p3m_tail(void* const* planes, const void* scal, void* const* out, void* packed,
-                            void* count, int grid, int nz, int cap, int w, int chunk,
-                            int is_double, void* stream) {
+                            void* packed_h, void* count, int grid, int nz, int cap, int w,
+                            int chunk, int skip, int is_double, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? sph::p3m_tail_from_ptrs<double>(planes, scal, out, packed, count, grid, nz,
-                                                     cap, w, chunk, s)
-                   : sph::p3m_tail_from_ptrs<float>(planes, scal, out, packed, count, grid, nz,
-                                                    cap, w, chunk, s);
+  return is_double ? sph::p3m_tail_from_ptrs<double>(planes, scal, out, packed, packed_h, count,
+                                                     grid, nz, cap, w, chunk, skip, s)
+                   : sph::p3m_tail_from_ptrs<float>(planes, scal, out, packed, packed_h, count,
+                                                    grid, nz, cap, w, chunk, skip, s);
 }

@@ -98,53 +98,6 @@ struct PairOut {
   T cpw;            // w cpp
 };
 
-// Softened gravity of a pair at r <= 2 h_avg: (force over r, potential) of
-// the cubic-spline kernel, Newtonian past q = 2.
-template <typename W>
-__device__ __forceinline__ void softened(W r, W inv_r, W h_avg, W inv_h, W& soft_g, W& soft_p) {
-  const W q_g = r * inv_h;
-  const W q2 = q_g * q_g;
-  const W q3 = q2 * q_g;
-  const W inv_h2 = inv_h * inv_h;
-  const W inv_q = h_avg * inv_r;  // 1/q, 0 at self pairs
-  if (q_g <= W(1)) {
-    soft_g = inv_h2 * inv_h * (W(4.0 / 3.0) - W(1.2) * q2 + W(0.5) * q3);
-    soft_p = inv_h * (W(2.0 / 3.0) * q2 - W(0.3) * q2 * q2 + W(0.1) * q2 * q3 - W(1.4));
-  } else if (q_g <= W(2)) {
-    soft_g = inv_h2 *
-             (W(8.0 / 3.0) * q_g - W(3) * q2 + W(1.2) * q3 - q2 * q2 / W(6) -
-              W(1.0 / 15.0) * inv_q * inv_q) *
-             inv_r;
-    soft_p = inv_h * (W(4.0 / 3.0) * q2 - q3 + W(0.3) * q2 * q2 - q2 * q3 / W(30) - W(1.6) +
-                      W(1.0 / 15.0) * inv_q);
-  } else {
-    soft_g = inv_r * inv_r * inv_r;
-    soft_p = -inv_r;
-  }
-}
-
-// Newtonian - mesh shape (physics/mesh_gravity.newton_minus_mesh):
-// f = erfc(z) + sqrt(2/pi) t exp(-z^2) and erfc(z), z = t / sqrt2, t = r /
-// sigma, as exp(-z^2) times the erfcx polynomial.
-template <typename W>
-__device__ __forceinline__ void mesh_tail(W d2, W inv_r, W sigma, W& f, W& erfc_z) {
-  const W t = d2 * inv_r / sigma;
-  const W z = t * W(0.7071067811865476);
-  const W u = z / (W(1) + z);
-  W pp = W(2.3849380332e-01);
-  pp = pp * u + W(-9.3397713762e-01);
-  pp = pp * u + W(1.2579923862e+00);
-  pp = pp * u + W(-8.1740263321e-01);
-  pp = pp * u + W(4.6001262975e-01);
-  pp = pp * u + W(4.3301822784e-02);
-  pp = pp * u + W(-1.1974394197e-01);
-  pp = pp * u + W(-1.1287916483e+00);
-  pp = pp * u + W(1.0000047021e+00);
-  const W e = Num<W>::exp(-z * z);
-  erfc_z = e * pp;
-  f = erfc_z + W(0.7978845608028654) * t * e;
-}
-
 // The pair terms of one occupied (query, candidate) pair. Returns false when
 // the pair adds nothing to any output: outside the query's forward ball and
 // its visibility radius max(2 h_q, r_c) (the prefilter is conservative; the

@@ -52,6 +52,15 @@
 // gravity mask and the cull are unchanged: the masks only shrink. Without
 // the lane (OUT = false) the kernel is the one above, its layout and
 // arithmetic untouched.
+// Joint mode (GM_JOINT; the mono-tile and z-slab engines under P3M, float32,
+// ROADMAP D21): a pair of the gravity mask takes term 1 and term 2
+// (Newtonian - mesh shape) as ONE term, evaluated in double and rounded
+// once, as K5 and K6 do (D12): their 1/r^3 and 1/r parts cancel, so two
+// float sums of them lose the digits the difference keeps. The mask is then
+// `joint_near` (common.cuh), which the tail kernel's skip mode decides the
+// same way, so each pair of the 27-cell stencil takes term 2 in exactly one
+// of the two kernels (the self pair: term 1 + sqrt(2/pi)/sigma here). The
+// other modes' arithmetic is untouched.
 #include "common.cuh"
 
 namespace sph {
@@ -63,6 +72,12 @@ constexpr int B_MAX_CW = 27 * B_MAX_CAP;  // widest candidate row: a 27-cell sta
 constexpr int B_QUEUE = 96;  // a warp's queue: < 32 waiting + 64 of a step
 constexpr int B_ROUNDS = 8;  // 256-slot rounds of the mask read together
 constexpr int B_TERM_STRIDE = 33;  // a warp's pair terms: 10 rows of 32, padded
+
+// the gravity mode of a launch: term 1 only; term 1 + term 2 on every pair
+// (a one-cell tail stencil); term 1 + term 2 as one term inside the mask
+constexpr int GM_NEAR = 0;
+constexpr int GM_P3M = 1;
+constexpr int GM_JOINT = 2;
 
 template <typename T>
 struct PhaseBArgs {
@@ -165,7 +180,7 @@ struct BParams {
 
 // The ten terms of one (query, candidate) pair: positions qp, cp and the
 // other planes of query k (planes sq, stride qs) and record j (sc, cs).
-template <typename T, bool ISO, bool P3M, bool OUT>
+template <typename T, bool ISO, int GM, bool OUT>
 __device__ __forceinline__ void pair_terms(const QPos<T>& qp, const T* sq, int qs, int k,
                                            const QPos<T>& cp, const T* sc, int cs, int j,
                                            const BParams<T>& p, T* o) {
@@ -189,7 +204,7 @@ __device__ __forceinline__ void pair_terms(const QPos<T>& qp, const T* sq, int q
   const T h_q = qh > T(0) ? qh : T(1);
   const T h_c = ch > T(0) ? ch : T(1);
   const T h_avg = T(0.5) * (h_q + h_c);
-  const bool gmask = r <= T(2) * h_avg;
+  const bool gmask = GM == GM_JOINT ? joint_near<T>(d2, h_q, h_c) : r <= T(2) * h_avg;
   const T inv_h = Num<T>::rcp(h_avg);
   const T inv_rho = Num<T>::rcp(T(0.5) * (QF(4) + CF(4)));
 
@@ -245,7 +260,18 @@ __device__ __forceinline__ void pair_terms(const QPos<T>& qp, const T* sq, int q
   const T newt_g = inv_r * inv_r * inv_r;
   const T newt_p = -inv_r;
   T cgp = T(0), cpp = T(0);
-  if (gmask) {
+  if (GM == GM_JOINT && gmask && sep) {
+    // both corrections of a close pair, in double, rounded once
+    const double d2w = d2;
+    const double inv_rw = Num<double>::rsqrt(d2w);
+    const double h_avgw = h_avg;
+    const double newt_gw = inv_rw * inv_rw * inv_rw;
+    double soft_gw, soft_pw, f, erfc_z;
+    softened<double>(d2w * inv_rw, inv_rw, h_avgw, 1.0 / h_avgw, soft_gw, soft_pw);
+    mesh_tail<double>(d2w, inv_rw, double(p.sigma), f, erfc_z);
+    cgp = T((soft_gw - newt_gw) + f * newt_gw);
+    cpp = T((soft_pw + inv_rw) - erfc_z * inv_rw);
+  } else if (gmask) {
     const T q_g = r * inv_h;
     const T q2 = q_g * q_g;
     const T q3 = q2 * q_g;
@@ -269,7 +295,8 @@ __device__ __forceinline__ void pair_terms(const QPos<T>& qp, const T* sq, int q
     cgp = soft_g - newt_g;
     cpp = soft_p - newt_p;
   }
-  if (P3M) {
+  if (GM == GM_JOINT && gmask && !sep) cpp += p.self_phi;  // the self pair's term 2
+  if (GM == GM_P3M) {
     // term 2 (Newtonian - mesh shape): exp(-z^2) * erfcx polynomial
     const T z = r * p.cz;
     const T u = z * Num<T>::rcp(T(1) + z);
@@ -313,7 +340,7 @@ __device__ __forceinline__ void stage_record(QPos<T>* pos, T* dst, int s, int p,
   if (OUT) dst[B_OUT_PLANE * s + p] = src[6][i];
 }
 
-template <typename T, bool ISO, bool P3M, bool OUT>
+template <typename T, bool ISO, int GM, bool OUT>
 __global__ void __launch_bounds__(TILE_THREADS) phase_b_kernel(PhaseBArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int NPL = OUT ? B_PLANES + 1 : B_PLANES;  // staged planes a record
@@ -390,7 +417,7 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_b_kernel(PhaseBArgs<T> a) 
   p.cz = T(0.7071067811865476) / p.sigma;
   p.ce = T(-0.5) / (p.sigma * p.sigma);
   p.self_phi = T(0.7978845608028654) / p.sigma;
-  const bool keep_all = P3M || a.keep_all != 0;
+  const bool keep_all = GM == GM_P3M || a.keep_all != 0;
   int* queue = wqueue + warp * B_QUEUE;
   T* term = wterm + warp * 10 * B_TERM_STRIDE;
   const unsigned below = (1u << lane) - 1u;
@@ -433,7 +460,7 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_b_kernel(PhaseBArgs<T> a) 
         if (lane < n) {
           const int j = queue[lane];
           T o[10];
-          pair_terms<T, ISO, P3M, OUT>(q, sq, cap, k, scp[j], sc, piece, j, p, o);
+          pair_terms<T, ISO, GM, OUT>(q, sq, cap, k, scp[j], sc, piece, j, p, o);
 #pragma unroll
           for (int f = 0; f < 10; ++f) term[f * B_TERM_STRIDE + lane] = o[f];
         }
@@ -492,23 +519,33 @@ __global__ void __launch_bounds__(TILE_THREADS) phase_b_kernel(PhaseBArgs<T> a) 
   }
 }
 
-template <typename T, bool ISO, bool P3M, bool OUT>
+template <typename T, bool ISO, int GM, bool OUT>
 int launch_phase_b(const PhaseBArgs<T>& a, int n_cells, cudaStream_t stream) {
   const size_t smem = phase_b_smem<T>(a.cap, a.cw, a.piece, OUT ? B_PLANES + 1 : B_PLANES);
-  const int err = fits_one_cta(phase_b_kernel<T, ISO, P3M, OUT>, TILE_THREADS, smem);
+  const int err = fits_one_cta(phase_b_kernel<T, ISO, GM, OUT>, TILE_THREADS, smem);
   if (err) return err;
-  SPH_LAUNCH((phase_b_kernel<T, ISO, P3M, OUT>), n_cells, TILE_THREADS, smem, stream, a);
+  SPH_LAUNCH((phase_b_kernel<T, ISO, GM, OUT>), n_cells, TILE_THREADS, smem, stream, a);
   return int(cudaGetLastError());
+}
+
+template <typename T, bool ISO, bool OUT>
+int launch_phase_b_gm(const PhaseBArgs<T>& a, int gm, int n_cells, cudaStream_t stream) {
+  if (gm == GM_JOINT) return launch_phase_b<T, ISO, GM_JOINT, OUT>(a, n_cells, stream);
+  if constexpr (!OUT) {
+    if (gm == GM_P3M) return launch_phase_b<T, ISO, GM_P3M, OUT>(a, n_cells, stream);
+  }
+  return launch_phase_b<T, ISO, GM_NEAR, OUT>(a, n_cells, stream);
 }
 
 template <typename T>
 int phase_b_from_ptrs(void* const* qp, void* const* cp, const void* scal, void* const* op,
-                      int n_cells, int cap, int cw, int iso, int p3m, int outlier, int piece,
+                      int n_cells, int cap, int cw, int iso, int gm, int outlier, int piece,
                       int keep_all, cudaStream_t stream) {
   if (n_cells <= 0) return 0;
   if (cap > B_MAX_CAP || cw > B_MAX_CW || piece < 64 || piece % 64 != 0 || piece > 1 << 16)
     return ERR_BUDGET;
-  if (outlier && p3m) return ERR_BUDGET;  // the outlier masks: exact gravity only
+  // gm: GM_NEAR, GM_P3M or GM_JOINT; the outlier masks take GM_NEAR or GM_JOINT
+  if (gm < GM_NEAR || gm > GM_JOINT || (outlier && gm == GM_P3M)) return ERR_BUDGET;
   PhaseBArgs<T> a;
   for (int k = 0; k < 11; ++k) {
     a.q[k] = static_cast<const T*>(qp[k]);
@@ -521,33 +558,30 @@ int phase_b_from_ptrs(void* const* qp, void* const* cp, const void* scal, void* 
   a.piece = piece;
   a.keep_all = keep_all;
   if (outlier) {
-    return iso ? launch_phase_b<T, true, false, true>(a, n_cells, stream)
-               : launch_phase_b<T, false, false, true>(a, n_cells, stream);
+    return iso ? launch_phase_b_gm<T, true, true>(a, gm, n_cells, stream)
+               : launch_phase_b_gm<T, false, true>(a, gm, n_cells, stream);
   }
-  if (iso) {
-    return p3m ? launch_phase_b<T, true, true, false>(a, n_cells, stream)
-               : launch_phase_b<T, true, false, false>(a, n_cells, stream);
-  }
-  return p3m ? launch_phase_b<T, false, true, false>(a, n_cells, stream)
-             : launch_phase_b<T, false, false, false>(a, n_cells, stream);
+  return iso ? launch_phase_b_gm<T, true, false>(a, gm, n_cells, stream)
+             : launch_phase_b_gm<T, false, false>(a, gm, n_cells, stream);
 }
 
 }  // namespace sph
 
 // q, c: 11 device pointers each (x y z vx vy vz mask h rho por2 cs); scal:
-// device pointer to (m, alpha, beta, sigma); out: 10 device pointers;
-// outlier: 1 applies the outlier masks (a mask of 2 marks an outlier's
-// slot); piece: candidate records a piece (a multiple of 64); keep_all: 1
-// keeps every occupied pair (no cull). Returns ERR_BUDGET for cap > 256,
-// cw > 27 * 256, the outlier masks with p3m, or where the shared memory
-// does not fit one CTA.
+// device pointer to (m, alpha, beta, sigma); out: 10 device pointers; gm:
+// the gravity mode, 0 term 1 only, 1 term 1 + term 2 on every pair, 2 the
+// joint term inside the mask; outlier: 1 applies the outlier masks (a mask
+// of 2 marks an outlier's slot); piece: candidate records a piece (a
+// multiple of 64); keep_all: 1 keeps every occupied pair (no cull). Returns
+// ERR_BUDGET for cap > 256, cw > 27 * 256, the outlier masks with gm 1, or
+// where the shared memory does not fit one CTA.
 extern "C" int sph_phase_b_tiles(void* const* q, void* const* c, const void* scal,
                                  void* const* out, int n_cells, int cap, int cw, int iso,
-                                 int p3m, int outlier, int piece, int keep_all, int is_double,
+                                 int gm, int outlier, int piece, int keep_all, int is_double,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? sph::phase_b_from_ptrs<double>(q, c, scal, out, n_cells, cap, cw, iso, p3m,
+  return is_double ? sph::phase_b_from_ptrs<double>(q, c, scal, out, n_cells, cap, cw, iso, gm,
                                                     outlier, piece, keep_all, s)
-                   : sph::phase_b_from_ptrs<float>(q, c, scal, out, n_cells, cap, cw, iso, p3m,
+                   : sph::phase_b_from_ptrs<float>(q, c, scal, out, n_cells, cap, cw, iso, gm,
                                                    outlier, piece, keep_all, s);
 }

@@ -103,6 +103,35 @@ def _softened(r, inv_r, h_avg, inv_h):
     return soft_g, soft_p
 
 
+def joint_near(d2, h_q, h_c):
+    """Where a close pair's two gravity corrections are taken as one term
+    (ROADMAP D21): d2 <= (h_q + h_c)^2, the gravity mask r <= 2 h_avg
+    squared, on effective h (h > 0 ? h : 1). Every operation rounds on its
+    own, as in the kernels' `joint_near` (csrc/common.cuh), so K2's joint
+    mode, the tail kernel's skip mode and their plain versions decide it
+    alike."""
+    hs = h_q + h_c
+    return d2 <= hs * hs
+
+
+def joint_term(d2, h_avg, sigma):
+    """(force over r, potential) of a close pair's two gravity corrections,
+    softened - Newtonian plus Newtonian - mesh shape, summed in float64 and
+    rounded once to d2's dtype (ROADMAP D21, as D12 takes them in K5): the
+    1/r^3 and 1/r parts of the two cancel. At d2 = 0 (the self pair) the
+    force is 0 and the potential the softened self term plus
+    sqrt(2/pi)/sigma."""
+    d2w = d2.double()
+    sep = d2w > 0
+    inv_rw = torch.where(sep, torch.rsqrt(torch.where(sep, d2w, 1.0)), 0.0)
+    h_avgw = h_avg.double()
+    soft_gw, soft_pw = _softened(d2w * inv_rw, inv_rw, h_avgw, 1.0 / h_avgw)
+    tgw, tpw = newton_minus_mesh(d2w, inv_rw, sigma)
+    cg = (soft_gw - inv_rw * inv_rw * inv_rw) + tgw
+    cp = (soft_pw + inv_rw) + tpw
+    return cg.to(d2.dtype), cp.to(d2.dtype)
+
+
 def pair_sums_plain(q, c, m, alpha, beta, sigma, r_c_now, *, eos: str, p3m: bool):
     """The pair terms of the block engine on broadcast tiles: q = 11 query
     fields (x y z vx vy vz mask h rho P/rho^2 cs), each (..., Q, 1); c = 10

@@ -22,6 +22,11 @@ a time, and splits the (query, candidate) pairs over its threads by
 `thread_plan`; a query's slice partials are added in slice order.
 `tail_shared_bytes` is its shared memory, `tail_budget` checks it against
 the card.
+
+`skip_joint=True` (with K2's joint mode, float32 under P3M, ROADMAP D21)
+takes a fifth plane, h, and leaves out every pair of the inner 27 cells
+(|d| <= 1 cell in each axis) that `cuda_grouped_pairs.joint_near` puts in
+K2's joint term, the self slot included: K2 adds those pairs' term 2.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from ..physics.mesh_gravity import newton_minus_mesh
 from . import build
+from .cuda_grouped_pairs import joint_near
 
 launches = 0  # kernel launches made by p3m_tail (CUDA tensors only)
 
@@ -57,15 +63,17 @@ def thread_plan(nq: int, threads: int = TAIL_THREADS) -> tuple[int, int, int]:
     return r, -(-nq // r), s[r]
 
 
-def tail_shared_bytes(halfwidth: int, chunk: int, dtype) -> int:
+def tail_shared_bytes(halfwidth: int, chunk: int, dtype, skip: bool = False) -> int:
     """Dynamic shared memory of one CTA (the kernel's `tail_smem`): `chunk`
-    staged (x, y, z, slot) records and the stencil's count prefix."""
+    staged (x, y, z, slot) records, with `skip` their h, and the stencil's
+    count prefix."""
     span = 2 * halfwidth + 1
-    return chunk * max(16, 4 * dtype.itemsize) + (span**3 + 1) * 4
+    rec = max(16, 4 * dtype.itemsize) + (dtype.itemsize if skip else 0)
+    return chunk * rec + (span**3 + 1) * 4
 
 
 def tail_budget(cap: int, halfwidth: int, dtype, smem_optin: int,
-                chunk: int = TAIL_CHUNK) -> int:
+                chunk: int = TAIL_CHUNK, skip: bool = False) -> int:
     """The chunk of a launch: `chunk`, checked against the card's opt-in
     shared memory and the kernel's limits (cap <= MAX_CAP; chunk >= 4
     TAIL_THREADS, the slice partials reuse the staged records). Raises where
@@ -75,7 +83,7 @@ def tail_budget(cap: int, halfwidth: int, dtype, smem_optin: int,
             f"p3m_tail: cap {cap} (<= {MAX_CAP}), halfwidth {halfwidth} (>= 1) and chunk "
             f"{chunk} (>= {4 * TAIL_THREADS}) out of the kernel's range"
         )
-    need = tail_shared_bytes(halfwidth, chunk, dtype)
+    need = tail_shared_bytes(halfwidth, chunk, dtype, skip)
     if need > smem_optin:
         raise ValueError(f"p3m_tail: {need} B of shared memory exceed {smem_optin} B")
     return chunk
@@ -104,12 +112,21 @@ def stencil_index(grid: int, cap: int, halfwidth: int, device, nz: int = None):
     return corner, offsets, centre
 
 
+def _inner_offsets(grid: int, cap: int, halfwidth: int, device):
+    """(cwc,) bool: which of `stencil_index`'s offsets lie in the inner 27
+    cells (|d| <= 1 in each axis), K2's 27-cell stencil."""
+    span = 2 * halfwidth + 1
+    d = (torch.arange(span, device=device) - halfwidth).abs() <= 1
+    dx = d.repeat_interleave(cap)
+    return (d[:, None, None] & d[None, :, None] & dx[None, None, :]).reshape(-1)
+
+
 def p3m_tail_plain(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
-                   row_chunk: int = 0, nz: int = None):
+                   row_chunk: int = 0, nz: int = None, skip_joint: bool = False):
     """Plain PyTorch version: per chunk of cell rows, gather the stencil's
     slots and broadcast (rows, cap', 1) against (rows, 1, cwc') over the
     chunk's occupied query and stencil columns only
-    (`build.occupied_columns`)."""
+    (`build.occupied_columns`). skip_joint: as p3m_tail takes it."""
     dtype, device = planes.dtype, planes.device
     nz = grid if nz is None else nz
     n_cells = nz * grid * grid
@@ -117,7 +134,9 @@ def p3m_tail_plain(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
     cwc = offsets.numel()
     if not row_chunk:
         row_chunk = max(1, 2_000_000 // max(cap * cwc, 1))
-    flat = planes.reshape(4, -1)
+    n_pl = 5 if skip_joint else 4
+    flat = planes.reshape(n_pl, -1)
+    inner = _inner_offsets(grid, cap, halfwidth, device) if skip_joint else None
     slot = torch.arange(cap, device=device)
     out = torch.zeros((4, n_cells, cap), dtype=dtype, device=device)
     zero = torch.zeros((), dtype=dtype, device=device)
@@ -130,7 +149,8 @@ def p3m_tail_plain(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
             continue
         qc = build.occupied_columns(qm)
         cidx = corner[sl, None] + offsets[None, :]
-        cidx = cidx[:, build.occupied_columns(flat[3][cidx])]
+        cc = build.occupied_columns(flat[3][cidx])
+        cidx = cidx[:, cc]
         cx, cy, cz, cm = (flat[k][cidx][:, None, :] for k in range(4))
         qx, qy, qz, qm = (flat[k][qidx[:, qc]][:, :, None] for k in range(4))
         dx = qx - cx
@@ -138,6 +158,12 @@ def p3m_tail_plain(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
         dz = qz - cz
         d2 = dx * dx + dy * dy + dz * dz
         valid = (cm > 0) & (qm > 0)
+        if skip_joint:
+            # K2's joint term holds these pairs' term 2
+            hq = flat[4][qidx[:, qc]][:, :, None]
+            hc = flat[4][cidx][:, None, :]
+            near = joint_near(d2, torch.where(hq > 0, hq, one), torch.where(hc > 0, hc, one))
+            valid = valid & ~(near & inner[cc])
         inv_r = torch.rsqrt(torch.where(d2 > 0, d2, one))
         cgp, cpp = newton_minus_mesh(d2, inv_r, sigma)
         cgp = torch.where(valid, cgp, zero)
@@ -150,17 +176,20 @@ def p3m_tail_plain(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
 
 
 def p3m_tail(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
-             chunk: int = TAIL_CHUNK, nz: int = None):
+             chunk: int = TAIL_CHUNK, nz: int = None, skip_joint: bool = False):
     """Returns (4, nz * grid^2, cap): gx, gy, gz, gphi of the tail
     correction at every query slot (zeros at unoccupied slots). planes:
     (4, nz + 2 * halfwidth, gpc, gpc * cap) x, y, z, mask with gpc = grid +
-    2 * halfwidth; nz (default grid, the mono-tile engine's cube) is the
-    number of query layers (the z-slab engine's slab). On the card,
-    `chunk` sets the records staged at a time."""
+    2 * halfwidth, (5, ...) with h after them when skip_joint; nz (default
+    grid, the mono-tile engine's cube) is the number of query layers (the
+    z-slab engine's slab). skip_joint=True leaves out the inner 27 cells'
+    pairs that K2's joint mode takes (`joint_near`). On the card, `chunk`
+    sets the records staged at a time."""
     nz = grid if nz is None else nz
     if planes.device.type != "cuda":
         return p3m_tail_plain(
-            planes, m, sigma, grid=grid, cap=cap, halfwidth=halfwidth, nz=nz
+            planes, m, sigma, grid=grid, cap=cap, halfwidth=halfwidth, nz=nz,
+            skip_joint=skip_joint,
         )
     global launches
     dtype, device = planes.dtype, planes.device
@@ -168,13 +197,17 @@ def p3m_tail(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
         raise ValueError(f"p3m_tail: unsupported dtype {dtype}")
     gpc = grid + 2 * halfwidth
     gpz = nz + 2 * halfwidth
-    build.check_tensor("planes", planes, (4, gpz, gpc, gpc * cap), dtype, device)
-    chunk = tail_budget(cap, halfwidth, dtype, build.device_limits(device)[1], chunk)
+    n_pl = 5 if skip_joint else 4
+    build.check_tensor("planes", planes, (n_pl, gpz, gpc, gpc * cap), dtype, device)
+    chunk = tail_budget(cap, halfwidth, dtype, build.device_limits(device)[1], chunk,
+                        skip_joint)
     scal = build.scalar_tensor([m, sigma], dtype, device)
     out = torch.empty((4, nz * grid * grid, cap), dtype=dtype, device=device)
     if grid == 0 or nz == 0:
         return out
     packed = torch.empty((gpz * gpc * gpc * cap * 4,), dtype=dtype, device=device)
+    packed_h = (torch.empty((gpz * gpc * gpc * cap,), dtype=dtype, device=device)
+                if skip_joint else packed)
     count = torch.empty((gpz * gpc * gpc,), dtype=torch.int32, device=device)
     lib = build.load_kernels()["p3m_tail"]
     with torch.cuda.device(device):
@@ -182,8 +215,8 @@ def p3m_tail(planes, m, sigma, *, grid: int, cap: int, halfwidth: int,
             build.pointer_array(list(planes.unbind(0))),
             scal.data_ptr(),
             build.pointer_array(list(out.unbind(0))),
-            packed.data_ptr(), count.data_ptr(),
-            grid, nz, cap, halfwidth, chunk, int(dtype == torch.float64),
+            packed.data_ptr(), packed_h.data_ptr(), count.data_ptr(),
+            grid, nz, cap, halfwidth, chunk, int(skip_joint), int(dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check("p3m_tail", code)

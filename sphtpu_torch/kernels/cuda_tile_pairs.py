@@ -38,6 +38,14 @@ sphtpu/physics/tiles.py:563-572); the gravity mask and the cull stay as
 they are. The kernel stages the mask as a ninth record plane, in a variant
 of its own: without `outlier` the launch is the kernel it was, bit for
 bit.
+
+`joint=True` (the mono-tile and z-slab engines under P3M in float32,
+ROADMAP D21) takes a pair of the gravity mask's term 1 and term 2
+(Newtonian - mesh shape) as one term, summed in float64 and rounded once
+(`joint_term`), where the mask is `joint_near`: the P3M tail kernel's skip
+mode (`p3m_tail(skip_joint=True)`) leaves out exactly those pairs, so their
+1/r^3 parts no longer cancel in two float32 sums. It takes the outlier
+masks or not, and p3m=False.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import torch
 
 from ..physics.mesh_gravity import newton_minus_mesh
 from . import build
+from .cuda_grouped_pairs import joint_near, joint_term
 
 launches = 0  # kernel launches made by phase_b_tiles (CUDA tensors only)
 
@@ -102,13 +111,13 @@ def k2_budget(cap: int, cw: int, dtype, smem_optin: int, piece: int = 0,
 
 def phase_b_tiles_plain(
     qfields, cfields, m, alpha, beta, sigma, *, eos: str, p3m: bool, cap: int,
-    outlier: bool = False, row_chunk: int = 0,
+    outlier: bool = False, joint: bool = False, row_chunk: int = 0,
 ):
     """Plain PyTorch version: broadcast (rows, cap', 1) against
     (rows, 1, cw'), row-chunked to bound the pair temporaries, over the
     chunk's occupied query and candidate columns only (cap' <= cap,
-    cw' <= cw; `build.occupied_columns`). outlier: as phase_b_tiles takes
-    it."""
+    cw' <= cw; `build.occupied_columns`). outlier, joint: as phase_b_tiles
+    takes them."""
     n_cells, cw = cfields[0].shape
     dtype = cfields[0].dtype
     device = cfields[0].device
@@ -262,9 +271,16 @@ def phase_b_tiles_plain(
                 newt_p,
             ),
         )
-        gmask = valid & (r <= 2.0 * h_avg)
-        cgp = torch.where(gmask, soft_g - newt_g, zero)
-        cpp = torch.where(gmask, soft_p - newt_p, zero)
+        if joint:
+            # terms 1 and 2 of a close pair as one float64 term
+            gmask = valid & joint_near(d2, h_q, h_c)
+            jg, jp = joint_term(d2, h_avg, sigma)
+            cgp = torch.where(gmask, jg, zero)
+            cpp = torch.where(gmask, jp, zero)
+        else:
+            gmask = valid & (r <= 2.0 * h_avg)
+            cgp = torch.where(gmask, soft_g - newt_g, zero)
+            cpp = torch.where(gmask, soft_p - newt_p, zero)
         if p3m:
             # term 2 (Newtonian - mesh shape), the c_halfwidth == 1 geometry
             tg, tp = newton_minus_mesh(d2, inv_r, sigma)
@@ -286,6 +302,7 @@ def phase_b_tiles(
     p3m: bool,
     cap: int,
     outlier: bool = False,
+    joint: bool = False,
     piece: int = 0,
     keep_all: bool = False,
 ):
@@ -295,18 +312,22 @@ def phase_b_tiles(
     False. outlier=True applies the outlier masks: a slot whose mask is 2
     is an outlier, whose forward pairs (as the query) and reverse pairs (as
     the candidate) are dropped; it takes p3m=False only (the mono engine's
-    term 2 is the tail kernel's). On the card, piece overrides
+    term 2 is the tail kernel's). joint=True (needs sigma, p3m=False) takes
+    a pair's term 1 and term 2 as one float64 term inside `joint_near`,
+    the pairs `p3m_tail(skip_joint=True)` leaves out. On the card, piece overrides
     `k2_budget`'s and keep_all=True keeps every occupied pair (no cull);
     neither changes a result."""
     if eos not in ("polytropic", "isothermal"):
         raise ValueError(f"unknown EOS {eos!r}")
-    if p3m and sigma is None:
-        raise ValueError("p3m=True needs sigma")
+    if (p3m or joint) and sigma is None:
+        raise ValueError("p3m=True and joint=True need sigma")
+    if p3m and joint:
+        raise ValueError("phase_b_tiles: joint=True takes p3m=False")
     c0 = cfields[0]
     if c0.device.type != "cuda":
         return phase_b_tiles_plain(
             qfields, cfields, m, alpha, beta, sigma, eos=eos, p3m=p3m, cap=cap,
-            outlier=outlier,
+            outlier=outlier, joint=joint,
         )
     global launches
     n_cells, cw = c0.shape
@@ -336,7 +357,8 @@ def phase_b_tiles(
             build.pointer_array(list(cfields)),
             scal.data_ptr(),
             build.pointer_array(list(outs)),
-            n_cells, cap, cw, int(eos == "isothermal"), int(p3m), int(outlier), piece,
+            n_cells, cap, cw, int(eos == "isothermal"), 2 if joint else int(p3m),
+            int(outlier), piece,
             int(keep_all),
             int(dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream,

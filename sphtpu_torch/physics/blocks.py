@@ -73,6 +73,24 @@ R_OWN_MARGIN = 1.45
 # refit margin ladder (block_args_for_spec): full margin first, then mild
 # degradation; the per-evaluation certificate still guards correctness
 REFIT_MARGINS = (R_OWN_MARGIN, 1.38, 1.30)
+# drift margin on the P3M tail radius r_c (ROADMAP D19; the reference
+# covers r_c with none, F6). The phase-B certificate asks for
+# max(2 h, r_c_now) <= coverage - drift at every evaluation of a plan, and
+# a plan serves one ML_SUBCHUNK (2 steps): its last evaluation (the second
+# half-step) lies 1.5 steps after the plan. Over those 1.5 steps:
+# * the query and its partner each drift at most 0.15 r_k a step (the CFL
+#   bound R_OWN_MARGIN uses); a row whose box is sized by r_c has
+#   r_k < r_c / R_OWN_MARGIN, so each drifts < 0.225 r_c / 1.45 = 0.155 r_c,
+#   both 0.31 r_c;
+# * r_c grows with the domain (r_c ~ _domain_half), whose half-edge grows
+#   by at most the outermost row's drift, 0.225 of its r_k; r_k <= half / 4
+#   on the committed collapse states (0.24 and 0.26 at most), so r_c grows
+#   by < 6 %.
+# 1 + 0.31 + 0.06 = 1.37. The certificate subtracts the largest drift of
+# the candidate's whole octave (dmax_o), not the partner's, so round up:
+# 1.5. It scales the r_c term alone; the REFIT_MARGINS ladder degrades
+# only the own-ball term.
+R_TAIL_MARGIN = 1.5
 # block-list granularity
 BLK_GRAN = 8
 
@@ -142,14 +160,16 @@ def _snap_grid(g):
 
 
 def _geometry(pos, h, oct_grids, gf, *, gravity, mesh_factor, sigma_cells,
-              margin=R_OWN_MARGIN):
+              margin=R_OWN_MARGIN, tail_margin=1.0):
     """State-dependent planning geometry for FIXED grids: candidate
     packing (order_c + per-octave prefix tables), per-row octave boxes,
     and an O(1) box-count oracle. Shared by plan_blocks (fresh spec) and
     block_args_for_spec (refresh into a compiled spec). `margin` scales
     the own-ball coverage term (refits degrade it stepwise to keep a
     drifted state inside the compiled bucket shapes — see
-    block_args_for_spec)."""
+    block_args_for_spec); `tail_margin` scales the P3M tail radius term
+    (1.0, the reference's, covers r_c with no drift margin; the run loop
+    passes R_TAIL_MARGIN)."""
     n = pos.shape[0]
     rk = 2.0 * h
     half = float(np.abs(pos).max()) * (1 + 1e-6) + 1e-30
@@ -159,7 +179,7 @@ def _geometry(pos, h, oct_grids, gf, *, gravity, mesh_factor, sigma_cells,
     oct_id = np.searchsorted(edges, rk, side="right").astype(np.int32)
 
     if gravity == "p3m":
-        r_c = 4.4 * sigma_cells * (2.0 * half / (mesh_factor * gf))
+        r_c = 4.4 * sigma_cells * (2.0 * half / (mesh_factor * gf)) * tail_margin
     else:
         r_c = 0.0
 
@@ -373,10 +393,12 @@ def plan_blocks(
     fine_grid: int = 0,
     shards: int = 1,
     slots_max: float = 6e9,
+    tail_margin: float = 1.0,
 ):
     """Build (spec, BlockArgs-as-numpy) for the current state, or None
     when some block's requirement exceeds the C menu / slots_max (caller
-    keeps the strip engines)."""
+    keeps the strip engines). tail_margin: `_geometry`'s (1.0 is the
+    reference's plan; the run loop passes R_TAIL_MARGIN, ROADMAP D19)."""
     pos = np.asarray(pos, np.float64)
     h = np.asarray(h, np.float64)
     rk = 2.0 * h
@@ -405,6 +427,7 @@ def plan_blocks(
     geo = _geometry(
         pos, h, oct_grids, gf,
         gravity=gravity, mesh_factor=mesh_factor, sigma_cells=sigma_cells,
+        tail_margin=tail_margin,
     )
     if geo is None:
         return None
@@ -491,13 +514,14 @@ def last_refit_fail():
 
 
 def block_args_for_spec(pos, h, spec, *, gravity="exact", mesh_factor=5,
-                        sigma_cells=2.2):
+                        sigma_cells=2.2, tail_margin=1.0):
     """Refresh BlockArgs for an ALREADY-COMPILED spec from the current
     state, or None when the state no longer fits it (a block's
     requirement exceeds every bucket with a free slot, a box outgrows a
     bucket's static run extents, or the octave count changed). This is
     the compile hysteresis: grids and bucket shapes come from the spec;
-    only the traced contents (packing, boxes, prefix tables) rebuild."""
+    only the traced contents (packing, boxes, prefix tables) rebuild.
+    tail_margin: `_geometry`'s, at every rung of the margin ladder."""
     _REFIT_TLS.reason = None
     pos = np.asarray(pos, np.float64)
     h = np.asarray(h, np.float64)
@@ -521,7 +545,7 @@ def block_args_for_spec(pos, h, spec, *, gravity="exact", mesh_factor=5,
         geo = _geometry(
             pos, h, oct_grids, gf,
             gravity=gravity, mesh_factor=mesh_factor,
-            sigma_cells=sigma_cells, margin=margin,
+            sigma_cells=sigma_cells, margin=margin, tail_margin=tail_margin,
         )
         if geo is None:
             _REFIT_TLS.reason = (

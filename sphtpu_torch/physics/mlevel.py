@@ -41,6 +41,7 @@ import torch
 from scipy.ndimage import binary_dilation
 
 from ..kernels import W, grad_W_over_r, softened_gphi_over_r, softened_phi
+from ..kernels.cuda_grouped_pairs import joint_near, joint_term
 from ..kernels.cuda_strip_knn import N_BISECT, phase_a_cells
 from ..profiling import stage
 from .blocks import N_BISECT_F64
@@ -777,11 +778,13 @@ def _phase_a_bucket(PA, act, g, gp, cap, cap_b, s, half, m, kh, n_bisect):
     return (a.reshape(k, g, cap_b) for a in (h, rho, ok))
 
 
-def _pairs_b(q, c, lf, m, eos, alpha, beta, big):
+def _pairs_b(q, c, lf, m, eos, alpha, beta, big, sigma=None):
     """The reference's phase-B pair sums for query fields q (13 of
     (R, cap_b, 1)) against candidate fields c (13 of (R, 1, W)) in
     level_planes order: (ax, ay, az, div, mu_max, visc, gx, gy, gz, gphi),
-    each (R, cap_b)."""
+    each (R, cap_b). sigma (joint mode, ROADMAP D21): a pair of the
+    gravity mask, then `joint_near`, takes its term 1 and the tail's term 2
+    as one float64 term (`joint_term`); phase C leaves it out."""
     qx, qy, qz, qvx, qvy, qvz, qm, qs, qh, qrk2, qrho, qpor2, qcs = q
     cx, cy, cz, cvx, cvy, cvz, cm, cspec, ch, crk2, crho, cpor2, ccs = c
     zero = torch.zeros((), dtype=qx.dtype, device=qx.device)
@@ -834,12 +837,18 @@ def _pairs_b(q, c, lf, m, eos, alpha, beta, big):
 
     # near-field gravity correction: pairs whose coarser member is species
     # l (residual pairs excluded: their species is L)
-    r_safe = torch.where(d2 > 0, r, one)
-    newt_g = torch.where(d2 > 0, 1.0 / r_safe**3, zero)
-    newt_p = torch.where(d2 > 0, -1.0 / r_safe, zero)
-    gmask = valid & (torch.maximum(qs, cspec) == lf) & (r <= 2.0 * h_avg)
-    cgp = torch.where(gmask, softened_gphi_over_r(r, h_avg) - newt_g, zero)
-    cpp = torch.where(gmask, softened_phi(r, h_avg) - newt_p, zero)
+    if sigma is not None:
+        gmask = valid & (torch.maximum(qs, cspec) == lf) & joint_near(d2, h_q, h_c)
+        jg, jp = joint_term(d2, h_avg, sigma)
+        cgp = torch.where(gmask, jg, zero)
+        cpp = torch.where(gmask, jp, zero)
+    else:
+        r_safe = torch.where(d2 > 0, r, one)
+        newt_g = torch.where(d2 > 0, 1.0 / r_safe**3, zero)
+        newt_p = torch.where(d2 > 0, -1.0 / r_safe, zero)
+        gmask = valid & (torch.maximum(qs, cspec) == lf) & (r <= 2.0 * h_avg)
+        cgp = torch.where(gmask, softened_gphi_over_r(r, h_avg) - newt_g, zero)
+        cpp = torch.where(gmask, softened_phi(r, h_avg) - newt_p, zero)
     return (
         ax, ay, az, div_t, mu_max_t, visc_t,
         m * torch.sum(cgp * dx, dim=-1),
@@ -849,18 +858,36 @@ def _pairs_b(q, c, lf, m, eos, alpha, beta, big):
     )
 
 
-def _pairs_c(q, c, m, sigma):
+def _pairs_c(q, c, m, sigma, n_levels=0):
     """The reference's phase-C (Newtonian - mesh shape) sums for query
     fields q (x, y, z, mask of (R, cap_b, 1)) against candidates c (of
-    (R, 1, W)): (gx, gy, gz, gphi), each (R, cap_b)."""
-    qx, qy, qz, qm = q
-    cx, cy, cz, cm = c
+    (R, 1, W)): (gx, gy, gz, gphi), each (R, cap_b). n_levels > 0 (joint
+    mode, ROADMAP D21): the fields go on with h, the species and, per level,
+    the row's cell (x, y, z; NaN where the level dropped the row), and a
+    pair that phase B took jointly is left out: not residual, both rows
+    binned at the level of the coarser species and one cell apart there at
+    most, and `joint_near` (phase B's own test on the same values)."""
+    qx, qy, qz, qm = q[:4]
+    cx, cy, cz, cm = c[:4]
     zero = torch.zeros((), dtype=qx.dtype, device=qx.device)
     dx = qx - cx
     dy = qy - cy
     dz = qz - cz
     d2 = dx * dx + dy * dy + dz * dz
     valid = (cm > 0) & (qm > 0)
+    if n_levels:
+        one = torch.ones((), dtype=qx.dtype, device=qx.device)
+        hq, hc = q[4], c[4]
+        lmax = torch.maximum(q[5], c[5])
+        took = torch.zeros_like(valid)
+        for lv in range(n_levels):
+            near = lmax == lv
+            for a in range(3):
+                k = 6 + 3 * lv + a
+                near = near & ((q[k] - c[k]).abs() <= 1.0)
+            took = took | near
+        took = took & joint_near(d2, torch.where(hq > 0, hq, one), torch.where(hc > 0, hc, one))
+        valid = valid & ~took
     inv_r = torch.rsqrt(torch.where(d2 > 0, d2, torch.ones_like(d2)))
     cgp, cpp = newton_minus_mesh(d2, inv_r, sigma)
     cgp = torch.where(valid, cgp, zero)
@@ -945,6 +972,7 @@ def mlevel_forces_body(
     spec: tuple,
     mesh_factor: int = 5,
     sigma_cells: float = 2.2,
+    joint_gravity: bool = False,
     shard: int = 0,
     n_shards: int = 1,
 ):
@@ -965,7 +993,12 @@ def mlevel_forces_body(
     on the level-0 planes (level 0 is certified opacity-free). mlargs:
     numpy (the planner's) or device MLArgs. Each stage runs inside
     profiling.stage (NVTX): "phase_a", "phase_b", "phase_c",
-    "residual_knn", "residual_forces"."""
+    "residual_knn", "residual_forces".
+
+    joint_gravity=True (what the run loop passes; ROADMAP D21): in float32
+    under P3M, phase B takes a close pair's term 1 and term 2 as one
+    float64 term and phase C leaves that pair out; the default, and float64
+    always, add them in the two phases, as the reference does (F8)."""
     levels, res_budget, mesh_level, c_buckets = spec
     c_hw = _c_halfwidth(mesh_factor, sigma_cells)
     L = len(levels)
@@ -1167,7 +1200,7 @@ def mlevel_forces_body(
         res_rows, binfo, a_planes, s_l, Hrow, RHOrow, rows_ok, half,
         eos=eos, gamma=gamma, cs0=cs0, alpha=alpha, beta=beta, kh=kh,
         mesh_factor=mesh_factor, sigma_cells=sigma_cells, c_hw=c_hw,
-        n_shards=n_shards, shard_ids=shard_ids,
+        n_shards=n_shards, shard_ids=shard_ids, joint_gravity=joint_gravity,
     ))
 
 
@@ -1175,6 +1208,7 @@ def _mlevel_tail(
     pos, vel, m, K, h_hint, mlargs, levels, mesh_level, c_buckets, species,
     res_rows, binfo, a_planes, s_l, Hrow, RHOrow, rows_ok, half, *, eos, gamma,
     cs0, alpha, beta, kh, mesh_factor, sigma_cells, c_hw, n_shards, shard_ids,
+    joint_gravity=False,
 ):
     """Phases B/C + residual lane + merge (continuation of
     mlevel_forces_body, split as in the reference; a generator body)."""
@@ -1211,6 +1245,9 @@ def _mlevel_tail(
     div_row = torch.zeros((n,), dtype=dtype, device=dev)
     mu_row = torch.zeros((n,), dtype=dtype, device=dev)
     gg = torch.zeros((4, n), dtype=dtype, device=dev)
+    # joint mode: a close pair's two gravity corrections in phase B alone
+    joint = joint_gravity and mesh_level == 0 and dtype == torch.float32
+    sigma_j = (s_l[0] / mesh_factor) * sigma_cells if joint else None
 
     with stage("phase_b"):
         for l, (g, cap, buckets) in enumerate(levels):
@@ -1228,7 +1265,7 @@ def _mlevel_tail(
             lf = float(l)
 
             def body(q, c, lf=lf):
-                return _pairs_b(q, c, lf, m, eos, alpha, beta, big)
+                return _pairs_b(q, c, lf, m, eos, alpha, beta, big, sigma_j)
 
             for bi, (cap_b, _, _) in enumerate(buckets):
                 _sweep_strips(planes, shard_ids(mlargs.act_b[l][bi]), g, gp, cap, cap_b, 3, 6,
@@ -1262,6 +1299,7 @@ def _mlevel_tail(
                 # phase-A planes (pad 1; they hold ALL binned particles)
                 gpc = g0 + 2
                 planes_c = a_planes[0][0:4]
+                slot_c = binfo[0]["slot"]
             else:
                 gpc = g0 + 2 * c_hw
                 slot_c = ((c0[:, 2] + c_hw) * gpc + c0[:, 1] + c_hw) * gpc * cap0 + (
@@ -1271,10 +1309,24 @@ def _mlevel_tail(
                     [pos[:, 0], pos[:, 1], pos[:, 2], torch.ones((n,), dtype=dtype, device=dev)]
                 )
                 planes_c = _level_planes(vals, [0.0] * 4, slot_c, gpc**3 * cap0)
+            n_lv = 0
+            if joint:
+                # h, species and each level's cell of every row, for the
+                # pairs phase B took (NaN: the level dropped the row)
+                n_lv = L
+                nan = torch.full((), float("nan"), dtype=dtype, device=dev)
+                extra = [Hrow, species.to(dtype)] + [
+                    torch.where(binfo[lv]["dropped"], nan, binfo[lv]["c"][:, a].to(dtype))
+                    for lv in range(L) for a in range(3)
+                ]
+                planes_c = torch.cat([
+                    planes_c,
+                    _level_planes(torch.stack(extra), [0.0] * len(extra), slot_c, gpc**3 * cap0),
+                ])
             cgrids = torch.zeros((4, g0 * g0 + 1, g0, cap0), dtype=dtype, device=dev)
 
             def body_c(q, c):
-                return _pairs_c(q, c, m, sigma)
+                return _pairs_c(q, c, m, sigma, n_lv)
 
             for (cap_b, _), c_ids in zip(c_buckets, mlargs.act_c):
                 _sweep_strips(planes_c, shard_ids(c_ids), g0, gpc, cap0, cap_b, c_depth, 3, 4,

@@ -373,16 +373,19 @@ def _extract(st: TileStack, outs, Hq, RHOq, CSq, *, eos, cs0):
     return red, (GX, GY, GZ, GP)
 
 
-def _tail_planes(pos, st: TileStack, w: int) -> torch.Tensor:
-    """x, y, z, mask at the particles' slots with a w-cell halo: the input
-    layout of kernels/cuda_p3m_tail (gpc = G + 2w)."""
+def _tail_planes(pos, st: TileStack, w: int, h=None) -> torch.Tensor:
+    """x, y, z, mask (and h, when given: the skip mode's fifth plane) at
+    the particles' slots with a w-cell halo: the input layout of
+    kernels/cuda_p3m_tail (gpc = G + 2w)."""
     n = pos.shape[0]
     g, cap = st.grid, st.cap
     gpc = g + 2 * w
-    out = torch.zeros((4, gpc, gpc, gpc * cap), dtype=pos.dtype, device=pos.device)
-    out[:, st.pz + (w - 1), st.py + (w - 1), st.px + (w - 1) * cap] = torch.cat(
-        [pos.T, torch.ones((1, n), dtype=pos.dtype, device=pos.device)]
-    )
+    rows = [pos.T, torch.ones((1, n), dtype=pos.dtype, device=pos.device)]
+    if h is not None:
+        rows.append(h[None].to(pos.dtype))
+    rows = torch.cat(rows)
+    out = torch.zeros((rows.shape[0], gpc, gpc, gpc * cap), dtype=pos.dtype, device=pos.device)
+    out[:, st.pz + (w - 1), st.py + (w - 1), st.px + (w - 1) * cap] = rows
     return out
 
 
@@ -404,6 +407,7 @@ def tile_sph_forces(
     mesh_factor: int = 0,
     sigma_cells: float = 2.2,
     outlier_budget: int = 0,
+    joint_gravity: bool = False,
     device=None,
 ):
     """(ReducedForces, (gx, gy, gz, phi) near-gravity corrections, ok).
@@ -424,10 +428,17 @@ def tile_sph_forces(
     sweeps (physics/outliers.py), the block's kept-pair count; with no
     outlier row the evaluation is the one without a budget. Without a
     budget there is no host synchronisation: ok is a device scalar.
+
+    joint_gravity=True (what the run loop passes; ROADMAP D21): in float32
+    under P3M, K2 takes a close pair's (r <= 2 h_avg) term 1 and term 2 as
+    one term summed in float64 (`phase_b_tiles(joint=True)`) and the tail
+    leaves those pairs out (`p3m_tail(skip_joint=True)`); the default, and
+    float64 always, add them in two sweeps, as the reference does (F8).
     device=None means the card."""
     require_on(resolve_device(device), pos, vel)
     dtype = pos.dtype
     n_cells = grid**3
+    joint = joint_gravity and mesh_factor > 0 and dtype == torch.float32
     with stage("tiles_bin"):
         st = _tile_stack(pos, vel, grid, cap)
 
@@ -461,27 +472,30 @@ def tile_sph_forces(
             RHOq[oc, orank] = rho_out.to(dtype)
             OKq[oc, orank] = 1.0
     rows_ok = torch.all(OKq > 0) & budget_ok
+    sigma = (st.s / mesh_factor) * sigma_cells if mesh_factor > 0 else None
     with stage("phase_b"):
         CSq = _stack_sph_fields(st, Hq, RHOq, K, eos=eos, gamma=gamma, cs0=cs0)
         # phase B: the pair kernel over every cell row at the full capacity;
         # with the lane, outlier queries leave its forward mask and outlier
-        # candidates its reverse mask
+        # candidates its reverse mask; joint: a close pair's term 2 too
         outs = torch.stack(
             phase_b_tiles(
                 tuple(st.qpl[f, :n_cells] for f in range(11)),
                 tuple(st.pre_rows[f, :n_cells] for f in range(11)),
-                m, alpha, beta, None, eos=eos, p3m=False, cap=cap,
-                outlier=out_rows is not None,
+                m, alpha, beta, sigma if joint else None, eos=eos, p3m=False, cap=cap,
+                outlier=out_rows is not None, joint=joint,
             )
         )
 
     if mesh_factor > 0:
-        # phase C: the P3M tail, term 2 (Newtonian - mesh shape)
+        # phase C: the P3M tail, term 2 (Newtonian - mesh shape); joint:
+        # without the pairs phase B took it for
         with stage("phase_c"):
             w = tail_halfwidth(mesh_factor, sigma_cells)
-            sigma = (st.s / mesh_factor) * sigma_cells
+            h_slot = Hq[st.cell_row, st.rank] if joint else None
             outs[6:] += p3m_tail(
-                _tail_planes(pos, st, w), m, sigma, grid=grid, cap=cap, halfwidth=w
+                _tail_planes(pos, st, w, h_slot), m, sigma, grid=grid, cap=cap,
+                halfwidth=w, skip_joint=joint,
             )
 
     red, gcorr = _extract(st, outs, Hq, RHOq, CSq, eos=eos, cs0=cs0)

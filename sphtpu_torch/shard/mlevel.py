@@ -54,10 +54,11 @@ def _newton_rows_sharded(pos, m, shard: int, n_shards: int):
     return (yield request("psum", (g, phi)))
 
 
-def make_ml_chunk_runner(cfg: EngineConfig, mesh):
+def make_ml_chunk_runner(cfg: EngineConfig, mesh, joint_gravity: bool = False):
     """chunk(state, p, h0, mlargs, n_steps) -> (state, stats (S, 10), valid
     (S,), cert_fail (S,), h_last, rho_last) running the multi-level engine
-    work-sharded over `mesh` (plan it with plan_mlevel(shards=len(mesh)))."""
+    work-sharded over `mesh` (plan it with plan_mlevel(shards=len(mesh))).
+    joint_gravity: mlevel_forces_body's (ROADMAP D21)."""
     assert cfg.mlevel is not None
     n_shards = len(mesh)
 
@@ -66,7 +67,8 @@ def make_ml_chunk_runner(cfg: EngineConfig, mesh):
             pos, vel, p.m, K, h_hint, mlargs,
             eos=cfg.eos, gamma=p.gamma, cs0=p.cs0, alpha=p.alpha, beta=p.beta,
             kh=cfg.kh, spec=cfg.mlevel, mesh_factor=cfg.mesh_factor,
-            sigma_cells=cfg.sigma_cells, shard=shard, n_shards=n_shards,
+            sigma_cells=cfg.sigma_cells, joint_gravity=joint_gravity, shard=shard,
+            n_shards=n_shards,
         ))
 
     def to_device(mlargs, dtype, device):

@@ -419,13 +419,17 @@ def _ring_sendrecv(payloads_up, payloads_dn, n_dev: int, hops: int):
 QMASK = 11  # the query-mask plane (local rows only)
 
 
-def make_slab_force_eval(cfg: EngineConfig, plan: SlabPlan):
+def make_slab_force_eval(cfg: EngineConfig, plan: SlabPlan, joint_gravity: bool = False):
     """Per-shard force evaluation: eval(p, shard, pos_l, vel_l, K_l,
     valid_l, ghat) is a generator body (run it under `run_spmd`, one a
     shard) that returns (acc, aux dict incl. phi, ok) for the shard's
     rows (aux also holds g, the softened gravity that acc subtracts). ok
     is a replicated 0-d bool: False on any shard's certification failure
-    means the result must be discarded."""
+    means the result must be discarded. joint_gravity=True: in float32
+    under P3M, K2 takes a close pair's two gravity corrections as one
+    float64 term and the tail leaves the pair out (ROADMAP D21, as
+    physics/tiles.tile_sph_forces does); the default, and float64 always,
+    add them in the two kernels, as the reference does."""
     g, cap, Hh = plan.grid, plan.cap, plan.halo
     hops, B, n_loc, n_dev = plan.hops, plan.budget, plan.n_loc, plan.n_dev
     z0s = [int(z) for z in plan.z0s]
@@ -440,6 +444,7 @@ def make_slab_force_eval(cfg: EngineConfig, plan: SlabPlan):
 
     def eval_forces(p: Params, shard: int, pos_l, vel_l, K_l, valid_l, ghat):
         dtype, dev = pos_l.dtype, pos_l.device
+        joint = joint_gravity and p3m and dtype == torch.float32
         z0 = z0s[shard]
         lz = z0s[shard + 1] - z0
         half = torch.as_tensor(plan.half, dtype=dtype, device=dev)
@@ -546,7 +551,15 @@ def make_slab_force_eval(cfg: EngineConfig, plan: SlabPlan):
         dns2 = [_gather_rows(fields2, *sel[2 * (r - 1) + 1]) for r in range(1, hops + 1)]
         recv2 = yield from _ring_sendrecv(ups2, dns2, n_dev, hops)
 
-        # ---- phase B (K2): forces + near-gravity correction term 1 ----
+        # ---- the global half for the mesh and the tail width (joint: K2
+        # needs the tail's sigma) ----
+        if p3m:
+            amax = torch.max(torch.where(valid_l[:, None], torch.abs(pos_l), zero))
+            half_now = (yield request("pmax", amax)) * (1.0 + 1e-6) + 1e-30
+            sigma = (2.0 * half_now / g / cfg.mesh_factor) * cfg.sigma_cells
+
+        # ---- phase B (K2): forces + near-gravity correction term 1 (with
+        # joint, a close pair's term 2 too) ----
         with stage("phase_b"):
             halo2 = torch.cat(recv2, dim=0)  # (2*hops*B, 4)
             pl = torch.zeros((4, Z + 1, gp, gp * cap), dtype=dtype, device=dev)
@@ -559,34 +572,35 @@ def make_slab_force_eval(cfg: EngineConfig, plan: SlabPlan):
             qf[MASK] = qmask
             outs = torch.stack(phase_b_tiles(
                 tuple(qf), tuple(pre_rows[f] for f in range(11)),
-                p.m, p.alpha, p.beta, None, eos=cfg.eos, p3m=False, cap=cap,
+                p.m, p.alpha, p.beta, sigma if joint else None, eos=cfg.eos, p3m=False,
+                cap=cap, joint=joint,
             ))
             del pre, pre_rows, qpl, qf
 
-        # ---- far field: the global half for the mesh and the tail width ----
+        # ---- far field ----
         if p3m:
-            amax = torch.max(torch.where(valid_l[:, None], torch.abs(pos_l), zero))
-            half_now = (yield request("pmax", amax)) * (1.0 + 1e-6) + 1e-30
             with stage("phase_c"):
-                # ---- phase C (the tail kernel): (Newtonian - mesh shape) ----
+                # ---- phase C (the tail kernel): (Newtonian - mesh shape);
+                # joint: without the pairs phase B took it for ----
                 w = tail_halfwidth(cfg.mesh_factor, cfg.sigma_cells)
-                sigma = (2.0 * half_now / g / cfg.mesh_factor) * cfg.sigma_cells
                 gpc = g + 2 * w
-                tp = torch.zeros((4, qz + 2 * w + 1, gpc, gpc * cap), dtype=dtype, device=dev)
+                n_pl = 5 if joint else 4
+                tp = torch.zeros((n_pl, qz + 2 * w + 1, gpc, gpc * cap), dtype=dtype, device=dev)
                 off = w - 2  # plane-local layer zl sits at zl - 2 + w
-                for (zz, yy, xx), rank, live, vals in (
-                    ((zl, yc, xc), rank_l, live_l, pos_l),
-                    ((hzl, hcell[:, 1], hcell[:, 0]), rank_h, live_h, hpos),
+                for (zz, yy, xx), rank, live, vals, hv in (
+                    ((zl, yc, xc), rank_l, live_l, pos_l, h_p),
+                    ((hzl, hcell[:, 1], hcell[:, 0]), rank_h, live_h, hpos, halo2[:, 0]),
                 ):
                     tz = zz + off
                     keep = live & (tz >= 0) & (tz < qz + 2 * w)
+                    rows = [vals.T, torch.ones((1, vals.shape[0]), dtype=dtype, device=dev)]
+                    if joint:
+                        rows.append(hv[None])
                     tp[:, torch.where(keep, tz, qz + 2 * w), yy + w,
-                       (xx + w) * cap + torch.clamp_max(rank, cap - 1)] = torch.cat(
-                        [vals.T, torch.ones((1, vals.shape[0]), dtype=dtype, device=dev)]
-                    )
+                       (xx + w) * cap + torch.clamp_max(rank, cap - 1)] = torch.cat(rows)
                 outs[6:] += p3m_tail(
                     tp[:, : qz + 2 * w].contiguous(), p.m, sigma, grid=g, cap=cap,
-                    halfwidth=w, nz=qz,
+                    halfwidth=w, nz=qz, skip_joint=joint,
                 )
                 del tp
             g_far, phi_far = yield from _p3m_mesh_sharded(
@@ -660,7 +674,7 @@ def _p3m_mesh_sharded(pos_l, w_l, valid_l, ghat, half, *, gm: int, pad: int):
 # ---------------------------------------------------------------------------
 
 
-def make_slab_chunk_runner(cfg: EngineConfig, plan: SlabPlan, mesh):
+def make_slab_chunk_runner(cfg: EngineConfig, plan: SlabPlan, mesh, joint_gravity: bool = False):
     """chunk(states, p, n_steps) -> (states', stats (S, 10), valid (S,),
     cert_fail (S,), h_rows, rho_rows): states is `pack_state`'s per-shard
     list (on a mesh across processes, the rank's shards' only:
@@ -671,10 +685,10 @@ def make_slab_chunk_runner(cfg: EngineConfig, plan: SlabPlan, mesh):
     once per force evaluation. A failed evaluation freezes the chunk: the
     step is not committed, reports cert_fail, and the rest of the chunk is
     skipped, so the host can re-plan the slabs and resume. Stats rows
-    match polytrope_sim.jl:202."""
+    match polytrope_sim.jl:202. joint_gravity: make_slab_force_eval's."""
     if len(mesh) != plan.n_dev:
         raise ValueError(f"plan for {plan.n_dev} shards on a mesh of {len(mesh)}")
-    eval_forces = make_slab_force_eval(cfg, plan)
+    eval_forces = make_slab_force_eval(cfg, plan, joint_gravity)
     n_total = cfg.n
     # this process's shards: all of them, or a rank's slice (shard/dist.py)
     shards, devs = local_shards(mesh), local_devices(mesh)

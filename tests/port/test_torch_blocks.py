@@ -794,3 +794,88 @@ def test_fallback_none_discards_failed_steps():
     assert float(state.t) == 0.0 and not stats.any() and not rho_last.any()
     np.testing.assert_array_equal(state.pos.numpy(), shifted)
     np.testing.assert_array_equal(h_last.numpy(), h0)
+
+
+# ------------------------------------------- (10) the tail radius's margin
+def test_tail_margin_certifies_under_drift():
+    """ROADMAP D19 (the repair of F6): core_halo planned under p3m with
+    the drift margin on the tail radius (tail_margin=R_TAIL_MARGIN, what
+    the run loop passes), then expanded by 1 % and moved by a drift of
+    0.05 h a row (seeded): the port's certificate holds, where the plan
+    without the margin fails (the reference's, kept by the default: its
+    plan still equals the reference planner's), and the forces equal the
+    port's gather engine within
+    test_forces_f64_match_reference_and_gather's bars. The gravity
+    corrections, which carry the tail radius that the margin covers, equal
+    two evaluations of the moved state on a fresh plan of it (no margin):
+    the port's, at that test's exact-gravity bars (a pair the margin plan
+    left out, even one at the tail radius, would show), and the
+    reference's, at 2e-6 of the scale: one pair sits at a row's ball edge
+    (r = 2 h to the last bit) where the two libraries' rsqrt round apart,
+    so its ownership weight differs (that test's note; 1.4e-6 of the
+    scale here)."""
+    from sphtpu_torch.physics import sph_forces
+
+    pos, vel, K, h0, spec_ref, args_ref = _plan("core_halo", "p3m")
+    kh = SCENES["core_halo"][1]
+    spec0, args0 = TB.plan_blocks(pos, h0, kh, gravity="p3m")
+    assert spec0 == spec_ref
+    _assert_args_equal(args0, args_ref)
+    spec, args = TB.plan_blocks(pos, h0, kh, gravity="p3m", tail_margin=TB.R_TAIL_MARGIN)
+    rng = np.random.default_rng(29)
+    p1 = 1.01 * pos + 0.05 * h0[:, None] * rng.standard_normal(pos.shape)
+    kw = _kw("core_halo", "p3m", "polytropic")
+    m = 1.0 / pos.shape[0]
+    _, _, ok0 = TB.block_sph_forces(t(p1), t(vel), m, t(K), t(h0), args0, spec=spec0, **kw)
+    red, gcorr, ok = TB.block_sph_forces(t(p1), t(vel), m, t(K), t(h0), args, spec=spec, **kw)
+    assert bool(ok) and not bool(ok0)
+    spec1, args1 = TB.plan_blocks(p1, h0, kh, gravity="p3m")
+    _, gcorr1, ok1 = TB.block_sph_forces(t(p1), t(vel), m, t(K), t(h0), args1, spec=spec1, **kw)
+    jd = jnp.float64
+    _, gcorr_r, ok_r = RB.block_sph_forces(
+        *(jnp.asarray(x, jd) for x in (p1, vel)), m, *(jnp.asarray(x, jd) for x in (K, h0)),
+        _ref_args(args1, jd), spec=spec1, **kw)
+    assert bool(ok1) and bool(ok_r)
+    for a, b, c in zip(gcorr, gcorr1, gcorr_r):
+        b, c = b.numpy(), np.asarray(c)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-9, atol=1e-11 * np.abs(b).max())
+        np.testing.assert_allclose(a.numpy(), c, rtol=1e-9, atol=2e-6 * np.abs(c).max())
+    orc = sph_forces(t(p1), t(vel), m, t(K), eos="polytropic", kh=kh, cs0=0.0, **PHYS)
+    np.testing.assert_allclose(red.h.numpy(), orc.h.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(red.rho.numpy(), orc.rho.numpy(), rtol=1e-11)
+    for k in ("acc", "div_sum", "visc_dk"):
+        b = getattr(orc, k).numpy()
+        np.testing.assert_allclose(getattr(red, k).numpy(), b, rtol=1e-9,
+                                   atol=1e-11 * np.abs(b).max(), err_msg=k)
+    np.testing.assert_allclose(red.mu_max.numpy(), orc.mu_max.numpy(), rtol=1e-9, atol=1e-13)
+
+
+# ------------------------------- (11) the work-sharded engine under p3m
+def test_workshard_p3m_eval_matches_reference():
+    """The block engine's evaluation work-sharded over two CPU shards
+    (physics/blocks.block_forces_body with its shard arguments, run in
+    lock step) under p3m against the reference's single-device XLA
+    evaluation of the same plan (the module's cached call): the bars of
+    test_forces_f64_match_reference_and_gather under p3m."""
+    from sphtpu_torch.shard.collectives import run_spmd
+
+    pos, vel, K, h0, spec, args = _plan("core_halo", "p3m")
+    kw = _kw("core_halo", "p3m", "polytropic")
+    bargs = TB.block_args_to_device(args, torch.float64, "cpu")
+    outs = run_spmd([
+        TB.block_forces_body(t(pos), t(vel), 1.0 / pos.shape[0], t(K), t(h0), bargs,
+                             spec=spec, shard=k, n_shards=2, **kw)
+        for k in range(2)
+    ])
+    red, gcorr, ok = outs[0]
+    assert all(bool(o[2]) for o in outs)
+    ref = _ref_forces("core_halo", "p3m", "polytropic", "float64", "xla")
+    assert ref["ok"]
+    np.testing.assert_allclose(red.h.numpy(), ref["h"], rtol=1e-12)
+    np.testing.assert_allclose(red.rho.numpy(), ref["rho"], rtol=1e-11)
+    for k in ("acc", "div_sum", "visc_dk", "mu_max", "cs"):
+        sc = np.abs(ref[k]).max()
+        np.testing.assert_allclose(getattr(red, k).numpy(), ref[k], rtol=1e-9,
+                                   atol=1e-11 * sc, err_msg=k)
+    for a, b in zip(torch.stack(gcorr).numpy(), ref["gcorr"]):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-7 * np.abs(b).max())

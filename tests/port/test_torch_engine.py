@@ -17,6 +17,7 @@ from scipy.spatial import cKDTree
 
 import sphtpu.engine as ref_engine
 from sphtpu.physics.ctiles import choose_tile_classes
+from sphtpu_torch import cli
 from sphtpu.physics.tiles import choose_tile_params
 from sphtpu.scenes.generators import boss_bodenheimer
 from sphtpu_torch.engine import (
@@ -324,3 +325,153 @@ def test_plan_engine_follows_the_reference_ladder(scene, gravity, kh):
         np.testing.assert_array_equal(bargs.order_q, blk[1].order_q)
     assert (bargs is None) == (cfg.blocks is None)
     assert cfg.gravity == gravity
+
+
+# ------------------------------------------- a chunk ends at its first fallback
+def _stale_after_first_step(scene, monkeypatch):
+    """From the third force evaluation on (the second step), the class
+    engine is given the starved class list of `_ref_cfg(starve=True)`: a
+    stale plan whose certificate fails."""
+    import sphtpu_torch.engine.step as step_mod
+
+    starved = _ref_cfg(scene, "polytropic", "ctiles", starve=True).tile_classes
+    orig = step_mod.ctile_sph_forces
+    calls = []
+
+    def stale(*a, classes, **kw):
+        calls.append(classes)
+        return orig(*a, classes=starved if len(calls) > 2 else classes, **kw)
+
+    monkeypatch.setattr(step_mod, "ctile_sph_forces", stale)
+
+
+@pytest.mark.parametrize("fallback", ["gather", "none"])
+def test_chunk_stops_at_first_fallback(scene, monkeypatch, fallback):
+    """stop_at_fallback=True (ROADMAP D20): a 4-step chunk whose plan goes
+    stale after step 1 ends at step 2, the step that fell back. It equals
+    the reference's chunk cut there, to _assert_chunks_equal's bars: under
+    "gather" its first 2 steps (the certified step and the step the
+    fallback computes are both the gather engine's function: the
+    reference's gather config, its runner of STEPS steps run for 2), valid;
+    under "none" its first step, then the discarded step (state and h those
+    of step 1, stats and rho zeroed), which alone is not valid. Steps 3 and
+    4 do not run."""
+    pos, vel, K, h0, _ = scene
+    _stale_after_first_step(scene, monkeypatch)
+    cfg_ref = _ref_cfg(scene, "polytropic", "ctiles", fallback=fallback)
+    out = make_chunk_runner(config_from_reference(dataclasses.asdict(cfg_ref)), device="cpu",
+                            stop_at_fallback=True)(
+        state_from_numpy(pos, vel, K, 0.0, dtype="float64", device="cpu"),
+        params_from_numpy(**PARAMS, dtype="float64", device="cpu"), torch.from_numpy(h0), 4)
+    assert out[5].tolist() == [0, 2, 0, 0]
+    assert out[2].tolist() == [True, fallback == "gather", False, False]
+    assert not out[1][2:].any()
+
+    jd = jnp.float64
+    k = 2 if fallback == "gather" else 1
+    ref = _ref_runner(_ref_cfg(scene, "polytropic", "gather"))(
+        ref_engine.State(pos=jnp.asarray(pos, jd), vel=jnp.asarray(vel, jd),
+                         K=jnp.asarray(K, jd), t=jnp.asarray(0.0, jd)),
+        ref_engine.Params(**{k_: jnp.asarray(v, jd) for k_, v in PARAMS.items()}),
+        jnp.asarray(h0, jd), n_steps=k, scan_length=STEPS)
+    stats = np.zeros((4, 10))
+    stats[:k] = np.asarray(ref[1])[:k]
+    rho = np.asarray(ref[4]) if fallback == "gather" else np.zeros(N)
+    _assert_chunks_equal(out, (ref[0], stats, out[2].numpy(), ref[3], rho,
+                               np.array([0, 2, 0, 0])))
+
+
+def test_run_simulation_replans_after_a_fallback(tmp_path, monkeypatch):
+    """run_simulation on the CPU with the second chunk's plan starved (its
+    cached config is made to look stale once, and the fresh plan is a class
+    list far too small): that chunk ends at its first step, whose two
+    evaluations fell back, and the next chunk takes the run loop's own plan
+    again; the run reaches max_steps = 5 with 2 fallback evaluations and the
+    snapshots of the cadence (1, then every 3 steps, then the last: the
+    ids of a run without the repair, whose second chunk would run all 3 of
+    its steps on the gather engine)."""
+    from sphtpu_torch.engine import driver
+
+    root = str(tmp_path)
+    common = ["--EOS", "polytropic", "--ic_type", "boss_bodenheimer", "--root", root]
+    assert cli.main(["--generate", *common, "--kwargs", "N=1000,Kh=24"]) == 0
+    starved, checks = [], []
+    real_plan, real_ok = driver.plan_engine, driver.tile_params_still_ok
+
+    def plan(*a, **kw):
+        got = real_plan(*a, **kw)
+        assert got is not None and got[0].tile is not None, "the scene plans a tile engine"
+        if not starved and checks:  # the second chunk's plan
+            c = got[0]
+            starved.append(EngineConfig(n=c.n, kh=c.kh, eos=c.eos, dtype=c.dtype,
+                                        tile=(3, 32), tile_classes=((32, 8),)))
+            return starved[0], None
+        return got
+
+    def still_ok(*a, **kw):
+        checks.append(1)
+        return real_ok(*a, **kw) and len(checks) > 1
+
+    monkeypatch.setattr(driver, "plan_engine", plan)
+    monkeypatch.setattr(driver, "tile_params_still_ok", still_ok)
+    assert cli.main(["--run", *common, "--snapID", "1", "--snapInterval", "3", "--keepSnaps",
+                     "true", "--showPlots", "false", "--max-steps", "5", "--quiet",
+                     "--device", "cpu"]) == 0
+    res = cli.LAST_RUN
+    assert starved and res["steps"] == 5
+    assert [c[0] for c in res["chunk_walls"]] == [1, 1, 2, 1]
+    assert [c[2] for c in res["chunk_walls"]] == [0, 2, 0, 0]
+    assert res["fallback_evals"] == 2
+    cfgs = res["chunk_configs"]
+    assert cfgs[1] == starved[0] and cfgs[2] != starved[0] and cfgs[3] != starved[0]
+    assert res["snapshot_ids"] == [1, 4, 5]
+
+
+def test_run_simulation_drops_a_declined_block_spec(tmp_path, monkeypatch):
+    """run_simulation's pick on the block engine (the chunk itself stubbed:
+    it advances t and reports every step valid): each chunk tries the
+    cached block configs; one whose refit declines is dropped and a fresh
+    plan taken, and the dropped config is not refit at any later pick. Each
+    fresh plan's config is made distinct (its mesh_factor, which exact
+    gravity does not use), and each refits once and then declines (the
+    second and fourth refits). The state does not move, so a config kept
+    after its decline would refit at the next pick and be taken again."""
+    from sphtpu_torch.engine import State, driver
+    from sphtpu_torch.physics.blocks import plan_blocks
+
+    root = str(tmp_path)
+    common = ["--EOS", "polytropic", "--ic_type", "boss_bodenheimer", "--root", root]
+    assert cli.main(["--generate", *common, "--kwargs", "N=1000,Kh=24"]) == 0
+    plans, refits = [], []
+    real_refit = driver.block_args_for_spec
+
+    def plan(pos, h, *, n, kh, eos, dtype, gravity, **kw):
+        spec, args = plan_blocks(pos, h, kh, gravity=gravity, **kw)
+        plans.append(EngineConfig(n=n, kh=kh, eos=eos, dtype=dtype, blocks=spec,
+                                  mesh_factor=5 + len(plans)))
+        return plans[-1], args
+
+    def refit(pos, h, spec, **kw):
+        refits.append(spec)
+        return None if len(refits) in (2, 4) else real_refit(pos, h, spec, **kw)
+
+    def stub(cfg, **kw):
+        def chunk(state, p, h, n_steps, mlargs=None):
+            z = torch.zeros(n_steps, dtype=torch.int64)
+            return (State(state.pos, state.vel, state.K, state.t + 1e-9 * n_steps),
+                    torch.zeros((n_steps, 10), dtype=state.pos.dtype), z == 0, h,
+                    torch.ones_like(h), z)
+        return chunk
+
+    monkeypatch.setattr(driver, "plan_engine", plan)
+    monkeypatch.setattr(driver, "block_args_for_spec", refit)
+    monkeypatch.setattr(driver, "make_chunk_runner", stub)
+    assert cli.main(["--run", *common, "--snapID", "1", "--keepSnaps", "false",
+                     "--showPlots", "false", "--max-steps", "12", "--quiet",
+                     "--device", "cpu"]) == 0
+    res = cli.LAST_RUN
+    assert res["steps"] == 12 and [c[0] for c in res["chunk_walls"]] == [2] * 6
+    # chunk 2 refits plan 0; chunk 3's refit of it declines: plan 1, which
+    # chunk 4 refits alone; chunk 5's refit of it declines: plan 2
+    assert len(plans) == 3 and len(refits) == 5
+    assert res["chunk_configs"] == [plans[0], plans[0], plans[1], plans[1], plans[2], plans[2]]

@@ -54,6 +54,7 @@ def _free_reference_caches():
     programs."""
     yield
     _ref_forces.cache_clear()
+    _ref_chunk.cache_clear()
     _plan.cache_clear()
     jax.clear_caches()
     gc.collect()
@@ -250,6 +251,22 @@ def _ref_params(m):
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_chunk():
+    """The reference's chunk runner on the exact plan's state: its gather
+    engine (the oracle of tests/test_mlevel.py's chunk test) for
+    ML_SUBCHUNK steps, as numpy (state.pos, stats, h_last); one compile a
+    module, shared by the chunk tests."""
+    pos, vel, K, h0, _, _ = _plan("exact")
+    n = N_SCENE
+    st = RefState(pos=jnp.asarray(pos), vel=jnp.asarray(vel), K=jnp.asarray(K),
+                  t=jnp.asarray(0.0))
+    out_r = ref_chunk_runner(RefConfig(n=n, kh=KH_SCENE, eos="polytropic", dtype="float64"))(
+        st, _ref_params(1.0 / n), jnp.asarray(h0), n_steps=driver.ML_SUBCHUNK
+    )
+    return np.asarray(out_r[0].pos), np.asarray(out_r[1]), np.asarray(out_r[3])
+
+
 def test_chunk_matches_reference_and_refreshes_args():
     """A 2-step chunk (ML_SUBCHUNK) through the port's chunk runner on the
     multi-level engine against the reference's chunk runner (its gather
@@ -268,19 +285,14 @@ def test_chunk_matches_reference_and_refreshes_args():
         params_from_numpy(**par, dtype="float64", device="cpu"),
         t(h0), steps, args,
     )
-    st = RefState(pos=jnp.asarray(pos), vel=jnp.asarray(vel), K=jnp.asarray(K),
-                  t=jnp.asarray(0.0))
-    out_r = ref_chunk_runner(RefConfig(n=n, kh=KH_SCENE, eos="polytropic", dtype="float64"))(
-        st, _ref_params(m), jnp.asarray(h0), n_steps=steps
-    )
+    pos_r, stats_r, h_r = _ref_chunk()
     assert int(out[5].sum()) == 0, "no fallbacks expected"
     assert bool(out[2].all())
-    pos_r = np.asarray(out_r[0].pos)
     np.testing.assert_allclose(
         out[0].pos.numpy(), pos_r, rtol=1e-8, atol=1e-10 * np.abs(pos_r).max()
     )
-    np.testing.assert_allclose(out[1].numpy(), np.asarray(out_r[1]), rtol=1e-7)
-    np.testing.assert_allclose(out[3].numpy(), np.asarray(out_r[3]), rtol=1e-12)
+    np.testing.assert_allclose(out[1].numpy(), stats_r, rtol=1e-7)
+    np.testing.assert_allclose(out[3].numpy(), h_r, rtol=1e-12)
 
     pos2, h2 = out[0].pos.numpy(), out[3].numpy()
     args2 = TM.mlevel_args_still_ok(pos2, h2, spec)
@@ -336,3 +348,53 @@ def test_plan_engine_reaches_mlevel_when_blocks_decline(gravity, monkeypatch):
     assert cfg.mlevel == spec and cfg.blocks is None and cfg.tile is None
     assert cfg.gravity == gravity and driver.engine_name(cfg) == "mlevel"
     _assert_args_equal(mlargs, args)
+
+
+@pytest.mark.parametrize("n_shards", [2])
+def test_workshard_chunk_matches_reference(n_shards):
+    """A 2-step chunk (ML_SUBCHUNK) of the multi-level engine work-sharded
+    over two CPU shards (shard/mlevel.make_ml_chunk_runner, the plan made
+    with plan_mlevel(shards=2)) against the reference's chunk runner on the
+    same state (the module's cached call: its gather engine, the oracle of
+    the reference's own multi-level chunk test) with
+    test_chunk_matches_reference_and_refreshes_args' bars: no certificate
+    fails, every step is valid."""
+    from sphtpu_torch.shard.collectives import particle_mesh
+    from sphtpu_torch.shard.mlevel import make_ml_chunk_runner
+
+    pos, vel, K, h0, _, _ = _plan("exact")
+    n = N_SCENE
+    spec, args = TM.plan_mlevel(pos, h0, KH_SCENE, gravity="exact", shards=n_shards)
+    cfg = EngineConfig(n=n, kh=KH_SCENE, eos="polytropic", dtype="float64", mlevel=spec)
+    par = dict(m=1.0 / n, cs0=0.0, U0=0.0, t_end=1e9, **PHYS)
+    st, stats, valid, cert, h_last, _ = make_ml_chunk_runner(
+        cfg, particle_mesh(["cpu"] * n_shards))(
+        state_from_numpy(pos, vel, K, 0.0, dtype="float64", device="cpu"),
+        params_from_numpy(**par, dtype="float64", device="cpu"), t(h0), args,
+        driver.ML_SUBCHUNK)
+    pos_r, stats_r, h_r = _ref_chunk()
+    assert not bool(cert.any()) and bool(valid.all())
+    np.testing.assert_allclose(st.pos.numpy(), pos_r, rtol=1e-8,
+                               atol=1e-10 * np.abs(pos_r).max())
+    np.testing.assert_allclose(stats.numpy(), stats_r, rtol=1e-7)
+    np.testing.assert_allclose(h_last.numpy(), h_r, rtol=1e-12)
+
+
+def test_joint_gravity_float32_within_the_float64_bar():
+    """mlevel_sph_forces under p3m in float32 with joint_gravity=True (what
+    the run loop passes; ROADMAP D21: phase B takes a close pair's term 1
+    and term 2 as one float64 term, phase C leaves that pair out) against
+    the reference's float64 evaluation (the module's cached call): the
+    gravity corrections within 2e-5 of their scale, h within 1e-6 and rho
+    1e-5 relative."""
+    pos, vel, K, h0, spec, args = _plan("p3m")
+    ref, ref_gcorr, ref_ok = _ref_forces("p3m", "polytropic")
+    _, kw = _inputs("polytropic")
+    red, gcorr, ok = TM.mlevel_sph_forces(
+        *(t(a).float() for a in (pos, vel)), 1.0 / N_SCENE, t(K).float(), t(h0).float(), args,
+        spec=spec, joint_gravity=True, **kw)
+    assert ref_ok and bool(ok)
+    np.testing.assert_allclose(red.h.double().numpy(), ref["h"], rtol=1e-6)
+    np.testing.assert_allclose(red.rho.double().numpy(), ref["rho"], rtol=1e-5)
+    for a, b in zip(gcorr, ref_gcorr):
+        assert np.abs(a.double().numpy() - b).max() <= 2e-5 * np.abs(b).max()

@@ -478,3 +478,78 @@ def test_cli_steps_run_on_the_outlier_rung(tmp_path, monkeypatch):
     assert res["fallback_evals"] == 0
     assert all(c.outlier_budget > 0 for c in res["chunk_configs"])
     assert np.isfinite(res["last_stats_cgs"]).all()
+
+
+# ------------------------------------ a close pair's two corrections, joint
+@pytest.mark.parametrize("mesh_factor,outlier", [(10, True), (5, False)])
+def test_joint_and_skip_plain_equal_the_two_sweeps(mesh_factor, outlier):
+    """ROADMAP D21 in float64: K2's joint mode (a pair inside the gravity
+    mask takes term 1 and term 2 as one term) plus the tail's skip mode
+    (those pairs left out), as plain versions on the scene's slot layout
+    with its KD-tree h (tail W = 1 and 2; K2 with and without its outlier
+    masks), equal K2's term 1 plus the tail over every pair — the
+    reference's two sweeps, which the module's and test_torch_tiles'
+    tests hold against the reference — within 1e-12 of each output's
+    scale; each pair of the 27-cell stencil lies in exactly one of the
+    two."""
+    from sphtpu_torch.kernels.cuda_p3m_tail import p3m_tail_plain
+    from sphtpu_torch.physics.mesh_gravity import tail_halfwidth
+    from sphtpu_torch.physics.tiles import H, _tail_planes
+
+    pos, vel, _, h0, (g, cap, _) = _scene()
+    p64 = t(pos.astype(np.float64))
+    st = _tile_stack(p64, t(vel.astype(np.float64)), g, cap)
+    rng = np.random.default_rng(4)
+    h_row = t(h0.astype(np.float64))
+    st.planes[H, st.pz, st.py, st.px] = h_row
+    for f in range(H + 1, 11):  # rho, P/rho^2, cs at the occupied slots
+        v = st.planes.new_tensor(0.5 + rng.random(st.planes[f].shape))
+        st.planes[f] = torch.where(st.planes[MASK] > 0, v, 0.0)
+    if outlier:  # the scene's outlier slots marked, as the lane marks them
+        _, _, mask, _ = _split(pos, h0, g)
+        st.planes[MASK, st.pz, st.py, st.px] += t(mask.astype(np.float64))
+    _fill(st, MASK, 11)
+    n_cells = g**3
+    qf = tuple(st.qpl[f, :n_cells] for f in range(11))
+    cf = tuple(st.pre_rows[f, :n_cells] for f in range(11))
+    w = tail_halfwidth(mesh_factor, 2.2)
+    sigma = float(st.s) / mesh_factor * 2.2
+    m = 1.0 / N
+    kw = dict(eos="polytropic", p3m=False, cap=cap, outlier=outlier)
+    split = torch.stack(phase_b_tiles_plain(qf, cf, m, 1.0, 2.0, None, **kw)[6:])
+    joint = torch.stack(phase_b_tiles_plain(qf, cf, m, 1.0, 2.0, sigma, joint=True, **kw)[6:])
+    tkw = dict(grid=g, cap=cap, halfwidth=w)
+    tail_all = p3m_tail_plain(_tail_planes(p64, st, w), m, sigma, **tkw)
+    tail_skip = p3m_tail_plain(_tail_planes(p64, st, w, h_row), m, sigma, skip_joint=True,
+                               **tkw)
+    assert not torch.equal(tail_all, tail_skip), "the layout has pairs inside the mask"
+    for a, b in zip(joint + tail_skip, split + tail_all):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("eos", ["polytropic", "isothermal"])
+def test_joint_gravity_float32_within_the_float64_bar(eos):
+    """tile_sph_forces with its outlier budget under p3m in float32 with
+    joint_gravity=True (what the run loop passes; ROADMAP D21) against the
+    reference's float64 evaluation: the gravity corrections within 2e-5 of
+    their scale, the bar of every other output (the module's float32 case
+    without it needs 6e-5: F8), and every other output within the module's
+    float32 bars."""
+    ref, gcorr_r, ok_r = _ref(eos, "p3m")
+    pos, vel, K, h0, (g, cap, budget) = _scene()
+    f = np.float32
+    out, gcorr, ok = tile_sph_forces(
+        *(t(a.astype(f)) for a in (pos, vel)), f(1.0 / N), t(K.astype(f)), t(h0.astype(f)),
+        eos=eos, grid=g, cap=cap, mesh_factor=MESH["p3m"], outlier_budget=budget,
+        joint_gravity=True, device="cpu", **PHYS,
+    )
+    assert ok_r and bool(ok)
+    for name, b in ref.items():
+        a = getattr(out, name).numpy()
+        if name in ("h", "rho"):
+            _close(a, b, rtol={"h": 1e-6, "rho": 1e-5}[name], name=name)
+        else:
+            _close(a, b, scale_tol=2e-5, name=name)
+    for a, b in zip(gcorr, gcorr_r):
+        _close(a.numpy(), b, scale_tol=2e-5, name="gcorr")

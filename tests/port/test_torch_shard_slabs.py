@@ -201,3 +201,52 @@ def test_slab_cert_fail_freezes_state():
     assert bool(cert[0]) and not bool(valid.any())
     for a, b in zip(sl, sl2):
         assert torch.equal(a.pos, b.pos) and torch.equal(a.K, b.K)
+
+
+def _slab_gcorr(dtype, joint_gravity, n_dev=2):
+    """One P3M evaluation over n_dev shards at `dtype` with the far field
+    left out (the mesh solve runs, its result is dropped): g and phi are
+    then the near-field corrections that K2 and the tail sum, as row
+    arrays (gx, gy, gz, phi)."""
+    import sphtpu_torch.shard.tiles as shard_tiles
+
+    cfg = dataclasses.replace(_cfg("polytropic", "p3m"),
+                              dtype={torch.float32: "float32", torch.float64: "float64"}[dtype])
+    plan = plan_slabs(POS, H0, KH, n_dev)
+    mesh = particle_mesh(["cpu"] * n_dev)
+    ev = make_slab_force_eval(cfg, plan, joint_gravity=joint_gravity)
+    p = params_from_numpy(**PARAMS, dtype=cfg.dtype, device="cpu")
+    ghat = greens_hat(cfg.mesh_pad, cfg.sigma_cells, dtype, "cpu")
+    mesh_far = shard_tiles._p3m_mesh_sharded
+
+    def near_only(*a, **kw):
+        g, phi = yield from mesh_far(*a, **kw)
+        return torch.zeros_like(g), torch.zeros_like(phi)
+
+    shard_tiles._p3m_mesh_sharded = near_only
+    try:
+        st = state_from_numpy(POS, VEL, K, 0.0, dtype=cfg.dtype, device="cpu")
+        res = run_spmd([ev(p, k, s.pos, s.vel, s.K, s.valid, ghat)
+                        for k, s in enumerate(pack_state(st, plan, mesh))])
+    finally:
+        shard_tiles._p3m_mesh_sharded = mesh_far
+    assert all(bool(r[2]) for r in res)
+    g = unpack_rows(torch.cat([r[1]["g"] for r in res]).double().numpy(), plan, N)
+    phi = unpack_rows(torch.cat([r[1]["phi"] for r in res]).double().numpy(), plan, N)
+    return [g[:, 0], g[:, 1], g[:, 2], phi]
+
+
+def test_slab_joint_gravity_float32_within_the_float64_bar():
+    """ROADMAP D21 on the slab engine: one P3M evaluation over 2 shards in
+    float32 with joint_gravity=True (what the run loop passes: K2's joint
+    mode, the tail's skip mode, with the halo rows' h from the exchange)
+    against the same evaluation in float64 (the two sweeps, as the
+    reference adds them; its force level is
+    test_slab_force_eval_p3m_force_level's): the near-field gravity
+    corrections within 2e-5 of their scale, the bar of the mono and
+    multi-level engines' cases. A pair counted in both kernels or in
+    neither would miss it by orders of magnitude (its term 1 and term 2
+    each carry the pair's 1/r^2)."""
+    ref = _slab_gcorr(torch.float64, False)
+    for a, b in zip(_slab_gcorr(torch.float32, True), ref):
+        assert np.abs(a - b).max() <= 2e-5 * np.abs(b).max()

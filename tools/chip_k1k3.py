@@ -41,7 +41,11 @@ share), K5 at other work-unit sizes (`unit_table`'s `unit_slots`), K3
 at other plans (rows a thread R, column slices S), K2 at other piece
 sizes (`piece`) and the tail at other staging chunks (`chunk`).
 --kernels limits the run to the kernels named (all by default).
---outputs saves K5's and K6's outputs on those inputs to OUT; `same`
+K2's joint mode and the tail's skip mode (ROADMAP D21, the run loop's
+launches on the P3M path: `k2_p3m_joint`, `tail_p3m_skip`) are timed for a
+tree whose wrappers take them.
+--outputs saves K2's, the tail's, K5's and K6's outputs on those inputs to
+OUT; `same`
 prints, for each launch list two such files share, whether every output
 is bit-equal and otherwise the largest difference over its output's
 largest magnitude.
@@ -87,9 +91,10 @@ def capture(path: str) -> None:
     from sphtpu_torch.engine.driver import plan_engine
     from sphtpu_torch.physics import blocks, ctiles, tiles
 
-    def eval_calls(cfg, state, params, h, module, names, bargs=None):
+    def eval_calls(cfg, state, params, h, module, names, bargs=None, joint=False):
         res = {"state": state, "params": params, "h_last": h}
-        calls = cs.capture_eval_inputs(res, cfg, module, names, mlargs=bargs)
+        calls = cs.capture_eval_inputs(res, cfg, module, names, mlargs=bargs,
+                                       joint_gravity=joint)
         return [[(to_cpu(a), kw) for a, kw in calls[name]] for name in names]
 
     out = {}
@@ -143,6 +148,12 @@ def capture(path: str) -> None:
             got = eval_calls(cfg, state, params, cs.dev(h0, torch.float32), module, names)
             out.update(zip(keys, got))
             del got
+            if gravity == "p3m":
+                # the run loop's launches: K2's joint mode, the tail's skip mode
+                got = eval_calls(cfg, state, params, cs.dev(h0, torch.float32), module,
+                                 ("phase_b_tiles", "p3m_tail"), joint=True)
+                out["k2_p3m_joint"], out["tail_p3m_skip"] = got
+                del got
             torch.cuda.empty_cache()
         out["k3rc_ring"] = ring_calls(cs, state, params, pos, h0)
     out["k3_pos"] = to_cpu(state.pos)
@@ -256,8 +267,10 @@ def time_tree(tree: str, path: str, sweep: bool,
         return sum(per) / iters, launches, calls_dev
 
     def load(keys):
-        # a mono launch's `outlier=False` is dropped: a parent tree's K2 has no such keyword
-        return {key: [(to_dev(a), {k: v for k, v in kw.items() if k != "outlier" or v})
+        # a keyword off at its default (K2's `outlier` and `joint`, the tail's
+        # `skip_joint`) is dropped: a parent tree's wrapper may not take it
+        off = ("outlier", "joint", "skip_joint")
+        return {key: [(to_dev(a), {k: v for k, v in kw.items() if k not in off or v})
                       for a, kw in data[key]]
                 for key in keys}
 
@@ -272,6 +285,8 @@ def time_tree(tree: str, path: str, sweep: bool,
         k2 = load(("k2_class", "k2_exact", "k2_p3m"))
         if "k2_outlier" in data and takes(cuda_tile_pairs.phase_b_tiles, "outlier"):
             k2.update(load(("k2_outlier",)))
+        if "k2_p3m_joint" in data and takes(cuda_tile_pairs.phase_b_tiles, "joint"):
+            k2.update(load(("k2_p3m_joint",)))
         timed += [(key, cuda_tile_pairs.phase_b_tiles, calls) for key, calls in k2.items()]
     if "k4" in kernels:
         k4 = load(("k4_exact", "k4_p3m"))
@@ -279,6 +294,9 @@ def time_tree(tree: str, path: str, sweep: bool,
     if "tail" in kernels:
         tail = load(("tail_p3m",))["tail_p3m"]
         timed.append(("tail_p3m", cuda_p3m_tail.p3m_tail, tail))
+        if "tail_p3m_skip" in data and takes(cuda_p3m_tail.p3m_tail, "skip_joint"):
+            timed.append(("tail_p3m_skip", cuda_p3m_tail.p3m_tail,
+                          load(("tail_p3m_skip",))["tail_p3m_skip"]))
     k5_units = takes(cuda_grouped_pairs.phase_b_grouped, "units")
 
     def with_units(calls, unit_slots=2048):
@@ -323,7 +341,7 @@ def time_tree(tree: str, path: str, sweep: bool,
                 for i, (a, kw) in enumerate(calls)]
     if outputs:
         saved = {key: [to_cpu(fn(*a, **kw)) for a, kw in calls]
-                 for key, fn, calls in timed if key.startswith(("k5_", "k6_"))}
+                 for key, fn, calls in timed if key.startswith(("k5_", "k6_", "k2_", "tail_"))}
         torch.cuda.synchronize()
         torch.save(saved, outputs)
     if sweep and "k2" in kernels and takes(cuda_tile_pairs.phase_b_tiles, "piece"):

@@ -9,8 +9,10 @@ evaluations, the engine configs the planner used (tile and classes, or the
 block buckets; gravity, P3M from N = 150 000 on), (steps, seconds,
 fallback evaluations) and the engine of every chunk, the host planning
 seconds before every chunk (plan or block refit), the steps and seconds per
-engine, seconds a step after the first chunk without and with planning, and
-the relative energy drift."""
+engine, seconds a step after the first chunk without and with planning, the
+relative energy drift, and the block plan's refits (`block_args_for_spec`
+calls of the run loop: how many, how many declined, the first words of
+each reason, `blocks.last_refit_fail`)."""
 
 import json
 import os
@@ -24,7 +26,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from sphtpu_torch import cli  # noqa: E402
+from sphtpu_torch.engine import driver  # noqa: E402
 from sphtpu_torch.io import StatsFile  # noqa: E402
+from sphtpu_torch.physics import blocks  # noqa: E402
 
 
 def config_summary(c):
@@ -57,6 +61,15 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    refits = []
+    refit = driver.block_args_for_spec
+
+    def counted(*a, **kw):
+        out = refit(*a, **kw)
+        refits.append(None if out is not None else (blocks.last_refit_fail() or "")[:40])
+        return out
+
+    driver.block_args_for_spec = counted
     with tempfile.TemporaryDirectory() as tmp:
         common = ["--EOS", "polytropic", "--ic_type", "boss_bodenheimer", "--root", tmp]
         cli.main(["--generate", *common, "--kwargs", f"N={n}"])
@@ -66,6 +79,7 @@ def main() -> int:
         sf = StatsFile(os.path.join(tmp, "snapshots", "boss_bodenheimer", "stats"))
         hist = sf.up_to(res["steps"])
         sf.close()
+    driver.block_args_for_spec = refit
     walls = res["chunk_walls"][1:]
     plan_s = sum(res["pick_walls"][1:])
     e = hist[:, 4]
@@ -83,6 +97,8 @@ def main() -> int:
             (sum(c[1] for c in walls) + plan_s) / sum(c[0] for c in walls),
         "runtime_s_with_io": res["runtime_s"],
         "energy_drift": float(np.abs(e - e[0]).max() / abs(e[0])),
+        "block_refits": len(refits),
+        "block_refits_declined": [r for r in refits if r is not None],
         "t_cgs": res["t_cgs"],
     }))
     return 0

@@ -24,6 +24,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from sphtpu_torch.engine import EngineConfig, make_chunk_runner  # noqa: E402
+from sphtpu_torch.engine.driver import CHUNK_REPAIRS  # noqa: E402
 from sphtpu_torch.physics.tiles import choose_tile_params  # noqa: E402
 
 STEPS = 3
@@ -45,7 +46,7 @@ def main() -> int:
             print(json.dumps({"card": card, "n": n, "tile": None}), flush=True)
             continue
         runners = {
-            g: make_chunk_runner(EngineConfig(**base, tile=tile, gravity=g))
+            g: make_chunk_runner(EngineConfig(**base, tile=tile, gravity=g), **CHUNK_REPAIRS)
             for g in ("exact", "p3m")
         }
         h = chip_smoke.dev(h0, torch.float32)

@@ -8,8 +8,9 @@ N = 100 000 unless given) — or, with `collapse` / `deep`, loads the
 committed collapse state bench_data/bb_collapsed.npz (contrast 395) /
 bb_collapsed_deep.npz (contrast 1001) with the same parameters — plans the
 engine as run_simulation does (`plan_engine`; P3M gravity from N = 150 000
-on), warms up one chunk, then traces one chunk with torch.profiler and
-prints: wall seconds per step, the device's busy and idle share (device
+on; with the run loop's repairs, `driver.PLAN_REPAIRS` and
+`CHUNK_REPAIRS`: ROADMAP D19-D21), warms up one chunk, then traces one
+chunk with torch.profiler and prints: wall seconds per step, the device's busy and idle share (device
 time of the traced steps over the wall of the same steps run untraced), and
 device time by kernel name. A chunk is three steps, or ML_SUBCHUNK = 2 on
 the block engine, whose host refit of the plan before each chunk
@@ -48,7 +49,14 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from sphtpu_torch.engine import make_chunk_runner, params_from_numpy, state_from_numpy  # noqa: E402
-from sphtpu_torch.engine.driver import ML_SUBCHUNK, P3M_MIN_N, plan_engine  # noqa: E402
+from sphtpu_torch.engine.driver import (  # noqa: E402
+    CHUNK_REPAIRS,
+    EVAL_REPAIRS,
+    ML_SUBCHUNK,
+    P3M_MIN_N,
+    PLAN_REPAIRS,
+    plan_engine,
+)
 from sphtpu_torch.physics.blocks import block_args_for_spec  # noqa: E402
 
 
@@ -94,7 +102,8 @@ def main() -> int:
             base, state, params, pos, h0 = chip_smoke.load_scene(tmp, "boss_bodenheimer",
                                                                  int(arg))
     n = base["n"]
-    cfg, _ = plan_engine(pos, h0, **base, gravity="p3m" if n >= P3M_MIN_N else "exact")
+    cfg, _ = plan_engine(pos, h0, **base, gravity="p3m" if n >= P3M_MIN_N else "exact",
+                         **PLAN_REPAIRS)
     steps = ML_SUBCHUNK if cfg.blocks is not None else 3
     refit_s = []
     if not grouped and (cfg.blocks is None or shards > 1):
@@ -103,14 +112,15 @@ def main() -> int:
         return profile_ranks(card, arg, shards, ranks)
     if shards > 1:
         return profile_sharded(card, arg, base, state, params, pos, h0, cfg, steps, shards)
-    chunk = make_chunk_runner(cfg, grouped=grouped)
+    chunk = make_chunk_runner(cfg, grouped=grouped, **CHUNK_REPAIRS)
 
     def run(state, h, n_steps):
         args = None
         if cfg.blocks is not None:
             t0 = time.perf_counter()
             args = block_args_for_spec(state.pos.double().cpu().numpy(),
-                                       h.double().cpu().numpy(), cfg.blocks, gravity=cfg.gravity)
+                                       h.double().cpu().numpy(), cfg.blocks, gravity=cfg.gravity,
+                                       **PLAN_REPAIRS)
             refit_s.append(time.perf_counter() - t0)
             if args is None:
                 raise RuntimeError("the state no longer refits its block spec")
@@ -193,7 +203,7 @@ def profile_sharded(card, arg, base, state, params, pos, h0, cfg, steps, shards,
         if plan is None:
             raise RuntimeError("no slab plan for this scene")
         cfg = EngineConfig(**base, tile=(plan.grid, plan.cap), gravity=cfg.gravity)
-        chunk = shard_tiles.make_slab_chunk_runner(cfg, plan, mesh)
+        chunk = shard_tiles.make_slab_chunk_runner(cfg, plan, mesh, **EVAL_REPAIRS)
         info = {"engine": "slabs", "grid": plan.grid, "cap": plan.cap, "halo": plan.halo,
                 "hops": plan.hops, "budget": plan.budget, "n_loc": plan.n_loc}
 
@@ -217,7 +227,8 @@ def profile_sharded(card, arg, base, state, params, pos, h0, cfg, steps, shards,
                 shard_tiles.unpack_state(out[0], plan, base["n"])
                 return out[3]
     else:
-        spec, bargs = plan_blocks(pos, h0, base["kh"], gravity=cfg.gravity, shards=shards)
+        spec, bargs = plan_blocks(pos, h0, base["kh"], gravity=cfg.gravity, shards=shards,
+                                  **PLAN_REPAIRS)
         cfg = EngineConfig(**base, blocks=spec, gravity=cfg.gravity)
         chunk = make_blocks_chunk_runner(cfg, mesh)
         info = {"engine": "blocks_sharded", "buckets": [list(b) for b in spec[0]]}
@@ -278,7 +289,8 @@ def _rank_profile(rank, ranks, out, arg, shards):
                 base, state, params, pos, h0 = chip_smoke.load_scene(tmp, "boss_bodenheimer",
                                                                      int(arg))
         n = base["n"]
-        cfg, _ = plan_engine(pos, h0, **base, gravity="p3m" if n >= P3M_MIN_N else "exact")
+        cfg, _ = plan_engine(pos, h0, **base, gravity="p3m" if n >= P3M_MIN_N else "exact",
+                             **PLAN_REPAIRS)
         steps = ML_SUBCHUNK if cfg.blocks is not None else 3
         mesh = mh.global_mesh(["cuda:0"] * (shards // ranks))
         report = profile_sharded("", arg, base, state, params, pos, h0, cfg, steps, shards,
